@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``ngpd_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one output line each; any failure ends the run with a non-zero
+exit code and no result line:
+
+  card       the card's name and power limit (nvidia-smi), CUDA version
+  build      nvcc builds K0/K1/K2 from ``ngpd_tpu_torch/kernels/csrc``
+  kernels    each kernel against its plain PyTorch version on the card, at
+             the main path's shape (1M points, feature_k 32), for K2's
+             other strategy variants at 65,536 points, and at the CLI's
+             shape (100k points, window 512, feature_k 16); kernel time
+             (median of CUDA-event-timed launches), plain time, library
+             time, bound
+  main       the main path: ``ngpd_tpu_torch.bench.run``, 1M points, k 32,
+             20 iterations, lagged_nvt1; CD gate and launch counts
+  fresh_k1   65,536 points, 4 iterations, lagged_nvt1 off: K1 launches 4x
+             and the CD ratio is at most 0.35
+  reference  card against the CPU path (held against ngpd_tpu by the
+             tests) on a 16,384-point cloud
+  cli        ``python -m ngpd_tpu_torch.apps.cli denoise`` on a 100k-point
+             OBJ (the >= 100k route), then ``eval``: the CD must fall
+
+The second-to-last line is the ``kernels`` JSON record, the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ngpd_tpu_torch import bench
+from ngpd_tpu_torch.config import DenoiseConfig
+from ngpd_tpu_torch.core import hybrid_stages as hs
+from ngpd_tpu_torch.core.cuda_fused import denoise_hybrid, prologue
+from ngpd_tpu_torch.io.obj import save_obj
+from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import window as kw
+
+ROOT = Path(__file__).resolve().parent
+MAIN_N, MAIN_K, MAIN_ITERS = 1_000_000, 32, 20
+VARIANT_N = 65_536
+CLI_N = 100_000
+FRESH_GATE = 0.35
+STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
+              ("dummy", "edge", "corner"))
+# H100 SXM published peaks: HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+# Tolerances, kernel against plain version on the same card and inputs:
+# distances, masks and thresholds are computed in the same order with the
+# same rounding, so K0's thresholds and counts must match exactly; sums run
+# in another order (sequential in the kernel, blocked in the plain
+# matmuls), so they agree to a relative 1e-5 of each row's largest value.
+REL_TOL = 1e-5
+
+
+def say(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def time_launches(fn, reps: int = 25) -> float:
+    """Median ms of one launch, each bracketed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def time_once(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def row_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max error relative to each row's largest |ref|)."""
+    err = (got - ref).abs()
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    return float(err.max()), float((err / scale).max())
+
+
+def bound(n_bytes: float, ops: float) -> tuple[float, str]:
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+# Operation counts of the work each function needs (one add, multiply,
+# compare, max, sqrt, division or exp = one operation): per window pair,
+# per pair within rk_feat, per pair within rk_step.
+DIST_OPS = 9  # 3 mul, 4 add, 1 max and the -2p scale, amortised
+# K0's outputs follow from the order statistics d_(feature_k), d_(step_k),
+# d_(6) and dmax alone: count(d <= mid) >= k holds exactly when
+# d_(k) <= mid. So the least work is, per pair, the distance, the dmax
+# max, three selections at one comparison a column (Floyd-Rivest takes
+# about wt_c + k comparisons, and k << wt_c) and the sum6 pass (compare,
+# sqrt, add); and per query, 3 x 24 scalar bisection steps (add,
+# multiply, compare, select) against the selected values. K0 itself
+# pays 72 compare-and-count steps a pair; that is its design, not the
+# function's cost.
+K0_PAIR_OPS = DIST_OPS + 1 + 3 * 1 + 3
+K0_QUERY_OPS = 3 * 24 * 4
+NVT_FEAT_OPS = 6 + 7 + 6 + 5 + 7  # sym6, plain sums, n.(p_j-p_i), angle, kept sums
+
+
+def k2_step_ops(strategy, nd: int) -> int:
+    ops = 6 + 6 + 3 + 1 + 6  # s6, b_nv, sv, deg, sym6
+    ops += 42 * ("edge" in strategy) + 16 * ("flat" in strategy)
+    return ops + 29 * ("new" in strategy) + 8 * nd
+
+
+def window_dists(pack: torch.Tensor, win, chunk: int = 256):
+    """Yield (row slice, (rows, wt_c) squared window distances, column
+    validity) for ``chunk`` query blocks at a time."""
+    p = pack[0:3].T.contiguous()
+    starts = win.starts.long()
+    cols = torch.arange(win.wt_c, device=pack.device)
+    t, nb = win.tile, win.n // win.tile
+    for b in range(0, nb, chunk):
+        bs = slice(b, min(b + chunk, nb))
+        q = p[bs.start * t : bs.stop * t].view(-1, t, 3)
+        idx = starts[bs][:, None] + cols[None, :]
+        w = p[idx]
+        d = (q * q).sum(-1)[:, :, None] + (w * w).sum(-1)[:, None, :] \
+            - 2.0 * torch.bmm(q, w.transpose(1, 2))
+        valid = (idx < win.nv)[:, None, :].expand_as(d)
+        yield (slice(bs.start * t, bs.stop * t), d.clamp(min=0.0).view(-1, win.wt_c),
+               valid.reshape(-1, win.wt_c))
+
+
+def pair_counts(pack: torch.Tensor, win) -> tuple[int, int]:
+    """Valid (query, column) window pairs within rk_feat and within
+    rk_step (pack rows 6 and 7): the data-dependent part of K1's and K2's
+    work, for their operation counts. The distances come from bmm, so a
+    few pairs on a threshold may count unlike the kernels'; the bound
+    moves by far less than a percent."""
+    n_feat = n_step = 0
+    for rows, d, valid in window_dists(pack, win):
+        n_feat += int(((d <= pack[6, rows][:, None]) & valid).sum())
+        n_step += int(((d <= pack[7, rows][:, None]) & valid).sum())
+    return n_feat, n_step
+
+
+def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
+    """K0, K1, K2 against their plain versions on one prologue state."""
+    win, pack = st.win, st.pack
+    nd = len(st.needs_delta)
+    cos_rho = kw.cos_f32(cfg.angle)
+    rec = []
+
+    got0 = kw.k0(pack, win, cfg.feature_k, cfg.step_k)
+    ref0, plain0 = time_once(lambda: kw.k0_plain(pack, win, cfg.feature_k, cfg.step_k))
+    exact = torch.equal(got0[[0, 1, 3, 4, 5, 6, 7]], ref0[[0, 1, 3, 4, 5, 6, 7]])
+    e0 = row_err(got0, ref0)
+    if not exact or e0[1] > REL_TOL:
+        fail(f"K0 disagrees with k0_plain: exact={exact} err={e0}")
+    rec.append({"name": "K0", "max_abs_err": e0[0], "plain_ms": plain0})
+
+    got1 = kw.k1(pack, win, cfg.angle)
+    ref1, plain1 = time_once(lambda: kw.k1_plain(pack, win, cos_rho))
+    e1 = row_err(got1, ref1)
+    if e1[1] > REL_TOL:
+        fail(f"K1 disagrees with k1_plain: err={e1}")
+    rec.append({"name": "K1", "max_abs_err": e1[0], "plain_ms": plain1})
+
+    pack2 = hs.vu_stage(ref1, pack, cfg)
+    got2 = kw.k2(pack2, st.scal, win, cfg.angle, strategy, nd)
+    ref2, plain2 = time_once(
+        lambda: kw.k2_plain(pack2, st.scal, win, cos_rho, strategy, nd))
+    e2 = row_err(got2, ref2)
+    if e2[1] > REL_TOL:
+        fail(f"K2 {strategy} disagrees with k2_plain: err={e2}")
+    rec.append({"name": "K2", "max_abs_err": e2[0], "plain_ms": plain2})
+    if not timed:
+        return rec
+
+    n, wt_c = win.n, win.wt_c
+    rec[0]["ms"] = time_launches(lambda: kw.k0(pack, win, cfg.feature_k, cfg.step_k))
+    rec[1]["ms"] = time_launches(lambda: kw.k1(pack, win, cfg.angle))
+    rec[2]["ms"] = time_launches(
+        lambda: kw.k2(pack2, st.scal, win, cfg.angle, strategy, nd))
+
+    # Bounds from this run's shapes and data.
+    pairs = n * wt_c
+    feat1, _ = pair_counts(pack, win)
+    feat2, step2 = pair_counts(pack2, win)
+    b0 = bound(4 * n * (3 + 8), pairs * K0_PAIR_OPS + n * K0_QUERY_OPS)
+    b1 = bound(4 * n * (7 + 8), pairs * (DIST_OPS + 2) + feat1 * NVT_FEAT_OPS)
+    b2 = bound(4 * n * (8 + got2.shape[0]),
+               pairs * (DIST_OPS + 4) + feat2 * NVT_FEAT_OPS
+               + step2 * k2_step_ops(strategy, nd))
+    for r, (ms, by) in zip(rec, (b0, b1, b2)):
+        r["bound_ms"], r["bound_by"] = ms, by
+
+    # Library yardstick for K0: torch.topk's exact k-th smallest distance
+    # over the same (n, wt_c) window-distance block (built beforehand).
+    blk = torch.empty((n, wt_c), dtype=torch.float32, device=pack.device)
+    for rows, d, _ in window_dists(pack, win):
+        blk[rows] = d
+    rec[0]["library_ms"] = time_launches(
+        lambda: torch.topk(blk, cfg.feature_k, dim=1, largest=False), reps=10)
+    rec[0]["library_note"] = "torch.topk k-th smallest of the window-distance block, one of K0's three searches"
+    del blk
+    for r in rec[1:]:
+        r["library_ms"] = None
+        r["library_note"] = "no single PyTorch call computes masked, angle-filtered window sums"
+    return rec
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    # card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    say("card", name=kind, nvidia_smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda, count=torch.cuda.device_count())
+
+    # build
+    t0 = time.perf_counter()
+    paths = build.build_kernels()
+    ptxas = {}
+    for name, path in paths.items():
+        log = Path(str(path) + ".log")
+        if log.is_file():
+            ptxas[name] = [ln.split("ptxas info    : ")[-1] for ln in
+                           log.read_text().splitlines() if "Used" in ln or "spill" in ln]
+    say("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    for name in paths:
+        build.load_library(name)
+
+    # kernels against their plain versions
+    cfg = DenoiseConfig(feature_k=MAIN_K, step_k=8)
+    noisy, nrm, clean = bench.make_cloud(MAIN_N)
+    st = prologue(noisy, nrm, cfg, STRATEGIES[0], device="cuda")
+    rec = check_kernels(cfg, st, STRATEGIES[0], timed=True)
+    del st
+    say("kernels", shape=MAIN_N, tile=256, wt_c=512, records=rec)
+    vn, vnrm, _ = bench.make_cloud(VARIANT_N)
+    for strat in STRATEGIES:
+        st = prologue(vn, vnrm, cfg, strat, device="cuda")
+        errs = check_kernels(cfg, st, strat, timed=False)
+        say("kernel_variants", shape=VARIANT_N, strategy=strat,
+            max_abs_err={r["name"]: r["max_abs_err"] for r in errs})
+    # The CLI's >= 100k route: window 512 gives wt_c 1280, K0's 64-column-
+    # a-lane instantiation, and feature_k 16.
+    cli_cfg = DenoiseConfig(feature_k=16, step_k=8)
+    cn, cnrm, cclean = bench.make_cloud(CLI_N)
+    st = prologue(cn, cnrm, cli_cfg, STRATEGIES[0], window=512, device="cuda")
+    errs = check_kernels(cli_cfg, st, STRATEGIES[0], timed=False)
+    say("kernel_variants", shape=CLI_N, strategy=STRATEGIES[0], window=512,
+        wt_c=st.win.wt_c, max_abs_err={r["name"]: r["max_abs_err"] for r in errs})
+    del st
+
+    # main path
+    main_rec = bench.run(MAIN_N, MAIN_ITERS, MAIN_K, "cuda", lagged_nvt1=True)
+    say("main", **main_rec)
+    want = {"k0": 1, "k1": 1, "k2": MAIN_ITERS}
+    if main_rec["launches"] != want:
+        fail(f"main path launches {main_rec['launches']} != {want}")
+    if main_rec["quality_gate"] != "pass" or not np.isfinite(main_rec["value"]):
+        fail(f"main path CD ratio {main_rec['quality_cd_ratio']} > {bench.GATE_RATIO}")
+
+    # fresh K1 every iteration
+    fresh = bench.run(VARIANT_N, 4, MAIN_K, "cuda", lagged_nvt1=False, repeats=1)
+    say("fresh_k1", **fresh)
+    if fresh["launches"] != {"k0": 1, "k1": 4, "k2": 4}:
+        fail(f"fresh-K1 launches {fresh['launches']}")
+    # Four iterations is a smoke depth, not the gated bench depth (0.25
+    # at 20 iterations); on the H100 this cell reads 0.251, so 0.35 holds
+    # it with margin and still fails a kernel that barely moves points.
+    if not fresh["quality_cd_ratio"] <= FRESH_GATE:
+        fail(f"fresh-K1 CD ratio {fresh['quality_cd_ratio']} > {FRESH_GATE}")
+
+    # card against the CPU path on a small cloud
+    sn, snrm, _ = bench.make_cloud(16_384)
+    small = DenoiseConfig(feature_k=16, step_k=8)
+    g_p, _, g_c = denoise_hybrid(sn, snrm, small, iterations=2, device="cuda")
+    c_p, _, c_c = denoise_hybrid(sn, snrm, small, iterations=2, device="cpu")
+    diff = (g_p.cpu() - c_p).abs().amax(dim=1)
+    agree = float((g_c.cpu() == c_c).float().mean())
+    within = float((diff <= 2e-3).float().mean())
+    say("reference", n=16_384, classes_equal=agree, within_2e_3=within,
+        max_diff=float(diff.max()), finite=bool(torch.isfinite(g_p).all()))
+    if agree < 0.99 or within < 0.999 or float(diff.max()) > 2e-2 \
+            or not torch.isfinite(g_p).all():
+        fail("card and CPU paths disagree beyond the mask-flip bound")
+
+    # CLI, the >= 100k route
+    with tempfile.TemporaryDirectory() as tmp:
+        save_obj(f"{tmp}/noisy.obj", cn, cnrm)
+        save_obj(f"{tmp}/clean.obj", cclean)
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        cli = [sys.executable, "-m", "ngpd_tpu_torch.apps.cli"]
+        t0 = time.perf_counter()
+        subprocess.run([*cli, "denoise", f"{tmp}/noisy.obj", "-o", f"{tmp}/out.obj"],
+                       check=True, env=env, cwd=tmp, capture_output=True)
+        dn_s = time.perf_counter() - t0
+
+        def ev(path):
+            r = subprocess.run([*cli, "eval", f"{tmp}/clean.obj", path], check=True,
+                               env=env, cwd=tmp, capture_output=True, text=True)
+            return json.loads(r.stdout)
+
+        e_in, e_out = ev(f"{tmp}/noisy.obj"), ev(f"{tmp}/out.obj")
+    say("cli", n=CLI_N, denoise_seconds=dn_s, cd_noisy=e_in["cd"], cd_denoised=e_out["cd"])
+    if not e_out["cd"] < e_in["cd"]:
+        fail("CLI denoise did not lower the CD")
+
+    kernels = []
+    sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186)}
+    for r in rec:
+        src, line = sources[r["name"]]
+        kernels.append({
+            "name": r["name"], "route": "cuda",
+            "source": f"ngpd_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": f"ngpd_tpu/core/pallas_fused.py:{line}",
+            "launches": main_rec["launches"][src],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,230 @@
+"""Closed-form batched symmetric 3x3 eigendecomposition (torch).
+
+The same trigonometric characteristic-root formula, cross-product /
+deflation eigenvectors and eps guards as ``ngpd_tpu/ops/eigh3.py``
+(D. Eberly, "A Robust Eigensolver for 3x3 Symmetric Matrices"), written
+elementwise over tensors of any shape. Eigenvalues ascend, so ``v[0]``
+pairs with the smallest eigenvalue.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-12
+
+
+def _cross_c(a, b):
+    return (
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    )
+
+
+def _dot_c(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _norm2_c(a):
+    return _dot_c(a, a)
+
+
+def _normalize_c(a, eps=_EPS):
+    inv = 1.0 / torch.sqrt(torch.clamp(_norm2_c(a), min=eps))
+    return (a[0] * inv, a[1] * inv, a[2] * inv)
+
+
+def _select_c(cond, a, b):
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
+def _evec_from_cross_c(rows, lam):
+    """Eigenvector for ``lam`` from the largest cross product of rows of
+    (B - lam I)."""
+    r0 = (rows[0][0] - lam, rows[0][1], rows[0][2])
+    r1 = (rows[1][0], rows[1][1] - lam, rows[1][2])
+    r2 = (rows[2][0], rows[2][1], rows[2][2] - lam)
+    c01, c02, c12 = _cross_c(r0, r1), _cross_c(r0, r2), _cross_c(r1, r2)
+    n01, n02, n12 = _norm2_c(c01), _norm2_c(c02), _norm2_c(c12)
+    best12 = _select_c(n12 >= n02, c12, c02)
+    nbest12 = torch.maximum(n12, n02)
+    v = _select_c(n01 >= nbest12, c01, best12)
+    nv = torch.maximum(n01, nbest12)
+    v = _normalize_c(v)
+    one = torch.ones_like(lam)
+    zero = torch.zeros_like(lam)
+    return _select_c(nv > _EPS, v, (one, zero, zero))
+
+
+def _orthobasis_c(w):
+    swap = torch.abs(w[0]) > torch.abs(w[1])
+    inv_xz = 1.0 / torch.sqrt(torch.clamp(w[0] * w[0] + w[2] * w[2], min=_EPS))
+    inv_yz = 1.0 / torch.sqrt(torch.clamp(w[1] * w[1] + w[2] * w[2], min=_EPS))
+    zero = torch.zeros_like(w[0])
+    u_a = (-w[2] * inv_xz, zero, w[0] * inv_xz)
+    u_b = (zero, w[2] * inv_yz, -w[1] * inv_yz)
+    u = _select_c(swap, u_a, u_b)
+    v = _cross_c(w, u)
+    return u, v
+
+
+def _matvec_c(rows, x):
+    return tuple(_dot_c(r, x) for r in rows)
+
+
+def _evec_deflated_c(rows, lam, w):
+    u, v = _orthobasis_c(w)
+    bu = _matvec_c(rows, u)
+    bv = _matvec_c(rows, v)
+    m00 = _dot_c(u, bu) - lam
+    m01 = _dot_c(u, bv)
+    m11 = _dot_c(v, bv) - lam
+    use0 = torch.abs(m00) >= torch.abs(m11)
+    c0 = torch.where(use0, m01, m11)
+    c1 = torch.where(use0, -m00, -m01)
+    norm = torch.sqrt(c0 * c0 + c1 * c1)
+    ok = norm > _EPS
+    c0 = torch.where(ok, c0 / torch.clamp(norm, min=_EPS), torch.ones_like(c0))
+    c1 = torch.where(ok, c1 / torch.clamp(norm, min=_EPS), torch.zeros_like(c1))
+    return tuple(c0 * ux + c1 * vx for ux, vx in zip(u, v))
+
+
+def _roots(a00, a01, a02, a11, a12, a22):
+    """Scaled trigonometric roots shared by both entry points."""
+    scale = torch.maximum(
+        torch.maximum(
+            torch.maximum(torch.abs(a00), torch.abs(a11)),
+            torch.maximum(torch.abs(a22), torch.abs(a01)),
+        ),
+        torch.maximum(torch.abs(a02), torch.abs(a12)),
+    )
+    safe = torch.clamp(scale, min=_EPS)
+    b00, b01, b02 = a00 / safe, a01 / safe, a02 / safe
+    b11, b12, b22 = a11 / safe, a12 / safe, a22 / safe
+    q = (b00 + b11 + b22) / 3.0
+    d00, d11, d22 = b00 - q, b11 - q, b22 - q
+    p1 = b01 * b01 + b02 * b02 + b12 * b12
+    p2 = d00 * d00 + d11 * d11 + d22 * d22 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=0.0))
+    safe_p = torch.clamp(p, min=_EPS)
+    c00, c11, c22 = d00 / safe_p, d11 / safe_p, d22 / safe_p
+    c01, c02, c12 = b01 / safe_p, b02 / safe_p, b12 / safe_p
+    det_c = (
+        c00 * (c11 * c22 - c12 * c12)
+        - c01 * (c01 * c22 - c12 * c02)
+        + c02 * (c01 * c12 - c11 * c02)
+    )
+    r = torch.clamp(det_c / 2.0, -1.0, 1.0)
+    phi = torch.acos(r) / 3.0
+    lam_hi = q + 2.0 * p * torch.cos(phi)
+    lam_lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    lam_mid = 3.0 * q - lam_hi - lam_lo
+    rows = ((b00, b01, b02), (b01, b11, b12), (b02, b12, b22))
+    return scale, safe, rows, q, p, (lam_lo, lam_mid, lam_hi)
+
+
+def _unscale(scale, safe, lams):
+    nonzero = scale > 0
+    return tuple(
+        torch.where(nonzero, lam * safe, torch.zeros_like(lam)) for lam in lams
+    )
+
+
+def eigvals3x3_components(a00, a01, a02, a11, a12, a22):
+    """Eigenvalues only, ascending."""
+    scale, safe, _, _, _, lams = _roots(a00, a01, a02, a11, a12, a22)
+    return _unscale(scale, safe, lams)
+
+
+def vu_filter_components(t6, n, tau, damping):
+    """VU-smoothed normals straight from the voting tensor, in the
+    projector form ``normalize(damping*n + P n)`` with ``P`` the sum of
+    the eigenprojectors whose eigenvalue exceeds ``tau`` (see
+    ``ngpd_tpu/ops/eigh3.py::vu_filter_components``)."""
+    a00, a01, a02, a11, a12, a22 = t6
+    lam0, lam1, lam2 = eigvals3x3_components(a00, a01, a02, a11, a12, a22)
+    u = (
+        a00 * n[0] + a01 * n[1] + a02 * n[2],
+        a01 * n[0] + a11 * n[1] + a12 * n[2],
+        a02 * n[0] + a12 * n[1] + a22 * n[2],
+    )
+    z = (
+        a00 * u[0] + a01 * u[1] + a02 * u[2],
+        a01 * u[0] + a11 * u[1] + a12 * u[2],
+        a02 * u[0] + a12 * u[1] + a22 * u[2],
+    )
+
+    def proj(lam_a, lam_b, lam_c):
+        den = (lam_a - lam_b) * (lam_a - lam_c)
+        inv = den / torch.clamp(den * den, min=_EPS)
+        return tuple(
+            (z[c] - (lam_b + lam_c) * u[c] + lam_b * lam_c * n[c]) * inv
+            for c in range(3)
+        )
+
+    k = (
+        (lam0 > tau).to(lam0.dtype)
+        + (lam1 > tau).to(lam0.dtype)
+        + (lam2 > tau).to(lam0.dtype)
+    )
+    p_hi = proj(lam2, lam0, lam1)
+    p_lo = proj(lam0, lam1, lam2)
+    pn = tuple(
+        torch.where(
+            k == 1.0, p_hi[c],
+            torch.where(
+                k == 2.0, n[c] - p_lo[c],
+                torch.where(k == 3.0, n[c], torch.zeros_like(n[c])),
+            ),
+        )
+        for c in range(3)
+    )
+    acc = tuple(damping * n[c] + pn[c] for c in range(3))
+    return _normalize_c(acc)
+
+
+def eigh3x3_components(a00, a01, a02, a11, a12, a22):
+    """Eigendecomposition from the six unique entries (elementwise).
+
+    Returns ``(w, v)``: ``w = (lam0, lam1, lam2)`` ascending and ``v`` a
+    tuple of three eigenvector component triples, ``v[i]`` pairing with
+    ``w[i]``.
+    """
+    scale, safe, rows, q, p, (lam_lo, lam_mid, lam_hi) = _roots(
+        a00, a01, a02, a11, a12, a22
+    )
+    from_hi = (lam_hi - lam_mid) >= (lam_mid - lam_lo)
+    v_hi_first = _evec_from_cross_c(rows, lam_hi)
+    v_lo_first = _evec_from_cross_c(rows, lam_lo)
+    v_first = _select_c(from_hi, v_hi_first, v_lo_first)
+    v_mid = _evec_deflated_c(rows, lam_mid, v_first)
+    v_third = _cross_c(v_first, v_mid)
+    v_lo = _select_c(from_hi, v_third, v_first)
+    v_hi = _select_c(from_hi, v_first, v_third)
+
+    # Isotropic / zero matrices: identity eigenvectors.
+    iso = p < 1e-6
+    one = torch.ones_like(q)
+    zero = torch.zeros_like(q)
+    v_lo = _select_c(iso, (one, zero, zero), v_lo)
+    v_mid = _select_c(iso, (zero, one, zero), v_mid)
+    v_hi = _select_c(iso, (zero, zero, one), v_hi)
+    w = _unscale(scale, safe, (lam_lo, lam_mid, lam_hi))
+    return w, (v_lo, v_mid, v_hi)
+
+
+def eigh3x3(A: torch.Tensor):
+    """Batched eigendecomposition of symmetric (..., 3, 3) matrices:
+    eigenvalues (..., 3) ascending and eigenvectors (..., 3, 3) as
+    columns, like ``torch.linalg.eigh`` but closed-form."""
+    A = 0.5 * (A + A.transpose(-1, -2))
+    w, v = eigh3x3_components(
+        A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
+        A[..., 1, 1], A[..., 1, 2], A[..., 2, 2],
+    )
+    eigval = torch.stack(w, dim=-1)
+    eigvec = torch.stack([torch.stack(vi, dim=-1) for vi in v], dim=-1)
+    return eigval, eigvec

@@ -1,0 +1,94 @@
+"""Where the time goes in one hybrid-denoise run on the card.
+
+    python -m ngpd_tpu_torch.profile_hybrid [--n 1000000] [--iters 20] [--k 32]
+
+Runs the bench workload (``bench.make_cloud``, lagged_nvt1) once to warm
+up, then once under ``torch.profiler`` with CPU and CUDA activities, and
+prints one JSON line: the run's wall time (host clock, ending in a
+synchronize), the device's busy time (union of kernel intervals) and idle
+share, device time and kernel count by group (K0, K1, K2, and every other
+kernel, i.e. the per-point torch stages, Morton sort and unsort), and the
+ten kernels with the most device time. Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+
+def _group(name: str) -> str:
+    for k in ("k0", "k1", "k2"):
+        if f"{k}_kernel" in name:
+            return k.upper()
+    return "torch"
+
+
+def profile_run(n: int, iters: int, k: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from .bench import make_cloud
+    from .config import DenoiseConfig
+    from .core.cuda_fused import denoise_hybrid
+    from .device import resolve_device
+
+    dev = resolve_device("cuda")
+    noisy, nrm, _ = make_cloud(n)
+    pts = torch.as_tensor(noisy, device=dev)
+    nr = torch.as_tensor(nrm, device=dev)
+    cfg = DenoiseConfig(feature_k=k, step_k=8)
+
+    def once():
+        denoise_hybrid(pts, nr, cfg, iterations=iters, lagged_nvt1=True, device=dev)
+        torch.cuda.synchronize(dev)
+
+    once()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        once()
+        wall = time.perf_counter() - t0
+
+    spans, groups, per_name = [], {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        spans.append((s, t))
+        g = groups.setdefault(_group(e.name), {"ms": 0.0, "kernels": 0})
+        g["ms"] += (t - s) / 1e3
+        g["kernels"] += 1
+        per_name[e.name] = per_name.get(e.name, 0.0) + (t - s) / 1e3
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    spans.sort()
+    busy, cur_s, cur_t = 0.0, *spans[0]
+    for s, t in spans[1:]:
+        if s > cur_t:
+            busy += cur_t - cur_s
+            cur_s, cur_t = s, t
+        else:
+            cur_t = max(cur_t, t)
+    busy = (busy + cur_t - cur_s) / 1e6
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "n": n, "iters": iters, "k": k, "device": torch.cuda.get_device_name(dev),
+        "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+        "groups": groups,
+        "top_kernels_ms": [[name[:120], ms] for name, ms in top],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.profile_hybrid")
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--k", type=int, default=32)
+    args = ap.parse_args(argv)
+    print(json.dumps(profile_run(args.n, args.iters, args.k)))
+
+
+if __name__ == "__main__":
+    main()

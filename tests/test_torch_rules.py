@@ -1,0 +1,104 @@
+"""Rules of the port: it stands alone and never falls back to the CPU."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from ngpd_tpu_torch.core.cuda_fused import padded_size
+from ngpd_tpu_torch.device import resolve_device
+from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import window as kw
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "ngpd_tpu", "bench")
+PORT_FILES = sorted((ROOT / "ngpd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_or_reference(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _small_pack():
+    n = padded_size(300, 128, 64, 1)[0]
+    pack = torch.rand((8, n))
+    return pack, kw.make_windows(n, 300, 128, 64, 1, "cpu")
+
+
+def test_cuda_wrapper_raises_instead_of_falling_back(monkeypatch):
+    """Operands that pass as CUDA reach the kernel build and launch: with
+    no nvcc that raises, and no plain result comes back."""
+    try:
+        build.find_nvcc()
+        pytest.skip("nvcc is present; the missing-compiler path cannot be observed")
+    except RuntimeError:
+        pass
+    pack, win = _small_pack()
+    monkeypatch.setattr(kw, "_check", lambda *a: True)
+    monkeypatch.setattr(build, "_LIBS", {})
+    before = dict(kw.LAUNCHES)
+    for call in (lambda: kw.k0(pack, win, 16, 8),
+                 lambda: kw.k1(pack, win, 1.0),
+                 lambda: kw.k2(pack, torch.zeros((8, 128)), win, 1.0,
+                               ("flat", "edge", "feature"), 1)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert kw.LAUNCHES == before
+
+
+def test_wrappers_reject_other_devices_and_bad_operands():
+    pack, win = _small_pack()
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        kw.k1(pack.to("meta"), win._replace(starts=win.starts.to("meta")), 1.0)
+    with pytest.raises(TypeError):
+        kw.k1(pack.double(), win, 1.0)
+    with pytest.raises(ValueError):
+        kw.k1(pack[:, :-128], win, 1.0)
+    with pytest.raises(ValueError):
+        kw.k2(pack, torch.zeros((8, 64)), win, 1.0, ("flat", "edge", "feature"), 1)
+
+
+def test_cpu_wrappers_use_plain_versions():
+    """On CPU tensors the wrappers return the plain versions' results and
+    count no launch."""
+    pack, win = _small_pack()
+    before = dict(kw.LAUNCHES)
+    assert torch.equal(kw.k0(pack, win, 16, 8), kw.k0_plain(pack, win, 16, 8))
+    assert torch.equal(kw.k1(pack, win, 1.0), kw.k1_plain(pack, win, kw.cos_f32(1.0)))
+    assert kw.LAUNCHES == before
+
+
+def test_kernel_sources_target_sm90a():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
+    for name in build.SOURCES:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int ngpd_{name}_launch' in src
+        assert "Replaces: ngpd_tpu/core/pallas_fused.py" in src
+        assert "What bounds it on the H100" in src
+    assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "/build/" in (ROOT / ".gitignore").read_text().split()
