@@ -7,7 +7,8 @@ Phases, one output line each; any failure ends the run with a non-zero
 exit code and no result line:
 
   card       the card's name and power limit (nvidia-smi), CUDA version
-  build      nvcc builds K0/K1/K2 from ``ngpd_tpu_torch/kernels/csrc``
+  build      nvcc builds K0/K1/K2 and passes A-D from
+             ``ngpd_tpu_torch/kernels/csrc``; ptxas registers and spills
   kernels    each kernel against its plain PyTorch version on the card, at
              the main path's shape (1M points, feature_k 32), for K2's
              other strategy variants at 65,536 points, and at the CLI's
@@ -22,6 +23,18 @@ exit code and no result line:
              tests) on a 16,384-point cloud
   cli        ``python -m ngpd_tpu_torch.apps.cli denoise`` on a 100k-point
              OBJ (the >= 100k route), then ``eval``: the CD must fall
+  pass_kernels  the four-pass engine's kernels A-D against their plain
+             versions at 1M points (feature_k 32, tile 256, window 128),
+             each fed the plain output of the pass before; kernel, plain
+             and bound times as for ``kernels``
+  pass_variants the same checks at 65,536 points of tiled cube corners,
+             where every class has hundreds of points, for all four
+             strategies (pass C off, three delta classes); fails when a
+             class the strategy maps to a step has fewer than
+             MIN_CLASS_POINTS points
+  passes     the four-pass path: ``denoise_passes``, 1M points, k 32, 20
+             iterations, exact delta; CD gate and launch counts
+  passes_reference  its card path against its CPU path on 16,384 points
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
@@ -44,9 +57,12 @@ import torch
 from ngpd_tpu_torch import bench
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.core import hybrid_stages as hs
-from ngpd_tpu_torch.core.cuda_fused import denoise_hybrid, prologue
+from ngpd_tpu_torch.core.cuda_fused import (
+    denoise_hybrid, denoise_passes, passes_prologue, prologue,
+)
 from ngpd_tpu_torch.io.obj import save_obj
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
 
 ROOT = Path(__file__).resolve().parent
@@ -56,6 +72,7 @@ CLI_N = 100_000
 FRESH_GATE = 0.35
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"))
+PASS_STRATEGIES = STRATEGIES + (("flat", "new", "flat"),)
 # H100 SXM published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
@@ -65,6 +82,15 @@ PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 # in another order (sequential in the kernel, blocked in the plain
 # matmuls), so they agree to a relative 1e-5 of each row's largest value.
 REL_TOL = 1e-5
+# Pass kernels: the eigensolver, the VU filter and the guarded 3x3 solves
+# switch branch where a value sits on a threshold (cosf/expf also differ
+# from torch by ulps), so normals, classes, edge directions and positions
+# are held to 1e-5 on all but FLIP_SHARE of the points, and to FLIP_MAX
+# on all. Edge directions and positions are held class by class, each to
+# FLIP_SHARE of that class's own points, so a rare class (a few hundred
+# corner points) may show no flip at all.
+PASS_TOL, FLIP_SHARE, FLIP_MAX = 1e-5, 1e-3, 2e-2
+MIN_CLASS_POINTS = 100  # pass_variants: points each class must have
 
 
 def say(phase: str, **fields) -> None:
@@ -128,6 +154,31 @@ DIST_OPS = 9  # 3 mul, 4 add, 1 max and the -2p scale, amortised
 K0_PAIR_OPS = DIST_OPS + 1 + 3 * 1 + 3
 K0_QUERY_OPS = 3 * 24 * 4
 NVT_FEAT_OPS = 6 + 7 + 6 + 5 + 7  # sym6, plain sums, n.(p_j-p_i), angle, kept sums
+# The four-pass kernels, per point (the elementwise chains of
+# kernels/csrc/passes_common.cuh and pass_d.cu, counted operation by
+# operation and rounded):
+EIGH_OPS = 280  # scaled trig roots with the acos polynomial, two eigenvectors
+VU_OPS = 60  # three projections, the damped sum and its normalisation
+PACK_OPS = 14  # -2p, p.f and sym6(f) of pass A's next packs
+CLASS_OPS = 12  # planarity, linearity, sphericity and the argmax
+SOLVE_OPS = 80  # guarded adjugate solve of a 3x3 system
+CLAMP_OPS = 18  # step, its length and the d_thr test
+STEP_POINT_OPS = {  # the system each step builds and solves, per point
+    "flat": 16, "edge": 135 + SOLVE_OPS + CLAMP_OPS, "corner": SOLVE_OPS + CLAMP_OPS,
+    "feature": 76 + SOLVE_OPS + CLAMP_OPS, "new": 76 + SOLVE_OPS + CLAMP_OPS, "dummy": 0,
+}
+# ... and per (query, column) pair within rk_step:
+PART_PAIR_OPS = 4  # pass B: sum p_j (3) and the count
+CENTRE_PAIR_OPS = 8  # pass C: |p_j|^2 - 2 p_j.c + |c|^2 and the max
+D_PAIR_OPS = 22  # pass D: deg, s6, n (n.p), sum p_j and n_j.(p_j - p_i)
+STEP_PAIR_OPS = {"flat": 16, "edge": 17, "corner": 0, "feature": 0, "new": 28, "dummy": 0}
+# Pack rows each pass must read and write (a row is 4 bytes a point):
+# A reads GQ (16) and GR rows 0-14 and writes GQ2 and GR2 (40); B reads
+# GQ2's p, |p|^2 and thresholds (6) and GR2 rows 0-17 and writes the cls
+# pack (4); C reads 5 GQ2 rows, GR2 rows 0-3 and the class row; D reads 8
+# GQ2 rows, GR2 rows 0-17 but the ones row, the cls pack, and writes 3.
+PASS_ROWS = {"PASS_A": 16 + 15 + 40, "PASS_B": 6 + 18 + 4, "PASS_C": 5 + 4 + 1,
+             "PASS_D": 8 + 17 + 4 + 3}
 
 
 def k2_step_ops(strategy, nd: int) -> int:
@@ -155,17 +206,24 @@ def window_dists(pack: torch.Tensor, win, chunk: int = 256):
                valid.reshape(-1, win.wt_c))
 
 
-def pair_counts(pack: torch.Tensor, win) -> tuple[int, int]:
-    """Valid (query, column) window pairs within rk_feat and within
-    rk_step (pack rows 6 and 7): the data-dependent part of K1's and K2's
-    work, for their operation counts. The distances come from bmm, so a
-    few pairs on a threshold may count unlike the kernels'; the bound
-    moves by far less than a percent."""
-    n_feat = n_step = 0
+def row_pair_counts(pack: torch.Tensor, win, rk_rows=(6, 7)):
+    """Per query, the valid window columns within rk_feat and within
+    rk_step (pack rows ``rk_rows``): the data-dependent part of the
+    kernels' work, for their operation counts. The distances come from
+    bmm, so a few pairs on a threshold may count unlike the kernels'; the
+    bound moves by far less than a percent."""
+    feat = torch.empty(win.n, dtype=torch.int64, device=pack.device)
+    step = torch.empty_like(feat)
     for rows, d, valid in window_dists(pack, win):
-        n_feat += int(((d <= pack[6, rows][:, None]) & valid).sum())
-        n_step += int(((d <= pack[7, rows][:, None]) & valid).sum())
-    return n_feat, n_step
+        feat[rows] = ((d <= pack[rk_rows[0], rows][:, None]) & valid).sum(dim=1)
+        step[rows] = ((d <= pack[rk_rows[1], rows][:, None]) & valid).sum(dim=1)
+    return feat, step
+
+
+def pair_counts(pack: torch.Tensor, win) -> tuple[int, int]:
+    """Pairs within rk_feat and within rk_step over the slim pack."""
+    feat, step = row_pair_counts(pack, win)
+    return int(feat.sum()), int(step.sum())
 
 
 def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
@@ -232,6 +290,167 @@ def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
         r["library_ms"] = None
         r["library_note"] = "no single PyTorch call computes masked, angle-filtered window sums"
     return rec
+
+
+def flip_check(name: str, got: torch.Tensor, ref: torch.Tensor, groups=None) -> dict:
+    """Columns (points) whose largest difference exceeds PASS_TOL: at most
+    FLIP_SHARE of each group's own points (``groups``: name -> column
+    mask; all columns when None), and none beyond FLIP_MAX."""
+    diff = (got - ref).abs().amax(dim=0)
+    if groups is None:
+        groups = {"all": torch.ones_like(diff, dtype=torch.bool)}
+    flips, worst = {}, 0.0
+    for key, cols in groups.items():
+        d = diff[cols]
+        flips[key] = int((d > PASS_TOL).sum())
+        worst = max(worst, float(d.max())) if d.numel() else worst
+        if flips[key] > FLIP_SHARE * d.numel() or not worst <= FLIP_MAX:
+            fail(f"{name} {key}: {flips[key]} of {d.numel()} points beyond "
+                 f"{PASS_TOL}, max {worst}")
+    return {"flips": flips, "max_abs_err": worst}
+
+
+def rel_check(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    err = row_err(got, ref)
+    if err[1] > REL_TOL:
+        fail(f"{name} disagrees with its plain version: err={err}")
+    return err[0]
+
+
+def check_passes(cfg, st, strategy, timed: bool,
+                 min_class: int = 0) -> tuple[list[dict], dict]:
+    """Passes A-D against their plain versions on one prologue state, each
+    fed the plain output of the pass before; fails when a class has fewer
+    than ``min_class`` valid points."""
+    win, nd = st.win, st.needs_delta
+    rec = {}
+
+    got_a = kp.pass_a(st.gq, st.gr, win, cfg)
+    ref_a, plain_a = time_once(lambda: kp.pass_a_plain(st.gq, st.gr, win, cfg))
+    fa = [flip_check(f"PASS_A {strategy} {r}", g, w)
+          for r, g, w in (("gq2", got_a[0], ref_a[0]), ("gr2", got_a[1], ref_a[1]))]
+    rec["PASS_A"] = {"max_abs_err": max(f["max_abs_err"] for f in fa),
+                     "flips": sum(f["flips"]["all"] for f in fa), "plain_ms": plain_a}
+    gq2, gr2 = ref_a
+
+    got_cls, got_parts = kp.pass_b(gq2, gr2, win, cfg, nd)
+    (ref_cls, ref_parts), plain_b = time_once(lambda: kp.pass_b_plain(gq2, gr2, win, cfg, nd))
+    valid = torch.arange(win.n, device=ref_cls.device) < win.nv
+    classes = {f"class{c}": ref_cls[0] == float(c) for c in range(3)}
+    counts = {k: int((m & valid).sum()) for k, m in classes.items()}
+    if min(counts.values()) < min_class:
+        fail(f"PASS {strategy}: class counts {counts}, each must be >= {min_class}")
+    same = got_cls[0] == ref_cls[0]
+    class_flips = int((~same).sum())
+    if class_flips > FLIP_SHARE * same.numel():
+        fail(f"PASS_B {strategy}: {class_flips} of {same.numel()} classes differ")
+    # The edge direction, pass D's y: where both versions call a point edge.
+    edge = flip_check(f"PASS_B {strategy} edge direction", got_cls[1:4], ref_cls[1:4],
+                      {"edge": classes["class1"] & same})
+    tiles = same.reshape(-1, win.tile).all(dim=1)  # partials need equal classes
+    err_b = rel_check(f"PASS_B {strategy} partials", got_parts[:, tiles],
+                      ref_parts[:, tiles]) if nd else 0.0
+    rec["PASS_B"] = {"max_abs_err": max(err_b, edge["max_abs_err"]),
+                     "class_counts": counts, "class_flips": class_flips,
+                     "edge_direction": edge, "tiles_with_flips": int((~tiles).sum()),
+                     "plain_ms": plain_b}
+
+    scal = kp.delta_scal(st.d_thr, ref_parts)
+    if nd:
+        got_c = kp.pass_c(gq2, gr2, ref_cls, scal, win, nd)
+        ref_c, plain_c = time_once(lambda: kp.pass_c_plain(gq2, gr2, ref_cls, scal, win, nd))
+        rec["PASS_C"] = {"max_abs_err": rel_check(f"PASS_C {strategy}", got_c, ref_c),
+                         "exact": bool(torch.equal(got_c, ref_c)), "plain_ms": plain_c}
+        scal = kp.delta_scal(st.d_thr, ref_parts, ref_c)
+
+    got_d = kp.pass_d(gq2, gr2, ref_cls, scal, win, cfg, strategy, nd)
+    ref_d, plain_d = time_once(
+        lambda: kp.pass_d_plain(gq2, gr2, ref_cls, scal, win, cfg, strategy, nd))
+    steps = {f"class{c} {strategy[c]}": m for c, m in enumerate(classes.values())}
+    rec["PASS_D"] = {**flip_check(f"PASS_D {strategy}", got_d, ref_d, steps),
+                     "plain_ms": plain_d}
+    moved = (ref_d - gq2[0:3]).abs().amax(dim=0)
+    rec["PASS_D"]["moved"] = {k: float(moved[m & valid].mean()) if counts[k] else 0.0
+                              for k, m in classes.items()}
+    if not timed:
+        return [], rec
+
+    ms = {
+        "PASS_A": time_launches(lambda: kp.pass_a(st.gq, st.gr, win, cfg)),
+        "PASS_B": time_launches(lambda: kp.pass_b(gq2, gr2, win, cfg, nd)),
+        "PASS_D": time_launches(
+            lambda: kp.pass_d(gq2, gr2, ref_cls, scal, win, cfg, strategy, nd)),
+    }
+    if nd:
+        ms["PASS_C"] = time_launches(lambda: kp.pass_c(gq2, gr2, ref_cls, scal, win, nd))
+    # Bounds from this run's shapes and data: the thresholds and positions
+    # are the same in every pass's input, so one count serves all four.
+    n, wt = win.n, win.wt_c
+    feat, step = row_pair_counts(st.gq, win, (8, 9))
+    cls = ref_cls[0]
+    delta_rows = torch.zeros_like(cls, dtype=torch.bool)
+    for c in nd:
+        delta_rows |= cls == float(c)
+    delta_rows &= torch.arange(n, device=cls.device) < win.nv
+    delta_step = int(step[delta_rows].sum())
+    feat, step_all = int(feat.sum()), int(step.sum())
+    d_pairs = d_points = 0
+    for c in range(3):
+        rows = cls == float(c)
+        name = strategy[c]
+        d_points += int(rows.sum()) * STEP_POINT_OPS[name]
+        if name != "dummy":
+            d_pairs += int(rows.sum()) * wt * (DIST_OPS + 1) \
+                + int(step[rows].sum()) * (D_PAIR_OPS + STEP_PAIR_OPS[name])
+    ops = {
+        "PASS_A": n * wt * (DIST_OPS + 2) + feat * NVT_FEAT_OPS
+        + n * (EIGH_OPS + VU_OPS + PACK_OPS),
+        "PASS_B": n * wt * (DIST_OPS + 2) + feat * NVT_FEAT_OPS
+        + n * (EIGH_OPS + CLASS_OPS) + delta_step * PART_PAIR_OPS,
+        "PASS_C": int(delta_rows.sum()) * wt * (DIST_OPS + 1)
+        + delta_step * CENTRE_PAIR_OPS,
+        "PASS_D": d_pairs + d_points,
+    }
+    out = []
+    for name in ("PASS_A", "PASS_B", "PASS_C", "PASS_D"):
+        if name not in rec:
+            continue
+        b_ms, by = bound(4 * n * PASS_ROWS[name], ops[name])
+        out.append({"name": name, "max_abs_err": rec[name]["max_abs_err"],
+                    "ms": ms[name], "plain_ms": rec[name]["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                    "library_note": "no single PyTorch call computes masked, "
+                    "angle-filtered window sums followed by a per-point eigh or 3x3 solve"})
+    return out, rec
+
+
+def run_passes(n: int, iters: int, k: int, repeats: int = 2) -> dict:
+    """denoise_passes on the card: best of ``repeats`` after a warm-up,
+    launches of the last timed run, and the CD ratio."""
+    noisy, nrm, clean = bench.make_cloud(n)
+    pts_t = torch.as_tensor(noisy, device="cuda")
+    nrm_t = torch.as_tensor(nrm, device="cuda")
+    cfg = DenoiseConfig(feature_k=k, step_k=8)
+
+    def once():
+        out = denoise_passes(pts_t, nrm_t, cfg, iterations=iters, tile=256, window=128,
+                             device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    once()  # warm-up: allocator, library load
+    best = float("inf")
+    for _ in range(repeats):
+        kp.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, _, _ = once()
+        best = min(best, time.perf_counter() - t0)
+        launches = dict(kp.LAUNCHES)
+    ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
+    return {"n": n, "iterations": iters, "k": k, "seconds": best,
+            "point_iterations_per_s": n * iters / best, "launches": launches,
+            "finite": bool(torch.isfinite(out).all()), "quality_cd_ratio": ratio,
+            "quality_cd_noisy": cd_noisy, "quality_cd_denoised": cd_out}
 
 
 def main() -> int:
@@ -340,15 +559,54 @@ def main() -> int:
     if not e_out["cd"] < e_in["cd"]:
         fail("CLI denoise did not lower the CD")
 
+    # the four-pass engine's kernels against their plain versions
+    pst = passes_prologue(noisy, nrm, cfg, STRATEGIES[0], device="cuda")
+    pass_rec, checks = check_passes(cfg, pst, STRATEGIES[0], timed=True)
+    say("pass_kernels", shape=MAIN_N, tile=256, wt=pst.win.wt_c, checks=checks,
+        records=pass_rec)
+    del pst
+    # Every step on hundreds of points: the roof above is nearly all flat.
+    corners, corner_nrm, _ = bench.make_corner_cloud(VARIANT_N)
+    for strat in PASS_STRATEGIES:
+        pst = passes_prologue(corners, corner_nrm, cfg, strat, device="cuda")
+        _, checks = check_passes(cfg, pst, strat, timed=False, min_class=MIN_CLASS_POINTS)
+        say("pass_variants", shape=VARIANT_N, cloud="cube corners", strategy=strat,
+            pass_c=len(pst.needs_delta) > 0, checks=checks)
+    del pst
+
+    # the four-pass path
+    passes_rec = run_passes(MAIN_N, MAIN_ITERS, MAIN_K)
+    say("passes", **passes_rec)
+    want = {k: MAIN_ITERS for k in kp.LAUNCHES}
+    if passes_rec["launches"] != want:
+        fail(f"four-pass launches {passes_rec['launches']} != {want}")
+    if not passes_rec["finite"] or not passes_rec["quality_cd_ratio"] <= bench.GATE_RATIO:
+        fail(f"four-pass CD ratio {passes_rec['quality_cd_ratio']} > {bench.GATE_RATIO}")
+
+    # its card path against its CPU path on a small cloud
+    g_p, _, g_c = denoise_passes(sn, snrm, small, iterations=2, device="cuda")
+    c_p, _, c_c = denoise_passes(sn, snrm, small, iterations=2, device="cpu")
+    diff = (g_p.cpu() - c_p).abs().amax(dim=1)
+    agree = float((g_c.cpu() == c_c).float().mean())
+    within = float((diff <= 2e-3).float().mean())
+    say("passes_reference", n=16_384, classes_equal=agree, within_2e_3=within,
+        max_diff=float(diff.max()), finite=bool(torch.isfinite(g_p).all()))
+    if agree < 0.99 or within < 0.999 or float(diff.max()) > 2e-2 \
+            or not torch.isfinite(g_p).all():
+        fail("four-pass card and CPU paths disagree beyond the mask-flip bound")
+
     kernels = []
-    sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186)}
-    for r in rec:
+    sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),
+               "PASS_A": ("pass_a", 232), "PASS_B": ("pass_b", 281),
+               "PASS_C": ("pass_c", 356), "PASS_D": ("pass_d", 402)}
+    launches = {**main_rec["launches"], **passes_rec["launches"]}
+    for r in rec + pass_rec:
         src, line = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": f"ngpd_tpu_torch/kernels/csrc/{src}.cu",
             "replaces": f"ngpd_tpu/core/pallas_fused.py:{line}",
-            "launches": main_rec["launches"][src],
+            "launches": launches[src],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -59,6 +59,35 @@ def make_cloud(n: int, seed: int = 0):
     return (pts + normals * noise).astype(np.float32), normals, clean
 
 
+def make_corner_cloud(n: int, side: int = 8, seed: int = 0):
+    """Cube corners on a 3-D grid: three square faces of ``side`` points a
+    side, spacing 0.01, meeting at a vertex, each corner 3 spacings clear
+    of the next; positions jittered by 0.002. Unlike the roof, every class
+    of the classifier is common here: at side 8 and 65,536 points the
+    four-pass engine's first iteration calls about 80% of the points
+    flat, 19% edge and 1% (over 500) corner (feature_k 32). Returns
+    (noisy, normals, clean) float32 arrays."""
+    rng = np.random.default_rng(seed)
+    s = 0.01
+    a, b = [x.ravel() for x in np.meshgrid(np.arange(side) * s, np.arange(side) * s,
+                                           indexing="ij")]
+    z = np.zeros_like(a)
+    faces = [((a, b, z), (0.0, 0.0, 1.0)), ((z, a, b), (1.0, 0.0, 0.0)),
+             ((a, z, b), (0.0, 1.0, 0.0))]
+    pts = np.concatenate([np.stack(p, axis=1) for p, _ in faces])
+    nrm = np.concatenate([np.tile(nv, (len(a), 1)) for _, nv in faces])
+    pts, idx = np.unique(pts.round(6), axis=0, return_index=True)  # shared edges once
+    nrm = nrm[idx]
+    count = -(-n // len(pts))
+    g = int(np.ceil(count ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(g)] * 3, indexing="ij"), axis=-1)
+    offsets = grid.reshape(-1, 3)[:count] * (side + 3) * s
+    clean = (pts[None] + offsets[:, None]).reshape(-1, 3)[:n].astype(np.float32)
+    normals = np.tile(nrm, (count, 1))[:n].astype(np.float32)
+    noisy = clean + rng.normal(scale=0.002, size=clean.shape).astype(np.float32)
+    return noisy, normals, clean
+
+
 def cd_ratio(out: np.ndarray, noisy: np.ndarray, clean: np.ndarray, device,
              subsample: int = 20_000):
     """(ratio, cd_noisy, cd_denoised) on a seeded subsample."""

@@ -1,6 +1,7 @@
-"""The hybrid denoise engine on the card: window kernels + torch per-point math.
+"""The denoise engines on the card: the hybrid (window kernels + torch
+per-point math) and the four-pass engine (everything in the kernels).
 
-Port of ``ngpd_tpu/core/pallas_fused.py::pallas_denoise_hybrid``. The
+``denoise_hybrid`` ports ``ngpd_tpu/core/pallas_fused.py::pallas_denoise_hybrid``. The
 chain is: Morton sort -> K0 (k-th distance thresholds, ``d_thr``) ->
 per iteration: K1 (filtered NVT1; iteration 0 only under
 ``lagged_nvt1``) -> VU stage -> K2 (every window sum of the update) ->
@@ -12,6 +13,15 @@ Semantics are the reference's: thresholds frozen at the noisy input,
 lagged global deltas, and the same padding to ``tile * sub`` (the last
 blocks' clipped window starts depend on the padded size, so ``sub`` is
 kept although on the card it changes nothing else).
+
+``denoise_passes`` ports ``pallas_denoise`` in exact-delta mode. The chain
+is: pad to ``tile`` and Morton sort -> the prologue in torch (window
+distances, k-th smallest thresholds, ``d_thr``) -> per iteration: pass A
+(NVT1, eigh, VU smoothing, the next packs) -> pass B (NVT2, classes,
+delta-centre partials) -> pass C (delta spread, when a class needs one)
+-> pass D (class-dispatched update) -> unsort. The passes are CUDA
+kernels on a card and their plain versions on the CPU
+(``kernels/passes.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 
 from ..config import DenoiseConfig
 from ..device import exact_float32, resolve_device
+from ..kernels import passes as kp
 from ..kernels import window as kw
 from ..ops.morton import SortedCloud, morton_sort, unsort
 from . import hybrid_stages as hs
@@ -148,4 +159,159 @@ def denoise_hybrid(
     out_pos = unsort(pack[0:3].T, idx)[:n_in]
     out_nrm = unsort(pack[3:6].T, idx)[:n_in]
     out_cls = unsort(cls.to(torch.int32)[:, None], idx)[:n_in, 0]
+    return out_pos, out_nrm, out_cls
+
+
+# ---------------------------------------------------------------------------
+# The four-pass engine
+# ---------------------------------------------------------------------------
+
+
+class PassState(NamedTuple):
+    """What the four-pass prologue hands to the iterations."""
+
+    sorted: SortedCloud  # Morton-sorted padded cloud
+    win: kw.Windows  # pass geometry (no sub)
+    gq: torch.Tensor  # (16, n) GQ pack with the slacked thresholds
+    gr: torch.Tensor  # (24, n) GR pack
+    rk_feat: torch.Tensor  # (n,) slacked feature_k-th squared distances
+    rk_step: torch.Tensor  # (n,) slacked step_k-th squared distances
+    d_thr: torch.Tensor  # 0-dim displacement threshold
+    needs_delta: tuple  # classes whose step needs a delta
+    n_in: int  # input rows
+
+
+def window_thresholds(pos: torch.Tensor, win: kw.Windows, feature_k: int,
+                      step_k: int):
+    """The reference's XLA prologue (pallas_fused.py:888-912) in torch.
+
+    pos: (n, 3) sorted positions. Per query, over its window: the
+    feature_k-th and step_k-th smallest squared distances, and the sum
+    and count of the six smallest distances over valid rows. Distances
+    are ``fused._dist_tile``'s ``|q|^2 + |p|^2 - 2 q.p`` at full float32,
+    ``inf`` in invalid columns. Both threshold methods take the exact
+    k-th smallest (``torch.topk``): the reference's ``approx`` is
+    ``jax.lax.approx_min_k``, which is exact off the TPU.
+    Returns (rk_feat (n,), rk_step (n,), sum6, count6), un-slacked."""
+    n, t, wt = win.n, win.tile, win.wt_c
+    k_max = max(feature_k, step_k, 6)
+    if k_max > wt:
+        raise ValueError(f"k = {k_max} exceeds the {wt}-column window")
+    rkf = torch.empty(n, dtype=pos.dtype, device=pos.device)
+    rk8 = torch.empty_like(rkf)
+    ssum = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    cnt = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    cols = torch.arange(wt, device=pos.device)
+    for b0, b1 in kp.chunks(win):
+        q = pos[b0 * t : b1 * t].reshape(b1 - b0, t, 1, 3)
+        idx = win.starts[b0:b1, None].long() + cols[None, :]
+        w = pos[idx][:, None]  # (B, 1, wt, 3)
+        aa = q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]
+        bb = w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1] + w[..., 2] * w[..., 2]
+        ab = q[..., 0] * w[..., 0] + q[..., 1] * w[..., 1] + q[..., 2] * w[..., 2]
+        d = torch.clamp(aa + bb - 2.0 * ab, min=0.0)
+        d = torch.where((idx < win.nv)[:, None, :], d, float("inf"))
+        vals = torch.topk(d, k_max, dim=2, largest=False, sorted=True).values
+        rows = slice(b0 * t, b1 * t)
+        rkf[rows] = vals[..., feature_k - 1].reshape(-1)
+        rk8[rows] = vals[..., step_k - 1].reshape(-1)
+        d6 = vals[..., :6]
+        dist6 = torch.sqrt(torch.where(torch.isfinite(d6), d6, 0.0))
+        row_ok = (torch.arange(b0 * t, b1 * t, device=pos.device) < win.nv)
+        ssum = ssum + torch.sum(torch.where(row_ok.reshape(b1 - b0, t, 1), dist6, 0.0))
+        cnt = cnt + torch.sum(row_ok) * 6
+    return rkf, rk8, ssum, cnt
+
+
+def passes_prologue(
+    points,
+    normals,
+    cfg: DenoiseConfig = DenoiseConfig(),
+    strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
+    num_valid: Optional[int] = None,
+    tile: int = 256,
+    window: int = 128,
+    threshold_method: str = "approx",
+    threshold_slack: float = 1.05,
+    device=None,
+) -> PassState:
+    """Pad to ``tile``, Morton-sort, build the packs and run the prologue."""
+    if threshold_method not in ("approx", "exact"):
+        raise ValueError(f"threshold_method must be 'approx' or 'exact', got "
+                         f"{threshold_method!r}")
+    dev = resolve_device(device)
+    exact_float32()
+    pts = torch.as_tensor(points, dtype=torch.float32).to(dev)
+    nrm = torch.as_tensor(normals, dtype=torch.float32).to(dev)
+    n_in = pts.shape[0]
+    nv = n_in if num_valid is None else int(num_valid)
+    n = -(-n_in // tile) * tile
+    if n != n_in:
+        pad = torch.zeros((n - n_in, 3), dtype=torch.float32, device=dev)
+        pts = torch.cat([pts, pad])
+        nrm = torch.cat([nrm, pad])
+    sc = morton_sort(pts, nrm, nv)
+    win = kw.make_windows(n, nv, tile, window, 1, dev)
+    rkf, rk8, ssum, cnt = window_thresholds(sc.pos, win, cfg.feature_k, cfg.step_k)
+    d_thr = cfg.d_scale * ssum / torch.clamp(cnt, min=1.0)
+    rk_feat, rk_step = rkf * threshold_slack, rk8 * threshold_slack
+    gq, gr = kp.build_packs(sc.pos.T.contiguous(), sc.nrm.T.contiguous())
+    return PassState(sc, win, kp.set_rk(gq, rk_feat, rk_step), gr, rk_feat, rk_step,
+                     d_thr, hs.needs_delta_of(strategy), n_in)
+
+
+def denoise_passes(
+    points,
+    normals,
+    cfg: DenoiseConfig = DenoiseConfig(),
+    strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
+    iterations: Optional[int] = None,
+    num_valid: Optional[int] = None,
+    tile: int = 256,
+    window: int = 128,
+    threshold_method: str = "approx",
+    threshold_slack: float = 1.05,
+    delta_mode: str = "exact",
+    device=None,
+):
+    """Four-pass engine, ``pallas_denoise`` in exact-delta mode.
+
+    Returns ``(positions (N, 3), normals (N, 3), classes (N,) int32)`` in
+    the input order on ``device`` (default ``"cuda"``). The delta of each
+    flat/new class is the current iteration's: its centre from pass B's
+    partials, its spread from pass C, both reduced on the device, so
+    nothing is copied to the host between iterations. The reference's
+    initial lag state (l.1040-1056) is read only in lagged mode and is
+    not built.
+    """
+    if delta_mode == "lagged":
+        raise NotImplementedError(
+            "delta_mode='lagged' needs the fused pass BD, still to port "
+            "(ROADMAP.md, Queue 2)")
+    if delta_mode != "exact":
+        raise ValueError(f"delta_mode must be 'exact' or 'lagged', got {delta_mode!r}")
+    iters = cfg.iterations if iterations is None else iterations
+    if iters < 1:
+        raise ValueError("denoise_passes needs at least one iteration")
+    st = passes_prologue(points, normals, cfg, strategy, num_valid, tile, window,
+                         threshold_method, threshold_slack, device)
+    win, nd = st.win, st.needs_delta
+    gq, gr = st.gq, st.gr
+    valid = torch.arange(win.n, device=gq.device) < win.nv
+    cls = None
+    for _ in range(iters):
+        gq2, gr2 = kp.pass_a(gq, gr, win, cfg)
+        cls, parts = kp.pass_b(gq2, gr2, win, cfg, nd)
+        scal = kp.delta_scal(st.d_thr, parts)
+        if nd:
+            scal = kp.delta_scal(st.d_thr, parts, kp.pass_c(gq2, gr2, cls, scal, win, nd))
+        newp = kp.pass_d(gq2, gr2, cls, scal, win, cfg, strategy, nd)
+        new_pos = torch.where(valid, newp, gq[0:3])
+        gq, gr = kp.build_packs(new_pos, gq2[5:8])
+        gq = kp.set_rk(gq, st.rk_feat, st.rk_step)
+
+    idx, n_in = st.sorted.orig_idx, st.n_in
+    out_pos = unsort(gq[0:3].T, idx)[:n_in]
+    out_nrm = unsort(gq[5:8].T, idx)[:n_in]
+    out_cls = unsort(cls[0].to(torch.int32)[:, None], idx)[:n_in, 0]
     return out_pos, out_nrm, out_cls

@@ -20,30 +20,10 @@ import torch
 from ..config import DenoiseConfig
 from ..ops.eigh3 import eigh3x3_components, vu_filter_components
 from ..ops.solve3 import solve3x3_components
-
-
-def _dot_c(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def _norm_c(a):
-    return torch.sqrt(torch.clamp(_dot_c(a, a), min=0.0))
-
-
-def _classes_c(w, scale):
-    """argmax of [scale*planarity, linearity, sphericity] as floats
-    0./1./2., first maximum winning."""
-    lam1, lam2, lam3 = w[2], w[1], w[0]
-    safe = torch.where(torch.abs(lam1) > 1e-30, lam1, torch.full_like(lam1, 1e-30))
-    plan = (lam1 - lam2) / safe * scale
-    lin = (lam2 - lam3) / safe
-    sph = lam3 / safe
-    cls = torch.zeros_like(plan)
-    best = plan
-    cls = torch.where(lin > best, torch.ones_like(cls), cls)
-    best = torch.maximum(best, lin)
-    cls = torch.where(sph > best, torch.full_like(cls, 2.0), cls)
-    return cls
+from ..ops.steps import (
+    classes_c, clamp_step, edge_solve, flat_step, select_by_class, srow,
+    three_term_solve,
+)
 
 
 def build_pack_slim(pos: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
@@ -100,7 +80,7 @@ def update_stage(
 
     t6 = k2[lay["t6"] : lay["t6"] + 6]
     w, v = eigh3x3_components(t6[0], t6[1], t6[2], t6[3], t6[4], t6[5])
-    cls = _classes_c(w, cfg.class_scale)
+    cls = classes_c(w, cfg.class_scale)
     y = v[0]
 
     s6 = tuple(k2[lay["s6"] + r] for r in range(6))
@@ -108,47 +88,13 @@ def update_stage(
     sv = tuple(k2[lay["sv"] + r] for r in range(3))
     deg = k2[lay["deg"]]
 
-    def srow(t):
-        return ((t[0], t[1], t[2]), (t[1], t[3], t[4]), (t[2], t[4], t[5]))
-
-    def clamp(opt, alpha, strict=True):
-        di = tuple((o - p) * alpha for o, p in zip(opt, p_i))
-        nrm = _norm_c(di)
-        ok = nrm < d_thr if strict else nrm <= d_thr
-        return tuple(torch.where(ok, p + dd, p) for p, dd in zip(p_i, di))
-
-    def three_term(s6_w, b_nv_w, sv_w):
-        nio = (
-            (n_i[0] * n_i[0], n_i[0] * n_i[1], n_i[0] * n_i[2]),
-            (n_i[0] * n_i[1], n_i[1] * n_i[1], n_i[1] * n_i[2]),
-            (n_i[0] * n_i[2], n_i[1] * n_i[2], n_i[2] * n_i[2]),
-        )
-        sr = srow(s6_w)
-        rows = tuple(
-            tuple(
-                (1.0 if a == b else 0.0) + nio[a][b] * (1.0 + deg) + sr[a][b]
-                for b in range(3)
-            )
-            for a in range(3)
-        )
-        niv = tuple(_dot_c(nio[a], p_i) for a in range(3))
-        nisv = tuple(_dot_c(nio[a], sv_w) for a in range(3))
-        b = tuple(p_i[c] + niv[c] + nisv[c] + b_nv_w[c] for c in range(3))
-        opt, _ = solve3x3_components(rows, b, p_i)
-        return opt
-
     results = {}
     for cid in range(3):
         name = strategy[cid]
+        alpha = alphas[cid]
         if name == "flat":
-            num = k2[lay["flat"]]
-            wsum = torch.clamp(k2[lay["flat"] + 1], min=1e-30)
-            scalef = num / wsum * alphas[cid]
-            di = tuple(scalef * nc for nc in n_i)
-            nrm = _norm_c(di)
-            results[cid] = tuple(
-                torch.where(nrm <= d_thr, p + dd, p) for p, dd in zip(p_i, di)
-            )
+            results[cid] = flat_step(k2[lay["flat"]], k2[lay["flat"] + 1], n_i,
+                                     p_i, alpha, d_thr)
         elif name == "edge":
             q = k2[lay["q18"] : lay["q18"] + 18]
             pidx = {(0, 0): 0, (0, 1): 1, (0, 2): 2,
@@ -162,45 +108,26 @@ def update_stage(
                 )
                 for c in range(3)
             )
-            sr = srow(s6)
-            sy = tuple(_dot_c(sr[a], y) for a in range(3))
-            ysy = _dot_c(sy, y)
-            rows = tuple(
-                tuple(
-                    sr[a][b] - y[a] * sy[b] - sy[a] * y[b]
-                    + ysy * y[a] * y[b] + deg * y[a] * y[b]
-                    for b in range(3)
-                )
-                for a in range(3)
-            )
-            z = tuple(b_nv[c] - q_yy[c] for c in range(3))
-            yz = _dot_c(y, z)
-            yp = _dot_c(y, p_i)
-            b = tuple(z[c] - yz * y[c] + deg * yp * y[c] for c in range(3))
-            opt, _ = solve3x3_components(rows, b, p_i)
-            results[cid] = clamp(opt, alphas[cid])
+            results[cid] = clamp_step(edge_solve(y, s6, b_nv, q_yy, deg, p_i),
+                                      p_i, alpha, d_thr)
         elif name == "corner":
             opt, _ = solve3x3_components(srow(s6), b_nv, p_i)
-            results[cid] = clamp(opt, alphas[cid])
+            results[cid] = clamp_step(opt, p_i, alpha, d_thr)
         elif name == "feature":
-            results[cid] = clamp(three_term(s6, b_nv, sv), alphas[cid])
+            results[cid] = clamp_step(three_term_solve(n_i, p_i, deg, s6, b_nv, sv),
+                                      p_i, alpha, d_thr)
         elif name == "new":
             s6w = tuple(k2[lay["new"] + r] for r in range(6))
             b_nvw = tuple(k2[lay["new"] + 6 + r] for r in range(3))
             svw = tuple(k2[lay["new"] + 9 + r] for r in range(3))
-            results[cid] = clamp(three_term(s6w, b_nvw, svw), alphas[cid])
+            results[cid] = clamp_step(three_term_solve(n_i, p_i, deg, s6w, b_nvw, svw),
+                                      p_i, alpha, d_thr)
         elif name == "dummy":
             results[cid] = p_i
         else:
             raise ValueError(name)
 
-    new_p = tuple(
-        torch.where(
-            cls == 0.0, results[0][c],
-            torch.where(cls == 1.0, results[1][c], results[2][c]),
-        )
-        for c in range(3)
-    )
+    new_p = select_by_class(cls, results)
     valid = torch.arange(n, device=gq2.device) < nv
     new_p = tuple(torch.where(valid, np_, p0) for np_, p0 in zip(new_p, p_i))
 

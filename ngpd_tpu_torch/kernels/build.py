@@ -1,4 +1,4 @@
-"""Build the window kernels with nvcc and load them with ctypes.
+"""Build the CUDA kernels with nvcc and load them with ctypes.
 
 Each source in ``csrc/`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into ``build/kernels/``
@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("k0", "k1", "k2")
-HEADERS = ("window_common.cuh",)
+SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d")
+HEADERS = ("window_common.cuh", "passes_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +37,11 @@ ARGTYPES = {
     "k0": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     "k1": (_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP),
     "k2": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _VP),
+    "pass_a": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _F, _VP),
+    "pass_b": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _VP),
+    "pass_c": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
+    "pass_d": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+               _F, _F, _F, _I, _I, _I, _VP),
 }
 
 
@@ -50,7 +55,7 @@ def find_nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the CUDA window kernels cannot be "
+        "nvcc not found (set CUDA_HOME): the CUDA kernels cannot be "
         "built, and the port does not fall back to the plain versions on a card"
     )
 

@@ -263,14 +263,16 @@ def _check(pack: torch.Tensor, rows: int, win: Windows) -> bool:
     return True
 
 
-def _launch(name: str, *args) -> None:
+def launch(name: str, counts: dict, *args) -> None:
+    """Launch kernel ``name`` on the current stream and count it in
+    ``counts[name]``; raises if the launch is refused."""
     from .build import load_library
 
     fn = getattr(load_library(name), f"ngpd_{name}_launch")
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def k0(pack: torch.Tensor, win: Windows, feature_k: int, step_k: int) -> torch.Tensor:
@@ -282,7 +284,7 @@ def k0(pack: torch.Tensor, win: Windows, feature_k: int, step_k: int) -> torch.T
         raise ValueError(f"K0 takes windows up to {K0_MAX_WINDOW} columns, "
                          f"got {win.wt_c}")
     out = torch.empty((8, win.n), dtype=torch.float32, device=pack.device)
-    _launch("k0", pack.data_ptr(), win.starts.data_ptr(), out.data_ptr(),
+    launch("k0", LAUNCHES, pack.data_ptr(), win.starts.data_ptr(), out.data_ptr(),
             win.n, win.nv, win.tile, win.wt_c, int(feature_k), int(step_k))
     return out
 
@@ -294,7 +296,7 @@ def k1(pack: torch.Tensor, win: Windows, angle: float) -> torch.Tensor:
     if not _check(pack, 8, win):
         return k1_plain(pack, win, cos_rho)
     out = torch.empty((8, win.n), dtype=torch.float32, device=pack.device)
-    _launch("k1", pack.data_ptr(), win.starts.data_ptr(), out.data_ptr(),
+    launch("k1", LAUNCHES, pack.data_ptr(), win.starts.data_ptr(), out.data_ptr(),
             win.n, win.nv, win.tile, win.wt_c, cos_rho)
     return out
 
@@ -314,7 +316,7 @@ def k2(pack: torch.Tensor, scal: torch.Tensor, win: Windows, angle: float,
         raise ValueError("scal must be contiguous on the pack's device")
     total = k2_layout(strategy, range(nd))["_total"]
     out = torch.empty((total, win.n), dtype=torch.float32, device=pack.device)
-    _launch("k2", pack.data_ptr(), win.starts.data_ptr(), scal.data_ptr(),
+    launch("k2", LAUNCHES, pack.data_ptr(), win.starts.data_ptr(), scal.data_ptr(),
             out.data_ptr(), win.n, win.nv, win.tile, win.wt_c, cos_rho,
             int("flat" in strategy), int("edge" in strategy),
             int("new" in strategy), nd, total)

@@ -92,7 +92,7 @@ def _evec_deflated_c(rows, lam, w):
     return tuple(c0 * ux + c1 * vx for ux, vx in zip(u, v))
 
 
-def _roots(a00, a01, a02, a11, a12, a22):
+def _roots(a00, a01, a02, a11, a12, a22, acos_fn=torch.acos):
     """Scaled trigonometric roots shared by both entry points."""
     scale = torch.maximum(
         torch.maximum(
@@ -118,7 +118,7 @@ def _roots(a00, a01, a02, a11, a12, a22):
         + c02 * (c01 * c12 - c11 * c02)
     )
     r = torch.clamp(det_c / 2.0, -1.0, 1.0)
-    phi = torch.acos(r) / 3.0
+    phi = acos_fn(r) / 3.0
     lam_hi = q + 2.0 * p * torch.cos(phi)
     lam_lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
     lam_mid = 3.0 * q - lam_hi - lam_lo
@@ -133,19 +133,20 @@ def _unscale(scale, safe, lams):
     )
 
 
-def eigvals3x3_components(a00, a01, a02, a11, a12, a22):
+def eigvals3x3_components(a00, a01, a02, a11, a12, a22, acos_fn=torch.acos):
     """Eigenvalues only, ascending."""
-    scale, safe, _, _, _, lams = _roots(a00, a01, a02, a11, a12, a22)
+    scale, safe, _, _, _, lams = _roots(a00, a01, a02, a11, a12, a22, acos_fn)
     return _unscale(scale, safe, lams)
 
 
-def vu_filter_components(t6, n, tau, damping):
+def vu_filter_components(t6, n, tau, damping, acos_fn=torch.acos):
     """VU-smoothed normals straight from the voting tensor, in the
     projector form ``normalize(damping*n + P n)`` with ``P`` the sum of
     the eigenprojectors whose eigenvalue exceeds ``tau`` (see
     ``ngpd_tpu/ops/eigh3.py::vu_filter_components``)."""
     a00, a01, a02, a11, a12, a22 = t6
-    lam0, lam1, lam2 = eigvals3x3_components(a00, a01, a02, a11, a12, a22)
+    lam0, lam1, lam2 = eigvals3x3_components(a00, a01, a02, a11, a12, a22,
+                                             acos_fn)
     u = (
         a00 * n[0] + a01 * n[1] + a02 * n[2],
         a01 * n[0] + a11 * n[1] + a12 * n[2],
@@ -186,15 +187,16 @@ def vu_filter_components(t6, n, tau, damping):
     return _normalize_c(acc)
 
 
-def eigh3x3_components(a00, a01, a02, a11, a12, a22):
+def eigh3x3_components(a00, a01, a02, a11, a12, a22, acos_fn=torch.acos):
     """Eigendecomposition from the six unique entries (elementwise).
 
     Returns ``(w, v)``: ``w = (lam0, lam1, lam2)`` ascending and ``v`` a
     tuple of three eigenvector component triples, ``v[i]`` pairing with
-    ``w[i]``.
+    ``w[i]``. ``acos_fn``: ``ops.fastmath.acos_poly`` reproduces the pass
+    kernels, which run the eigensolver with the polynomial.
     """
     scale, safe, rows, q, p, (lam_lo, lam_mid, lam_hi) = _roots(
-        a00, a01, a02, a11, a12, a22
+        a00, a01, a02, a11, a12, a22, acos_fn
     )
     from_hi = (lam_hi - lam_mid) >= (lam_mid - lam_lo)
     v_hi_first = _evec_from_cross_c(rows, lam_hi)

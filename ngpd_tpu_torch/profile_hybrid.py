@@ -1,6 +1,7 @@
 """Where the time goes in one hybrid-denoise run on the card.
 
     python -m ngpd_tpu_torch.profile_hybrid [--n 1000000] [--iters 20] [--k 32]
+                                            [--passes]
 
 Runs the bench workload (``bench.make_cloud``, lagged_nvt1) once to warm
 up, then once under ``torch.profiler`` with CPU and CUDA activities, and
@@ -8,7 +9,10 @@ prints one JSON line: the run's wall time (host clock, ending in a
 synchronize), the device's busy time (union of kernel intervals) and idle
 share, device time and kernel count by group (K0, K1, K2, and every other
 kernel, i.e. the per-point torch stages, Morton sort and unsort), and the
-ten kernels with the most device time. Needs a card.
+ten kernels with the most device time. ``--passes`` profiles the
+four-pass engine (``denoise_passes``, exact delta) on the same cloud
+instead, grouped by pass A-D and torch (prologue, packs, delta state,
+sort). Needs a card.
 """
 
 from __future__ import annotations
@@ -21,18 +25,18 @@ import torch
 
 
 def _group(name: str) -> str:
-    for k in ("k0", "k1", "k2"):
+    for k in ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d"):
         if f"{k}_kernel" in name:
             return k.upper()
     return "torch"
 
 
-def profile_run(n: int, iters: int, k: int) -> dict:
+def profile_run(n: int, iters: int, k: int, passes: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from .bench import make_cloud
     from .config import DenoiseConfig
-    from .core.cuda_fused import denoise_hybrid
+    from .core.cuda_fused import denoise_hybrid, denoise_passes
     from .device import resolve_device
 
     dev = resolve_device("cuda")
@@ -42,7 +46,10 @@ def profile_run(n: int, iters: int, k: int) -> dict:
     cfg = DenoiseConfig(feature_k=k, step_k=8)
 
     def once():
-        denoise_hybrid(pts, nr, cfg, iterations=iters, lagged_nvt1=True, device=dev)
+        if passes:
+            denoise_passes(pts, nr, cfg, iterations=iters, device=dev)
+        else:
+            denoise_hybrid(pts, nr, cfg, iterations=iters, lagged_nvt1=True, device=dev)
         torch.cuda.synchronize(dev)
 
     once()
@@ -74,6 +81,7 @@ def profile_run(n: int, iters: int, k: int) -> dict:
     busy = (busy + cur_t - cur_s) / 1e6
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     return {
+        "engine": "passes" if passes else "hybrid",
         "n": n, "iters": iters, "k": k, "device": torch.cuda.get_device_name(dev),
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
         "groups": groups,
@@ -86,8 +94,10 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--k", type=int, default=32)
+    ap.add_argument("--passes", action="store_true",
+                    help="profile the four-pass engine instead of the hybrid")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_run(args.n, args.iters, args.k)))
+    print(json.dumps(profile_run(args.n, args.iters, args.k, args.passes)))
 
 
 if __name__ == "__main__":

@@ -7,9 +7,10 @@ import pytest
 import torch
 
 from ngpd_tpu.ops import eigh3 as jeigh
+from ngpd_tpu.ops import fastmath as jfastmath
 from ngpd_tpu.ops import morton as jmorton
 from ngpd_tpu.ops import solve3 as jsolve
-from ngpd_tpu_torch.ops import eigh3, morton, solve3
+from ngpd_tpu_torch.ops import eigh3, fastmath, morton, solve3
 
 torch.set_num_threads(2)
 
@@ -57,6 +58,44 @@ def test_eigh3x3_matches_reference(kind):
     simple = gap > 1e-2
     dots = np.abs(np.einsum("nij,nij->nj", vj, vt.numpy()))
     assert np.all(dots[simple] > 1 - 1e-4)
+
+
+def test_acos_poly_matches_reference():
+    """The same coefficients in the same Horner order, each operation
+    rounded on its own on both sides, on 4097 points of [-1, 1] and beyond
+    (where both clamp). torch's vectorised CPU sqrt is not correctly
+    rounded (one ulp off on about 0.6% of inputs), so the two agree to two
+    ulps of pi (2.4e-7), and both to the polynomial's 5e-7 of arccos."""
+    x = np.concatenate([np.linspace(-1.0, 1.0, 4097, dtype=np.float32),
+                        np.float32([-1.5, 1.5])])
+    want = np.asarray(jfastmath.acos_poly(jnp.asarray(x)))
+    got = fastmath.acos_poly(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=2.4e-7)
+    np.testing.assert_allclose(got[:4097], np.arccos(x[:4097]), atol=5e-7)
+
+
+@pytest.mark.parametrize("kind", ["spd", "degenerate"])
+def test_eigh3x3_with_acos_poly_matches_reference(kind):
+    """eigh3x3_components(acos_fn=acos_poly), the pass kernels' form,
+    against the reference's with its acos_poly: the tolerances of
+    test_eigh3x3_matches_reference, and eigenvectors up to sign where the
+    eigenvalue is simple."""
+    a = _spd(256, 11) if kind == "spd" else _degenerate(12)
+    six = _six(a)
+    wj, vj = jeigh.eigh3x3_components(*[jnp.asarray(x) for x in six],
+                                      acos_fn=jfastmath.acos_poly)
+    wt, vt = eigh3.eigh3x3_components(*[torch.as_tensor(x) for x in six],
+                                      acos_fn=fastmath.acos_poly)
+    wj = np.stack([np.asarray(x) for x in wj], axis=1)
+    wt = torch.stack(wt, dim=1).numpy()
+    scale = np.abs(a).max(axis=(1, 2))[:, None] + 1e-6
+    tol = 1e-5 if kind == "spd" else 1e-3
+    np.testing.assert_allclose(wt / scale, wj / scale, atol=tol)
+    gap = np.minimum(np.diff(wj, axis=1, prepend=-np.inf),
+                     np.diff(wj, axis=1, append=np.inf)) / scale
+    for i in range(3):
+        dots = np.abs(sum(np.asarray(vj[i][c]) * vt[i][c].numpy() for c in range(3)))
+        assert np.all(dots[gap[:, i] > 1e-2] > 1 - 1e-4)
 
 
 def test_eigvals_and_vu_filter_match_reference():

@@ -8,7 +8,9 @@ import torch
 
 from ngpd_tpu_torch.core.cuda_fused import padded_size
 from ngpd_tpu_torch.device import resolve_device
+from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
 
 torch.set_num_threads(2)
@@ -90,6 +92,80 @@ def test_cpu_wrappers_use_plain_versions():
     assert torch.equal(kw.k0(pack, win, 16, 8), kw.k0_plain(pack, win, 16, 8))
     assert torch.equal(kw.k1(pack, win, 1.0), kw.k1_plain(pack, win, kw.cos_f32(1.0)))
     assert kw.LAUNCHES == before
+
+
+def _small_packs():
+    """GQ/GR/cls packs and lag state of a 300-point cloud, tile 128."""
+    n = padded_size(300, 128, 64, 1)[0]
+    pos, nrm = torch.rand((3, n)), torch.nn.functional.normalize(torch.rand((3, n)), dim=0)
+    gq, gr = kp.build_packs(pos, nrm)
+    gq = kp.set_rk(gq, torch.full((n,), 0.05), torch.full((n,), 0.02))
+    cls = torch.zeros((kp.CLS_ROWS, n))
+    scal = torch.zeros((8, 128))
+    scal[0, 0], scal[1, 0] = 0.1, 0.2
+    return gq, gr, cls, scal, kw.make_windows(n, 300, 128, 64, 1, "cpu")
+
+
+def _pass_calls(gq, gr, cls, scal, win):
+    cfg = DenoiseConfig()
+    return (lambda: kp.pass_a(gq, gr, win, cfg),
+            lambda: kp.pass_b(gq, gr, win, cfg, (0,)),
+            lambda: kp.pass_c(gq, gr, cls, scal, win, (0,)),
+            lambda: kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "edge", "feature"), (0,)))
+
+
+def test_pass_wrappers_raise_instead_of_falling_back(monkeypatch):
+    """Pass operands that pass as CUDA reach the kernel build and launch:
+    with no nvcc that raises, and no plain result comes back."""
+    try:
+        build.find_nvcc()
+        pytest.skip("nvcc is present; the missing-compiler path cannot be observed")
+    except RuntimeError:
+        pass
+    monkeypatch.setattr(kp, "_check", lambda *a, **k: True)
+    monkeypatch.setattr(build, "_LIBS", {})
+    before = dict(kp.LAUNCHES)
+    for call in _pass_calls(*_small_packs()):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert kp.LAUNCHES == before
+
+
+def test_pass_wrappers_reject_other_devices_and_bad_operands():
+    gq, gr, cls, scal, win = _small_packs()
+    cfg = DenoiseConfig()
+    meta = win._replace(starts=win.starts.to("meta"))
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        kp.pass_a(gq.to("meta"), gr.to("meta"), meta, cfg)
+    with pytest.raises(TypeError):
+        kp.pass_a(gq.double(), gr, win, cfg)
+    with pytest.raises(ValueError, match="shape"):
+        kp.pass_a(gq[:8].contiguous(), gr, win, cfg)  # a slim pack is not a GQ
+    with pytest.raises(ValueError, match="shape"):
+        kp.pass_b(gq, gr[:, :-128].contiguous(), win, cfg, (0,))
+    with pytest.raises(ValueError, match="scal"):
+        kp.pass_c(gq, gr, cls, torch.zeros((8, 64)), win, (0,))
+    with pytest.raises(ValueError, match="needs_delta"):
+        kp.pass_b(gq, gr, win, cfg, (0, 0))
+    with pytest.raises(ValueError, match="at least one"):
+        kp.pass_c(gq, gr, cls, scal, win, ())
+    with pytest.raises(ValueError):
+        kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "curve", "feature"), (0,))
+    with pytest.raises(ValueError, match="delta slot"):
+        kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "edge", "feature"), ())
+
+
+def test_cpu_pass_wrappers_use_plain_versions():
+    """On CPU tensors the pass wrappers return the plain versions' results
+    and count no launch."""
+    gq, gr, cls, scal, win = _small_packs()
+    cfg = DenoiseConfig()
+    before = dict(kp.LAUNCHES)
+    for got, want in zip(kp.pass_a(gq, gr, win, cfg), kp.pass_a_plain(gq, gr, win, cfg)):
+        assert torch.equal(got, want)
+    assert torch.equal(kp.pass_c(gq, gr, cls, scal, win, (0,)),
+                       kp.pass_c_plain(gq, gr, cls, scal, win, (0,)))
+    assert kp.LAUNCHES == before
 
 
 def test_kernel_sources_target_sm90a():

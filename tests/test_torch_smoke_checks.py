@@ -1,0 +1,103 @@
+"""chip_smoke.py's pass checks fail a wrong pass kernel.
+
+On the card, ``chip_smoke.check_passes`` holds each pass kernel against
+its plain version. Here, on the CPU, the wrappers run the plain versions,
+so each case puts a wrong stand-in in a wrapper's place (a corner step
+with a scaled right-hand side, a feature step without its ``sv`` sums, an
+edge step with scaled ``b_nv`` sums, edge directions negated or moved by
+1e-3) and expects the check to end the run. The cloud is
+``make_corner_cloud(16_384)``, where every class has over a hundred
+points in the first iteration (``test_right_passes_pass`` asserts it),
+so every step runs on over a hundred.
+"""
+
+import functools
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from ngpd_tpu_torch.bench import make_corner_cloud
+from ngpd_tpu_torch.config import DenoiseConfig
+from ngpd_tpu_torch.core.cuda_fused import passes_prologue
+from ngpd_tpu_torch.kernels import passes as kp
+
+torch.set_num_threads(2)
+
+CFG = DenoiseConfig(feature_k=32, step_k=8)
+CORNER_FEATURE = ("new", "corner", "feature")
+EDGE_CORNER = ("dummy", "edge", "corner")
+
+
+@functools.lru_cache(maxsize=None)
+def _state(strategy):
+    pts, nrm, _ = make_corner_cloud(16_384)
+    return passes_prologue(pts, nrm, CFG, strategy, device="cpu")
+
+
+def _pass_d_with(name, wrong):
+    """pass_d_plain with kernels/passes.py's ``name`` replaced by
+    ``wrong(original)`` while it runs."""
+    def pass_d(*args, **kwargs):
+        original = getattr(kp, name)
+        setattr(kp, name, wrong(original))
+        try:
+            return kp.pass_d_plain(*args, **kwargs)
+        finally:
+            setattr(kp, name, original)
+    return pass_d
+
+
+def _pass_b_edge(change):
+    def pass_b(*args, **kwargs):
+        cls, parts = kp.pass_b_plain(*args, **kwargs)
+        return torch.cat([cls[0:1], change(cls[1:4])]), parts
+    return pass_b
+
+
+MUTANTS = {
+    "corner-rhs": (CORNER_FEATURE, "pass_d", _pass_d_with(
+        "solve3x3_components",
+        lambda f: lambda rows, b, p: f(rows, tuple(x * 1.01 for x in b), p))),
+    "feature-sv": (CORNER_FEATURE, "pass_d", _pass_d_with(
+        "three_term_solve",
+        lambda f: lambda n, p, deg, s6, b, sv: f(n, p, deg, s6, b, tuple(0 * x for x in sv)))),
+    "edge-bnv": (EDGE_CORNER, "pass_d", _pass_d_with(
+        "edge_solve",
+        lambda f: lambda y, s6, b, q, deg, p: f(y, s6, tuple(1.01 * x for x in b), q, deg, p))),
+    "edge-dir-negated": (CORNER_FEATURE, "pass_b", _pass_b_edge(lambda y: -y)),
+    "edge-dir-moved": (CORNER_FEATURE, "pass_b", _pass_b_edge(lambda y: y + 1e-3)),
+}
+
+
+@pytest.fixture
+def no_cuda_sync(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+
+@pytest.mark.parametrize("strategy", [CORNER_FEATURE, EDGE_CORNER], ids="-".join)
+def test_right_passes_pass(no_cuda_sync, strategy):
+    """With the wrappers as they are, every check holds and every class
+    has at least MIN_CLASS_POINTS points."""
+    _, checks = cs.check_passes(CFG, _state(strategy), strategy, timed=False,
+                                min_class=cs.MIN_CLASS_POINTS)
+    assert min(checks["PASS_B"]["class_counts"].values()) >= cs.MIN_CLASS_POINTS
+    assert all(v > 0 for k, v in checks["PASS_D"]["moved"].items()
+               if strategy[int(k[-1])] != "dummy")
+
+
+@pytest.mark.parametrize("mutant", list(MUTANTS))
+def test_wrong_pass_fails(no_cuda_sync, monkeypatch, mutant):
+    strategy, wrapper, wrong = MUTANTS[mutant]
+    monkeypatch.setattr(kp, wrapper, wrong)
+    with pytest.raises(SystemExit):
+        cs.check_passes(CFG, _state(strategy), strategy, timed=False,
+                        min_class=cs.MIN_CLASS_POINTS)
+
+
+def test_missing_class_fails(no_cuda_sync):
+    """A class the strategy maps to a step with too few points ends the
+    run: the roof-like cloud of the old variants would."""
+    with pytest.raises(SystemExit):
+        cs.check_passes(CFG, _state(CORNER_FEATURE), CORNER_FEATURE, timed=False,
+                        min_class=10_000)
