@@ -7,7 +7,7 @@ Phases, one output line each; any failure ends the run with a non-zero
 exit code and no result line:
 
   card       the card's name and power limit (nvidia-smi), CUDA version
-  build      nvcc builds K0/K1/K2 and passes A-D from
+  build      nvcc builds K0/K1/K2, passes A-D and the fused pass BD from
              ``ngpd_tpu_torch/kernels/csrc``; ptxas registers and spills
   kernels    each kernel against its plain PyTorch version on the card, at
              the main path's shape (1M points, feature_k 32), for K2's
@@ -23,10 +23,11 @@ exit code and no result line:
              tests) on a 16,384-point cloud
   cli        ``python -m ngpd_tpu_torch.apps.cli denoise`` on a 100k-point
              OBJ (the >= 100k route), then ``eval``: the CD must fall
-  pass_kernels  the four-pass engine's kernels A-D against their plain
+  pass_kernels  the pass engine's kernels A-D and BD against their plain
              versions at 1M points (feature_k 32, tile 256, window 128),
-             each fed the plain output of the pass before; kernel, plain
-             and bound times as for ``kernels``
+             each fed the plain output of the pass before (BD reads pass
+             A's packs and a lag state with centres from one plain BD
+             pass); kernel, plain and bound times as for ``kernels``
   pass_variants the same checks at 65,536 points of tiled cube corners,
              where every class has hundreds of points, for all four
              strategies (pass C off, three delta classes); fails when a
@@ -35,6 +36,17 @@ exit code and no result line:
   passes     the four-pass path: ``denoise_passes``, 1M points, k 32, 20
              iterations, exact delta; CD gate and launch counts
   passes_reference  its card path against its CPU path on 16,384 points
+  passes_lagged  the lagged-delta path: ``denoise_passes(delta_mode=
+             "lagged")``, 1M points, k 32, 20 iterations: pass A and pass
+             BD 20 launches each and no other pass kernel; CD gate
+  passes_lagged_reference  its card path against its CPU path on 16,384
+             points
+  dense      the dense (N, k) pipeline (plain torch, no kernel):
+             ``denoise`` on 65,536 points, 2 iterations, the CD must fall;
+             the CLI on an OBJ of that cloud without normals (estimated
+             normals, dense route) and with ``--until-min --gt``; three
+             steps of ``denoise_until_minimum_error_windowed`` at 100k
+             points, K0/K1/K2 launched once a step
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
@@ -60,6 +72,7 @@ from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import (
     denoise_hybrid, denoise_passes, passes_prologue, prologue,
 )
+from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
 from ngpd_tpu_torch.io.obj import save_obj
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
@@ -69,6 +82,7 @@ ROOT = Path(__file__).resolve().parent
 MAIN_N, MAIN_K, MAIN_ITERS = 1_000_000, 32, 20
 VARIANT_N = 65_536
 CLI_N = 100_000
+DENSE_N = 65_536  # under the CLI's 100k route to the hybrid engine
 FRESH_GATE = 0.35
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"))
@@ -177,8 +191,12 @@ STEP_PAIR_OPS = {"flat": 16, "edge": 17, "corner": 0, "feature": 0, "new": 28, "
 # GQ2's p, |p|^2 and thresholds (6) and GR2 rows 0-17 and writes the cls
 # pack (4); C reads 5 GQ2 rows, GR2 rows 0-3 and the class row; D reads 8
 # GQ2 rows, GR2 rows 0-17 but the ones row, the cls pack, and writes 3.
+# BD reads all of GQ2 (rows 8-15 are carried into the next pack) and GR2
+# rows 0-17 but the ones row, and writes the next packs (40) and the
+# class row; its 5 nd partials a tile are added where the bound is taken.
 PASS_ROWS = {"PASS_A": 16 + 15 + 40, "PASS_B": 6 + 18 + 4, "PASS_C": 5 + 4 + 1,
-             "PASS_D": 8 + 17 + 4 + 3}
+             "PASS_D": 8 + 17 + 4 + 3, "PASS_BD": 16 + 17 + 40 + 1}
+NEXT_PACK_OPS = 14  # pass BD: |p|^2, -2p, p.n and sym6(n) of the next packs
 
 
 def k2_step_ops(strategy, nd: int) -> int:
@@ -317,11 +335,69 @@ def rel_check(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return err[0]
 
 
+def check_pass_bd(cfg, st, strategy, gq2, gr2, rec: dict) -> torch.Tensor:
+    """The fused pass BD against pass_bd_plain on pass A's packs; adds
+    ``rec["PASS_BD"]`` and returns the lag state it ran with.
+
+    The new positions are held as pass D's, class by class. Every other
+    row of the next packs is a function of them and of the input packs
+    (``next_packs``: products and sums rounded one by one on both sides),
+    so it is held bit for bit against that function of the kernel's own
+    positions: |p|^2 of a cloud ten units across has an ulp above
+    PASS_TOL, and a tolerance there would say nothing.
+
+    The lag state is not the initial one: its centres come from one plain
+    BD pass. That pass's deltas all lie near the cloud's radius, where the
+    flat and new weights are 1 to six digits and a kernel that read the
+    wrong slot, or no delta at all, would pass; so slot ci's delta is set
+    to d_thr * 2^ci, the scale of the step neighbourhoods, where every
+    slot shows in the positions."""
+    win, nd = st.win, st.needs_delta
+    first = kp.initial_lag_scal(st.gq[0:3], win.nv, len(nd), st.d_thr)
+    lag = kp.lag_scal(st.d_thr, kp.pass_bd_plain(gq2, gr2, first, win, cfg, strategy, nd)[3])
+    for ci in range(len(nd)):
+        lag[1 + ci, 0] = st.d_thr * 2.0 ** ci
+
+    got_q, got_r, got_cls, got_parts = kp.pass_bd(gq2, gr2, lag, win, cfg, strategy, nd)
+    (ref_q, ref_r, ref_cls, ref_parts), plain_ms = time_once(
+        lambda: kp.pass_bd_plain(gq2, gr2, lag, win, cfg, strategy, nd))
+    same = got_cls == ref_cls
+    class_flips = int((~same).sum())
+    if class_flips > FLIP_SHARE * same.numel():
+        fail(f"PASS_BD {strategy}: {class_flips} of {same.numel()} classes differ")
+    # The positions, class by class, where both versions agree on the
+    # class (a point whose class flips takes another step).
+    groups = {f"class{c} {strategy[c]}": (ref_cls == float(c)) & same for c in range(3)}
+    packs = flip_check(f"PASS_BD {strategy} positions", got_q[0:3], ref_q[0:3], groups)
+    for name, got, want in zip(("GQ'", "GR'"), (got_q, got_r),
+                               kp.next_packs(got_q[0:3], gq2)):
+        if not torch.equal(got, want):
+            rows = (got != want).any(dim=1).nonzero()[:, 0].tolist()
+            fail(f"PASS_BD {strategy}: rows {rows} of {name} are not the packs of its "
+                 "positions with the normals and thresholds carried")
+    tiles = same.reshape(-1, win.tile).all(dim=1)  # partials need equal classes
+    err_p = rel_check(f"PASS_BD {strategy} partials", got_parts[:, tiles],
+                      ref_parts[:, tiles]) if nd else 0.0
+    valid = torch.arange(win.n, device=ref_cls.device) < win.nv
+    if not torch.equal(got_q[0:3, ~valid], gq2[0:3, ~valid]):
+        fail(f"PASS_BD {strategy}: padding rows moved")
+    moved = (ref_q[0:3] - gq2[0:3]).abs().amax(dim=0)
+    rec["PASS_BD"] = {
+        **packs, "max_abs_err": max(packs["max_abs_err"], err_p),
+        "partials_max_abs_err": err_p, "class_flips": class_flips,
+        "tiles_with_flips": int((~tiles).sum()), "plain_ms": plain_ms,
+        "deltas": [float(lag[1 + ci, 0]) for ci in range(len(nd))],
+        "moved": {k: float(moved[m & valid].mean()) if int((m & valid).sum()) else 0.0
+                  for k, m in groups.items()},
+    }
+    return lag
+
+
 def check_passes(cfg, st, strategy, timed: bool,
                  min_class: int = 0) -> tuple[list[dict], dict]:
-    """Passes A-D against their plain versions on one prologue state, each
-    fed the plain output of the pass before; fails when a class has fewer
-    than ``min_class`` valid points."""
+    """Passes A-D and BD against their plain versions on one prologue
+    state, each fed the plain output of the pass before; fails when a
+    class has fewer than ``min_class`` valid points."""
     win, nd = st.win, st.needs_delta
     rec = {}
 
@@ -372,6 +448,7 @@ def check_passes(cfg, st, strategy, timed: bool,
     moved = (ref_d - gq2[0:3]).abs().amax(dim=0)
     rec["PASS_D"]["moved"] = {k: float(moved[m & valid].mean()) if counts[k] else 0.0
                               for k, m in classes.items()}
+    lag = check_pass_bd(cfg, st, strategy, gq2, gr2, rec)
     if not timed:
         return [], rec
 
@@ -380,6 +457,8 @@ def check_passes(cfg, st, strategy, timed: bool,
         "PASS_B": time_launches(lambda: kp.pass_b(gq2, gr2, win, cfg, nd)),
         "PASS_D": time_launches(
             lambda: kp.pass_d(gq2, gr2, ref_cls, scal, win, cfg, strategy, nd)),
+        "PASS_BD": time_launches(
+            lambda: kp.pass_bd(gq2, gr2, lag, win, cfg, strategy, nd)),
     }
     if nd:
         ms["PASS_C"] = time_launches(lambda: kp.pass_c(gq2, gr2, ref_cls, scal, win, nd))
@@ -394,14 +473,15 @@ def check_passes(cfg, st, strategy, timed: bool,
     delta_rows &= torch.arange(n, device=cls.device) < win.nv
     delta_step = int(step[delta_rows].sum())
     feat, step_all = int(feat.sum()), int(step.sum())
-    d_pairs = d_points = 0
+    d_pairs = d_points = d_sums = 0
     for c in range(3):
         rows = cls == float(c)
         name = strategy[c]
         d_points += int(rows.sum()) * STEP_POINT_OPS[name]
         if name != "dummy":
-            d_pairs += int(rows.sum()) * wt * (DIST_OPS + 1) \
-                + int(step[rows].sum()) * (D_PAIR_OPS + STEP_PAIR_OPS[name])
+            d_sums += int(step[rows].sum()) * (D_PAIR_OPS + STEP_PAIR_OPS[name])
+            d_pairs += int(rows.sum()) * wt * (DIST_OPS + 1)
+    d_pairs += d_sums
     ops = {
         "PASS_A": n * wt * (DIST_OPS + 2) + feat * NVT_FEAT_OPS
         + n * (EIGH_OPS + VU_OPS + PACK_OPS),
@@ -410,12 +490,19 @@ def check_passes(cfg, st, strategy, timed: bool,
         "PASS_C": int(delta_rows.sum()) * wt * (DIST_OPS + 1)
         + delta_step * CENTRE_PAIR_OPS,
         "PASS_D": d_pairs + d_points,
+        # BD takes each pair's distance once and tests it against both
+        # thresholds; its step-mask pairs carry D's sums (sum p_j and the
+        # count among them) and, for rows of a delta class, the max.
+        "PASS_BD": n * wt * (DIST_OPS + 3) + feat * NVT_FEAT_OPS
+        + n * (EIGH_OPS + CLASS_OPS + NEXT_PACK_OPS) + d_sums + d_points
+        + delta_step * CENTRE_PAIR_OPS,
     }
+    extra_bytes = {"PASS_BD": 4 * 5 * len(nd) * (n // win.tile)}
     out = []
-    for name in ("PASS_A", "PASS_B", "PASS_C", "PASS_D"):
+    for name in ("PASS_A", "PASS_B", "PASS_C", "PASS_D", "PASS_BD"):
         if name not in rec:
             continue
-        b_ms, by = bound(4 * n * PASS_ROWS[name], ops[name])
+        b_ms, by = bound(4 * n * PASS_ROWS[name] + extra_bytes.get(name, 0), ops[name])
         out.append({"name": name, "max_abs_err": rec[name]["max_abs_err"],
                     "ms": ms[name], "plain_ms": rec[name]["plain_ms"],
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
@@ -424,7 +511,8 @@ def check_passes(cfg, st, strategy, timed: bool,
     return out, rec
 
 
-def run_passes(n: int, iters: int, k: int, repeats: int = 2) -> dict:
+def run_passes(n: int, iters: int, k: int, delta_mode: str = "exact",
+               repeats: int = 2) -> dict:
     """denoise_passes on the card: best of ``repeats`` after a warm-up,
     launches of the last timed run, and the CD ratio."""
     noisy, nrm, clean = bench.make_cloud(n)
@@ -434,7 +522,7 @@ def run_passes(n: int, iters: int, k: int, repeats: int = 2) -> dict:
 
     def once():
         out = denoise_passes(pts_t, nrm_t, cfg, iterations=iters, tile=256, window=128,
-                             device="cuda")
+                             delta_mode=delta_mode, device="cuda")
         torch.cuda.synchronize()
         return out
 
@@ -447,10 +535,91 @@ def run_passes(n: int, iters: int, k: int, repeats: int = 2) -> dict:
         best = min(best, time.perf_counter() - t0)
         launches = dict(kp.LAUNCHES)
     ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
-    return {"n": n, "iterations": iters, "k": k, "seconds": best,
+    return {"n": n, "iterations": iters, "k": k, "delta_mode": delta_mode, "seconds": best,
             "point_iterations_per_s": n * iters / best, "launches": launches,
             "finite": bool(torch.isfinite(out).all()), "quality_cd_ratio": ratio,
             "quality_cd_noisy": cd_noisy, "quality_cd_denoised": cd_out}
+
+
+def card_against_cpu(phase: str, engine, pts, nrm, cfg, **kwargs) -> None:
+    """An engine's card path against its CPU path (held against ngpd_tpu
+    by the tests) on one small cloud, to the mask-flip bound."""
+    g_p, _, g_c = engine(pts, nrm, cfg, iterations=2, device="cuda", **kwargs)
+    c_p, _, c_c = engine(pts, nrm, cfg, iterations=2, device="cpu", **kwargs)
+    diff = (g_p.cpu() - c_p).abs().amax(dim=1)
+    agree = float((g_c.cpu() == c_c).float().mean())
+    within = float((diff <= 2e-3).float().mean())
+    finite = bool(torch.isfinite(g_p).all())
+    say(phase, n=len(pts), classes_equal=agree, within_2e_3=within,
+        max_diff=float(diff.max()), finite=finite)
+    if agree < 0.99 or within < 0.999 or float(diff.max()) > 2e-2 or not finite:
+        fail(f"{phase}: card and CPU paths disagree beyond the mask-flip bound")
+
+
+def run_cli(tmp: str, *args: str) -> tuple[str, float]:
+    """``python -m ngpd_tpu_torch.apps.cli`` in a process of its own;
+    returns (its standard output, seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ngpd_tpu_torch.apps.cli", *args],
+                       check=True, env=env, cwd=tmp, capture_output=True, text=True)
+    return r.stdout, time.perf_counter() - t0
+
+
+def check_dense() -> dict:
+    """The dense (N, k) pipeline on the card: ``denoise``, the CLI's
+    estimated-normals and until-min routes, and the windowed until-min
+    loop with its K0/K1/K2 launch counts."""
+    rec = {"n": DENSE_N}
+    noisy, nrm, clean = bench.make_cloud(DENSE_N)
+    cfg = DenoiseConfig(feature_k=16, step_k=8)
+    (out, out_n, cls), ms = time_once(
+        lambda: denoise(noisy, nrm, cfg, iterations=2, device="cuda"))
+    ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
+    rec["denoise"] = {"seconds": ms / 1e3, "cd_noisy": cd_noisy, "cd_denoised": cd_out,
+                      "classes": torch.bincount(cls.long(), minlength=3).tolist()}
+    if not (torch.isfinite(out).all() and torch.isfinite(out_n).all() and cd_out < cd_noisy):
+        fail(f"dense denoise did not lower the CD: {cd_noisy} -> {cd_out}")
+    if tuple(out.shape) != (DENSE_N, 3) or out.device.type != "cuda":
+        fail(f"dense denoise returned {tuple(out.shape)} on {out.device}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_obj(f"{tmp}/bare.obj", noisy)  # no normals: the CLI estimates them
+        save_obj(f"{tmp}/noisy.obj", noisy, nrm)
+        save_obj(f"{tmp}/clean.obj", clean)
+
+        def cd_of(path):
+            return json.loads(run_cli(tmp, "eval", f"{tmp}/clean.obj", path)[0])["cd"]
+
+        cd_in = cd_of(f"{tmp}/noisy.obj")
+        _, est_s = run_cli(tmp, "denoise", f"{tmp}/bare.obj", "-o", f"{tmp}/est.obj")
+        said, until_s = run_cli(tmp, "denoise", f"{tmp}/noisy.obj", "-o", f"{tmp}/until.obj",
+                                "--until-min", "--gt", f"{tmp}/clean.obj", "--iterations", "3")
+        rec["cli_estimated_normals"] = {"seconds": est_s, "cd_noisy": cd_in,
+                                        "cd_denoised": cd_of(f"{tmp}/est.obj")}
+        rec["cli_until_min"] = {"seconds": until_s, "cd_noisy": cd_in,
+                                "cd_denoised": cd_of(f"{tmp}/until.obj"),
+                                "said": said.splitlines()[0]}
+    for key in ("cli_estimated_normals", "cli_until_min"):
+        if not rec[key]["cd_denoised"] < cd_in:
+            fail(f"{key} did not lower the CD: {rec[key]}")
+    if "stopped after" not in rec["cli_until_min"]["said"]:
+        fail(f"the CLI's --until-min route said {rec['cli_until_min']['said']!r}")
+
+    wn, wnrm, wclean = bench.make_cloud(CLI_N)
+    kw.reset_launch_counts()
+    (w_pos, _, w_err, w_it), ms = time_once(lambda: denoise_until_minimum_error_windowed(
+        wn, wnrm, wclean, cfg, max_iterations=3, device="cuda"))
+    rec["windowed_until_min"] = {"n": CLI_N, "seconds": ms / 1e3, "iterations": w_it,
+                                 "error": w_err, "launches": dict(kw.LAUNCHES)}
+    # A step that raises the error is run and then dropped, so the engine
+    # runs min(iterations + 1, 3) times.
+    steps = min(w_it + 1, 3)
+    if kw.LAUNCHES != {"k0": steps, "k1": steps, "k2": steps} or w_it < 1:
+        fail(f"windowed until-min: {rec['windowed_until_min']}")
+    if not torch.isfinite(w_pos).all():
+        fail("windowed until-min returned non-finite positions")
+    return rec
 
 
 def main() -> int:
@@ -505,7 +674,7 @@ def main() -> int:
     del st
 
     # main path
-    main_rec = bench.run(MAIN_N, MAIN_ITERS, MAIN_K, "cuda", lagged_nvt1=True)
+    main_rec = bench.run(MAIN_N, MAIN_ITERS, MAIN_K, "cuda", lagged_nvt1=True, repeats=2)
     say("main", **main_rec)
     want = {"k0": 1, "k1": 1, "k2": MAIN_ITERS}
     if main_rec["launches"] != want:
@@ -527,34 +696,15 @@ def main() -> int:
     # card against the CPU path on a small cloud
     sn, snrm, _ = bench.make_cloud(16_384)
     small = DenoiseConfig(feature_k=16, step_k=8)
-    g_p, _, g_c = denoise_hybrid(sn, snrm, small, iterations=2, device="cuda")
-    c_p, _, c_c = denoise_hybrid(sn, snrm, small, iterations=2, device="cpu")
-    diff = (g_p.cpu() - c_p).abs().amax(dim=1)
-    agree = float((g_c.cpu() == c_c).float().mean())
-    within = float((diff <= 2e-3).float().mean())
-    say("reference", n=16_384, classes_equal=agree, within_2e_3=within,
-        max_diff=float(diff.max()), finite=bool(torch.isfinite(g_p).all()))
-    if agree < 0.99 or within < 0.999 or float(diff.max()) > 2e-2 \
-            or not torch.isfinite(g_p).all():
-        fail("card and CPU paths disagree beyond the mask-flip bound")
+    card_against_cpu("reference", denoise_hybrid, sn, snrm, small)
 
     # CLI, the >= 100k route
     with tempfile.TemporaryDirectory() as tmp:
         save_obj(f"{tmp}/noisy.obj", cn, cnrm)
         save_obj(f"{tmp}/clean.obj", cclean)
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
-        cli = [sys.executable, "-m", "ngpd_tpu_torch.apps.cli"]
-        t0 = time.perf_counter()
-        subprocess.run([*cli, "denoise", f"{tmp}/noisy.obj", "-o", f"{tmp}/out.obj"],
-                       check=True, env=env, cwd=tmp, capture_output=True)
-        dn_s = time.perf_counter() - t0
-
-        def ev(path):
-            r = subprocess.run([*cli, "eval", f"{tmp}/clean.obj", path], check=True,
-                               env=env, cwd=tmp, capture_output=True, text=True)
-            return json.loads(r.stdout)
-
-        e_in, e_out = ev(f"{tmp}/noisy.obj"), ev(f"{tmp}/out.obj")
+        _, dn_s = run_cli(tmp, "denoise", f"{tmp}/noisy.obj", "-o", f"{tmp}/out.obj")
+        e_in, e_out = (json.loads(run_cli(tmp, "eval", f"{tmp}/clean.obj", path)[0])
+                       for path in (f"{tmp}/noisy.obj", f"{tmp}/out.obj"))
     say("cli", n=CLI_N, denoise_seconds=dn_s, cd_noisy=e_in["cd"], cd_denoised=e_out["cd"])
     if not e_out["cd"] < e_in["cd"]:
         fail("CLI denoise did not lower the CD")
@@ -574,32 +724,42 @@ def main() -> int:
             pass_c=len(pst.needs_delta) > 0, checks=checks)
     del pst
 
-    # the four-pass path
+    # the four-pass path, exact delta
     passes_rec = run_passes(MAIN_N, MAIN_ITERS, MAIN_K)
     say("passes", **passes_rec)
-    want = {k: MAIN_ITERS for k in kp.LAUNCHES}
+    want = {"pass_a": MAIN_ITERS, "pass_b": MAIN_ITERS, "pass_c": MAIN_ITERS,
+            "pass_d": MAIN_ITERS, "pass_bd": 0}
     if passes_rec["launches"] != want:
         fail(f"four-pass launches {passes_rec['launches']} != {want}")
     if not passes_rec["finite"] or not passes_rec["quality_cd_ratio"] <= bench.GATE_RATIO:
         fail(f"four-pass CD ratio {passes_rec['quality_cd_ratio']} > {bench.GATE_RATIO}")
+    card_against_cpu("passes_reference", denoise_passes, sn, snrm, small)
 
-    # its card path against its CPU path on a small cloud
-    g_p, _, g_c = denoise_passes(sn, snrm, small, iterations=2, device="cuda")
-    c_p, _, c_c = denoise_passes(sn, snrm, small, iterations=2, device="cpu")
-    diff = (g_p.cpu() - c_p).abs().amax(dim=1)
-    agree = float((g_c.cpu() == c_c).float().mean())
-    within = float((diff <= 2e-3).float().mean())
-    say("passes_reference", n=16_384, classes_equal=agree, within_2e_3=within,
-        max_diff=float(diff.max()), finite=bool(torch.isfinite(g_p).all()))
-    if agree < 0.99 or within < 0.999 or float(diff.max()) > 2e-2 \
-            or not torch.isfinite(g_p).all():
-        fail("four-pass card and CPU paths disagree beyond the mask-flip bound")
+    # the lagged-delta path: pass A and the fused pass BD
+    lagged_rec = run_passes(MAIN_N, MAIN_ITERS, MAIN_K, delta_mode="lagged")
+    say("passes_lagged", exact_point_iterations_per_s=passes_rec["point_iterations_per_s"],
+        **lagged_rec)
+    want = {"pass_a": MAIN_ITERS, "pass_b": 0, "pass_c": 0, "pass_d": 0,
+            "pass_bd": MAIN_ITERS}
+    if lagged_rec["launches"] != want:
+        fail(f"lagged launches {lagged_rec['launches']} != {want}")
+    if not lagged_rec["finite"] or not lagged_rec["quality_cd_ratio"] <= bench.GATE_RATIO:
+        fail(f"lagged CD ratio {lagged_rec['quality_cd_ratio']} > {bench.GATE_RATIO}")
+    card_against_cpu("passes_lagged_reference", denoise_passes, sn, snrm, small,
+                     delta_mode="lagged")
+
+    # the dense (N, k) pipeline and the rest of the CLI's routes
+    say("dense", **check_dense())
 
     kernels = []
     sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),
                "PASS_A": ("pass_a", 232), "PASS_B": ("pass_b", 281),
-               "PASS_C": ("pass_c", 356), "PASS_D": ("pass_d", 402)}
-    launches = {**main_rec["launches"], **passes_rec["launches"]}
+               "PASS_C": ("pass_c", 356), "PASS_D": ("pass_d", 402),
+               "PASS_BD": ("pass_bd", 565)}
+    # Each kernel's launches on its own path's run: the hybrid (K0-K2),
+    # exact delta (A-D), lagged delta (BD; A runs 20 times on both).
+    launches = {**main_rec["launches"], **passes_rec["launches"],
+                "pass_bd": lagged_rec["launches"]["pass_bd"]}
     for r in rec + pass_rec:
         src, line = sources[r["name"]]
         kernels.append({

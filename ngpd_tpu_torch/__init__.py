@@ -2,17 +2,20 @@
 
 The JAX package ``ngpd_tpu`` stays the reference; this package never
 imports it (nor JAX). Ported so far: the large-cloud hybrid denoise
-(``core.cuda_fused.denoise_hybrid``) with its window kernels K0/K1/K2 as
-hand-written CUDA C++ (``kernels/``), the IO it needs, the Chamfer-family
-metrics, the ``denoise``/``eval`` CLI and the throughput bench; and the
-four-pass engine in exact-delta mode (``core.cuda_fused.denoise_passes``)
-with its passes A-D as CUDA C++.
+(``core.cuda_fused.denoise_hybrid``) with its window kernels K0/K1/K2, and
+the pass engine (``core.cuda_fused.denoise_passes``) with passes A-D
+(exact delta) and the fused pass BD (lagged delta), all hand-written CUDA
+C++ (``kernels/``); the dense ``(N, k)`` pipeline in plain torch
+(``core.pipeline.denoise`` and the until-minimum-error loops, kNN,
+voting, the six steps, normal estimation); the IO, the metrics, the
+``denoise``/``eval`` CLI and the throughput bench.
 """
 
 from .config import DenoiseConfig
 from .core.cloud import PointCloud
 from .core.cuda_fused import denoise_hybrid, denoise_passes
+from .core.pipeline import denoise, denoise_until_minimum_error
 from .io.obj import load_obj, save_obj
 
-__all__ = ["DenoiseConfig", "PointCloud", "denoise_hybrid", "denoise_passes",
-           "load_obj", "save_obj"]
+__all__ = ["DenoiseConfig", "PointCloud", "denoise", "denoise_hybrid", "denoise_passes",
+           "denoise_until_minimum_error", "load_obj", "save_obj"]

@@ -1,14 +1,15 @@
 """Command-line interface of the port (the ``denoise`` and ``eval``
 subcommands of ``ngpd_tpu/apps/cli.py``):
 
-  python -m ngpd_tpu_torch.apps.cli denoise noisy.obj -o out.obj --fused
+  python -m ngpd_tpu_torch.apps.cli denoise noisy.obj -o out.obj
+  python -m ngpd_tpu_torch.apps.cli denoise noisy.obj --gt clean.obj --until-min
   python -m ngpd_tpu_torch.apps.cli eval clean.obj out.obj
 
-``denoise`` takes the hybrid engine on ``--fused`` or for clouds of
-100k points or more, as the reference does. Its other routes (the dense
-path, ``--until-min``, and clouds without normals, which need normal
-estimation) are not ported yet and exit with a message. ``--device``
-defaults to ``cuda``.
+``denoise`` takes the reference's routes: normals are estimated (PVT over
+12 neighbours, oriented) when the cloud has none; ``--until-min`` iterates
+against ``--gt`` until the error stops falling; otherwise the hybrid
+engine runs on ``--fused`` or for clouds of 100k points or more, and the
+dense ``(N, k)`` pipeline below that. ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -38,35 +39,47 @@ def _load_cloud(path):
     raise SystemExit(f"unsupported input format: {suffix}")
 
 
-def _not_ported(what: str):
-    raise SystemExit(
-        f"{what} is not ported to ngpd_tpu_torch yet (see ROADMAP.md); "
-        "use python -m ngpd_tpu.apps.cli for it"
-    )
+def _estimated_normals(points, k=12):
+    from ..core.normals import orient_normals, pvt_normals
+    from ..ops.knn import knn
+
+    nbh, _ = knn(points, k, exclude_self=True)
+    return orient_normals(points, pvt_normals(points, nbh), nbh)
 
 
 def cmd_denoise(args):
     from ..config import DenoiseConfig
     from ..core.cuda_fused import denoise_hybrid
+    from ..core.pipeline import denoise, denoise_until_minimum_error
+    from ..device import resolve_device
     from ..io.obj import save_obj
 
+    dev = resolve_device(args.device)
     cloud = _load_cloud(args.input)
-    if args.until_min:
-        _not_ported("--until-min (denoise until minimum error)")
-    if not cloud.has_normals():
-        _not_ported("normal estimation for clouds without normals")
-    if not (args.fused or len(cloud) >= HYBRID_MIN_POINTS):
-        _not_ported(
-            f"the dense denoise path (clouds under {HYBRID_MIN_POINTS} points "
-            "without --fused)"
-        )
+    pts = cloud.points.to(dev)
+    nrm = cloud.normals.to(dev) if cloud.has_normals() else _estimated_normals(pts)
     cfg = DenoiseConfig(feature_k=args.feature_k, step_k=args.step_k)
-    out, nrm_out, _ = denoise_hybrid(
-        cloud.points, cloud.normals, cfg,
-        strategy=tuple(args.strategy.split(",")),
-        iterations=args.iterations or 2, window=args.window,
-        lagged_nvt1=args.lagged_nvt1, device=args.device,
-    )
+    strategy = tuple(args.strategy.split(","))
+    if args.until_min:
+        if not args.gt:
+            raise SystemExit("--until-min requires --gt")
+        gt = _load_cloud(args.gt).points
+        out, nrm_out, err, iters = denoise_until_minimum_error(
+            pts, nrm, gt, cfg, strategy=strategy,
+            max_iterations=args.iterations or 64, device=dev,
+        )
+        print(f"stopped after {int(iters)} iterations, error {float(err):.4e}")
+    elif args.fused or len(cloud) >= HYBRID_MIN_POINTS:
+        out, nrm_out, _ = denoise_hybrid(
+            pts, nrm, cfg, strategy=strategy,
+            iterations=args.iterations or 2, window=args.window,
+            lagged_nvt1=args.lagged_nvt1, device=dev,
+        )
+    else:
+        out, nrm_out, _ = denoise(
+            pts, nrm, cfg, strategy=strategy, iterations=args.iterations or 2,
+            device=dev,
+        )
     save_obj(args.output, out.cpu().numpy(), nrm_out.cpu().numpy())
     print(f"wrote {args.output}")
 

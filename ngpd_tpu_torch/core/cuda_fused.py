@@ -14,12 +14,14 @@ lagged global deltas, and the same padding to ``tile * sub`` (the last
 blocks' clipped window starts depend on the padded size, so ``sub`` is
 kept although on the card it changes nothing else).
 
-``denoise_passes`` ports ``pallas_denoise`` in exact-delta mode. The chain
-is: pad to ``tile`` and Morton sort -> the prologue in torch (window
-distances, k-th smallest thresholds, ``d_thr``) -> per iteration: pass A
+``denoise_passes`` ports ``pallas_denoise``. The chain is: pad to ``tile``
+and Morton sort -> the prologue in torch (window distances, k-th smallest
+thresholds, ``d_thr``) -> per iteration, in exact-delta mode: pass A
 (NVT1, eigh, VU smoothing, the next packs) -> pass B (NVT2, classes,
 delta-centre partials) -> pass C (delta spread, when a class needs one)
--> pass D (class-dispatched update) -> unsort. The passes are CUDA
+-> pass D (class-dispatched update); in lagged-delta mode: pass A -> the
+fused pass BD (B and D with the previous iteration's deltas, the next
+packs and the next lag state's partials) -> unsort. The passes are CUDA
 kernels on a card and their plain versions on the CPU
 (``kernels/passes.py``).
 """
@@ -97,16 +99,7 @@ def prologue(
     pro = kw.k0(pack, win, cfg.feature_k, cfg.step_k)
     d_thr = cfg.d_scale * torch.sum(pro[2]) / torch.clamp(torch.sum(pro[3]), min=1.0)
 
-    valid = torch.arange(n, device=dev) < nv
-    centroid = torch.sum(torch.where(valid[None, :], pos0, 0.0), dim=1) / max(nv, 1)
-    radius0 = torch.sqrt(torch.max(torch.where(
-        valid, torch.sum((pos0 - centroid[:, None]) ** 2, dim=0), 0.0
-    )))
-    scal = torch.zeros((8, 128), dtype=torch.float32, device=dev)
-    for ci in range(len(needs_delta)):
-        scal[1 + ci, 0] = radius0
-        scal[4 + ci, 0:3] = centroid
-
+    scal = kp.initial_lag_scal(pos0, nv, len(needs_delta))
     pack = hs.set_rk_slim(pack, pro[0] * threshold_slack, pro[1] * threshold_slack)
     return HybridState(sc, win, pack, scal, d_thr, needs_delta,
                        kw.k2_layout(strategy, needs_delta), n_in)
@@ -274,21 +267,19 @@ def denoise_passes(
     delta_mode: str = "exact",
     device=None,
 ):
-    """Four-pass engine, ``pallas_denoise`` in exact-delta mode.
+    """The pass engine, ``pallas_denoise``.
 
     Returns ``(positions (N, 3), normals (N, 3), classes (N,) int32)`` in
-    the input order on ``device`` (default ``"cuda"``). The delta of each
-    flat/new class is the current iteration's: its centre from pass B's
-    partials, its spread from pass C, both reduced on the device, so
-    nothing is copied to the host between iterations. The reference's
-    initial lag state (l.1040-1056) is read only in lagged mode and is
-    not built.
+    the input order on ``device`` (default ``"cuda"``). With
+    ``delta_mode="exact"`` the delta of each flat/new class is the current
+    iteration's: its centre from pass B's partials, its spread from pass
+    C. With ``"lagged"`` it is the previous iteration's, from the fused
+    pass BD's partials, starting from the cloud's centroid and radius
+    (l.1040-1056), and an iteration is two launches, A and BD. Either way
+    the state is reduced on the device, so nothing is copied to the host
+    between iterations.
     """
-    if delta_mode == "lagged":
-        raise NotImplementedError(
-            "delta_mode='lagged' needs the fused pass BD, still to port "
-            "(ROADMAP.md, Queue 2)")
-    if delta_mode != "exact":
+    if delta_mode not in ("exact", "lagged"):
         raise ValueError(f"delta_mode must be 'exact' or 'lagged', got {delta_mode!r}")
     iters = cfg.iterations if iterations is None else iterations
     if iters < 1:
@@ -297,21 +288,29 @@ def denoise_passes(
                          threshold_method, threshold_slack, device)
     win, nd = st.win, st.needs_delta
     gq, gr = st.gq, st.gr
-    valid = torch.arange(win.n, device=gq.device) < win.nv
     cls = None
-    for _ in range(iters):
-        gq2, gr2 = kp.pass_a(gq, gr, win, cfg)
-        cls, parts = kp.pass_b(gq2, gr2, win, cfg, nd)
-        scal = kp.delta_scal(st.d_thr, parts)
-        if nd:
-            scal = kp.delta_scal(st.d_thr, parts, kp.pass_c(gq2, gr2, cls, scal, win, nd))
-        newp = kp.pass_d(gq2, gr2, cls, scal, win, cfg, strategy, nd)
-        new_pos = torch.where(valid, newp, gq[0:3])
-        gq, gr = kp.build_packs(new_pos, gq2[5:8])
-        gq = kp.set_rk(gq, st.rk_feat, st.rk_step)
+    if delta_mode == "lagged":
+        scal = kp.initial_lag_scal(gq[0:3], win.nv, len(nd), st.d_thr)
+        for _ in range(iters):
+            gq2, gr2 = kp.pass_a(gq, gr, win, cfg)
+            gq, gr, cls, parts = kp.pass_bd(gq2, gr2, scal, win, cfg, strategy, nd)
+            scal = kp.lag_scal(st.d_thr, parts)
+    else:
+        valid = torch.arange(win.n, device=gq.device) < win.nv
+        for _ in range(iters):
+            gq2, gr2 = kp.pass_a(gq, gr, win, cfg)
+            cls4, parts = kp.pass_b(gq2, gr2, win, cfg, nd)
+            scal = kp.delta_scal(st.d_thr, parts)
+            if nd:
+                scal = kp.delta_scal(st.d_thr, parts, kp.pass_c(gq2, gr2, cls4, scal, win, nd))
+            newp = kp.pass_d(gq2, gr2, cls4, scal, win, cfg, strategy, nd)
+            new_pos = torch.where(valid, newp, gq[0:3])
+            gq, gr = kp.build_packs(new_pos, gq2[5:8])
+            gq = kp.set_rk(gq, st.rk_feat, st.rk_step)
+            cls = cls4[0]
 
     idx, n_in = st.sorted.orig_idx, st.n_in
     out_pos = unsort(gq[0:3].T, idx)[:n_in]
     out_nrm = unsort(gq[5:8].T, idx)[:n_in]
-    out_cls = unsort(cls[0].to(torch.int32)[:, None], idx)[:n_in, 0]
+    out_cls = unsort(cls.to(torch.int32)[:, None], idx)[:n_in, 0]
     return out_pos, out_nrm, out_cls

@@ -1,8 +1,253 @@
-"""Pipeline constants shared with the reference (``ngpd_tpu/core/pipeline.py``).
+"""Denoising loops on dense ``(N, k)`` neighbourhoods (torch), as
+``ngpd_tpu/core/pipeline.py``.
 
-Only the default class strategy is ported so far (the step names are in
-``ops/steps.py``); the dense ``(N, k)`` denoise path is still to be
-ported (see ROADMAP.md).
+The classical pipeline per iteration:
+  1. feature decomposition: kNN(feature_k) -> filtered NVT -> VU-smoothed
+     normals -> second filtered NVT;
+  2. classify face/edge/corner;
+  3. per-class vertex update with the smoothed normals;
+  4. adopt the smoothed normals for the next iteration.
+
+No kernel of the port lies on this path: it is plain torch on the
+caller's device (``device=None`` means ``"cuda"``). Where the reference
+scans or loops on the device (``lax.scan``, ``lax.while_loop``), these
+functions loop on the host; ``denoise_until_minimum_error`` reads one scalar
+a step. Only the single-device arguments are ported (no ``axis_name``,
+``gather_fn`` or ``src_*``).
 """
 
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..config import DenoiseConfig
+from ..device import exact_float32, resolve_device
+from ..ops import metrics
+from ..ops.knn import estimate_cell_size, knn, knn_grid
+from ..ops.neighbors import Neighborhood
+from ..ops.steps import STEP_NAMES
+from . import denoise as steps
+from . import voting
+
 DEFAULT_STRATEGY = ("flat", "edge", "feature")
+
+
+def my_feature_decomposition(points, normals, nbh: Neighborhood, angle: float,
+                             vu_tau: float = 0.3, vu_damping: float = 3.0):
+    """Filtered NVT, VU-smooth the normals, second filtered NVT on the
+    smoothed normals. Returns (Decomposition, smoothed normals)."""
+    nvt1 = voting.better_filtered_nvt(points, nbh, normals, angle)
+    f_n = voting.vu_smoothed_normals(nvt1, normals, vu_tau, vu_damping)
+    return voting.better_filtered_nvt(points, nbh, f_n, angle), f_n
+
+
+def martin_feature_decomposition(points, normals, nbh: Neighborhood, rho: float = 0.9):
+    """The normal-filtered variant on a radius-masked neighbourhood."""
+    nvt1 = voting.normal_filtered_nvt(nbh, normals, rho)
+    f_n = voting.vu_smoothed_normals(nvt1, normals)
+    return voting.normal_filtered_pvt(points, nbh, f_n, rho), f_n
+
+
+def _class_delta(points, nbh: Neighborhood, row_mask) -> torch.Tensor:
+    """The global neighbour-spread scale restricted to the rows of one
+    class: the largest distance of their gathered neighbours from those
+    neighbours' mean."""
+    vj = nbh.gather(points)
+    m = (row_mask[:, None] & nbh.mask).to(points.dtype)
+    center = torch.sum(vj * m[..., None], dim=(0, 1)) / torch.clamp(torch.sum(m), min=1.0)
+    dist = torch.linalg.norm(vj - center, dim=-1)
+    return torch.max(torch.where(m > 0, dist, 0.0))
+
+
+def denoise_iteration(
+    points: torch.Tensor,
+    normals: torch.Tensor,
+    nbh_feat: Neighborhood,
+    nbh_step: Neighborhood,
+    d,
+    alphas: tuple[float, float, float],
+    angle: float,
+    class_scale: float = 0.2,
+    strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
+    vu_tau: float = 0.3,
+    vu_damping: float = 3.0,
+):
+    """One full classify-and-update iteration for ALL points: each
+    configured step runs densely and the result is selected per point.
+    Returns (new positions, smoothed normals, classes int32)."""
+    decomp, f_n = my_feature_decomposition(points, normals, nbh_feat, angle,
+                                           vu_tau, vu_damping)
+    cls = voting.classes(decomp, class_scale)
+    edge_vectors = decomp.eigvec[..., 0]  # smallest-eigenvalue direction
+
+    def run(name: str, class_id: int) -> torch.Tensor:
+        alpha = alphas[class_id]
+        if name in ("flat", "new"):
+            delta = _class_delta(points, nbh_step, cls == class_id)
+            step = steps.flat_step if name == "flat" else steps.new_step
+            return step(points, nbh_step, f_n, d, alpha, delta=delta)
+        if name == "edge":
+            return steps.edge_step(points, nbh_step, f_n, edge_vectors, d, alpha)
+        if name == "corner":
+            return steps.corner_step(points, nbh_step, f_n, d, alpha)
+        if name == "feature":
+            return steps.feature_step(points, nbh_step, f_n, d, alpha)
+        if name == "dummy":
+            return steps.dummy_step(points, nbh_step, f_n, d, alpha)
+        raise ValueError(f"unknown step {name!r}; expected one of {STEP_NAMES}")
+
+    new_by_class = [run(strategy[c], c) for c in range(3)]
+    new_pos = torch.where(
+        (cls == 0)[:, None], new_by_class[0],
+        torch.where((cls == 1)[:, None], new_by_class[1], new_by_class[2]),
+    )
+    return new_pos, f_n, cls
+
+
+def step_threshold(points: torch.Tensor, num_valid=None) -> torch.Tensor:
+    """d = 2 * mean 6-NN edge length. Quirk preserved: the 6-NN query
+    includes the query itself as a zero-length edge, so the mean runs
+    over six distances one of which is 0."""
+    nbh, _ = knn(points, 6, num_valid=num_valid)
+    return 2.0 * metrics.average_edge_length(points, nbh)
+
+
+def _on_device(device, *arrays):
+    dev = resolve_device(device)
+    exact_float32()
+    return [torch.as_tensor(a, dtype=torch.float32).to(dev) for a in arrays]
+
+
+def denoise(
+    points,
+    normals,
+    cfg: DenoiseConfig = DenoiseConfig(),
+    strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
+    iterations: Optional[int] = None,
+    num_valid: Optional[int] = None,
+    neighbor_method: str = "auto",
+    grid_capacity: int = 96,
+    device=None,
+):
+    """Fixed-iteration denoise. Neighbours are recomputed from the
+    current positions every iteration. ``neighbor_method``: "brute"
+    (exact, default below 100k points), "grid" (voxel hash) or "auto".
+
+    Returns (denoised points, final normals, final classes) on ``device``.
+    """
+    if neighbor_method not in ("auto", "brute", "grid"):
+        raise ValueError(f"neighbor_method must be auto, brute or grid, got "
+                         f"{neighbor_method!r}")
+    iters = cfg.iterations if iterations is None else iterations
+    if iters < 1:
+        raise ValueError("denoise needs at least one iteration")
+    pos, nrm = _on_device(device, points, normals)
+    use_grid = neighbor_method == "grid" or (
+        neighbor_method == "auto" and pos.shape[0] >= 100_000)
+    d = cfg.d_scale / 2.0 * step_threshold(pos, num_valid)
+    if use_grid:
+        # Cell sized for the largest k in play, estimated once on the
+        # noisy input (positions only shrink toward the surface).
+        cell = estimate_cell_size(pos, max(cfg.feature_k, cfg.step_k))
+
+        def neighbors(p, k):
+            return knn_grid(p, k, cell, capacity=grid_capacity, num_valid=num_valid)[0]
+    else:
+
+        def neighbors(p, k):
+            return knn(p, k, num_valid=num_valid)[0]
+
+    cls = None
+    for _ in range(iters):
+        pos, nrm, cls = denoise_iteration(
+            pos, nrm, neighbors(pos, cfg.feature_k), neighbors(pos, cfg.step_k), d,
+            cfg.alphas, cfg.angle, cfg.class_scale, strategy, cfg.vu_tau, cfg.vu_damping)
+    return pos, nrm, cls
+
+
+def _mean_error(error_fn, gt, pos) -> float:
+    return float(torch.mean(error_fn(gt, pos)))
+
+
+def denoise_until_minimum_error(
+    points,
+    normals,
+    gt_points,
+    cfg: DenoiseConfig = DenoiseConfig(),
+    strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
+    k: int = 7,
+    alphas: tuple[float, float, float] = (0.02, 0.02, 0.1),
+    d: float = 200.0,
+    error_fn: Callable = metrics.paper_distance,
+    max_iterations: Optional[int] = None,
+    device=None,
+):
+    """Iterate while the error against GT keeps improving; return the
+    previous iterate, its error and ``iterations - 1``, exactly as the
+    reference's while loop leaves them (also when ``max_iterations`` ends
+    the loop). The error is read on the host once a step.
+
+    Returns (points, normals, error_mean, iterations_done).
+    """
+    max_iters = cfg.max_iterations if max_iterations is None else max_iterations
+    pos, nrm, gt = _on_device(device, points, normals, gt_points)
+    d_arr = torch.as_tensor(d, dtype=pos.dtype, device=pos.device)
+    err0 = _mean_error(error_fn, gt, pos)
+    # The reference's carry: the previous iterate starts as the input with
+    # error err0 + 200.
+    prev_pos, prev_nrm, prev_err = pos, nrm, err0 + 200.0
+    cur_err, it = err0, 0
+    while cur_err < prev_err and it < max_iters:
+        new_pos, f_n, _ = denoise_iteration(
+            pos, nrm, knn(pos, cfg.feature_k)[0], knn(pos, k)[0], d_arr, alphas,
+            cfg.angle, cfg.class_scale, strategy, cfg.vu_tau, cfg.vu_damping)
+        prev_pos, prev_nrm, prev_err = pos, nrm, cur_err
+        pos, nrm, cur_err = new_pos, f_n, _mean_error(error_fn, gt, new_pos)
+        it += 1
+    return prev_pos, prev_nrm, prev_err, it - 1
+
+
+def denoise_until_minimum_error_windowed(
+    points,
+    normals,
+    gt_points,
+    cfg: DenoiseConfig = DenoiseConfig(),
+    strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
+    max_iterations: int = 64,
+    error_fn: Callable = metrics.paper_distance,
+    tile: int = 256,
+    window: int = 256,
+    use_pallas: Optional[bool] = None,
+    device=None,
+):
+    """Until-minimum-error loop at large-cloud scale: each step is one
+    iteration of the hybrid engine (K0, K1 and K2 once each) and the error
+    check loops on the host. ``use_pallas`` keeps the reference's name and
+    must be true or None: its false branch is the windowed XLA engine
+    (``core/fused.py``), which has no port.
+
+    Returns (best_points, best_normals, best_error_mean, iterations_done).
+    """
+    if use_pallas is not None and not use_pallas:
+        raise NotImplementedError(
+            "use_pallas=False selects the reference's windowed XLA engine "
+            "(core/fused.py), which is not ported; the port always steps "
+            "with the hybrid engine's kernels")
+    from .cuda_fused import denoise_hybrid
+
+    pos, nrm, gt = _on_device(device, points, normals, gt_points)
+    prev_pos, prev_nrm = pos, nrm
+    prev_err = _mean_error(error_fn, gt, pos)
+    it = 0
+    while it < max_iterations:
+        new_pos, new_nrm, _ = denoise_hybrid(pos, nrm, cfg, strategy=strategy, iterations=1,
+                                             tile=tile, window=window, device=pos.device)
+        err = _mean_error(error_fn, gt, new_pos)
+        if err >= prev_err:
+            break
+        prev_pos, prev_nrm, prev_err = new_pos, new_nrm, err
+        pos, nrm = new_pos, new_nrm
+        it += 1
+    return prev_pos, prev_nrm, prev_err, it

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d")
+SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
 HEADERS = ("window_common.cuh", "passes_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +42,8 @@ ARGTYPES = {
     "pass_c": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
     "pass_d": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                _F, _F, _F, _I, _I, _I, _VP),
+    "pass_bd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F,
+                _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _VP),
 }
 
 

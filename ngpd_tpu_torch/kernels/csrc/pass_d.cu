@@ -23,78 +23,12 @@
 // Design: as pass A, one block per query tile with the window's GR rows
 // 0-17 in shared memory and one thread per query; the accumulators of the
 // widest step (new: 25) stay in registers. Threads of one warp whose
-// points take different steps diverge only in the step's own sums.
+// points take different steps diverge only in the step's own sums. The
+// walk and the steps (step_walk, step_result) are passes_common.cuh's,
+// shared with the fused pass BD.
 #include "passes_common.cuh"
 
 namespace ngpd {
-
-constexpr int D_ROWS = R_P + 3;
-enum Step { FLAT = 0, EDGE, CORNER, FEATURE, NEW, DUMMY };  // ops/steps.py STEP_NAMES
-
-struct StepArgs {
-  int kind[3];      // Step of classes 0, 1, 2
-  float alpha[3];   // DenoiseConfig.alphas
-  int slot[3];      // delta slot of each class, -1 if none
-};
-
-// p + alpha (opt - p) where the step is shorter than d_thr, else p.
-__device__ __forceinline__ void clamp_step(const float opt[3], const float p[3],
-                                           float alpha, float d_thr,
-                                           float out[3]) {
-  const float di[3] = {fmul(fsub(opt[0], p[0]), alpha),
-                       fmul(fsub(opt[1], p[1]), alpha),
-                       fmul(fsub(opt[2], p[2]), alpha)};
-  const bool ok = __fsqrt_rn(fmaxf(dot(di, di), 0.0f)) < d_thr;
-  for (int c = 0; c < 3; ++c) out[c] = ok ? fadd(p[c], di[c]) : p[c];
-}
-
-// The symmetric matrix of six sums (00 01 02 11 12 22).
-__device__ __forceinline__ void srow(const float s6[6], float m[3][3]) {
-  m[0][0] = s6[0]; m[0][1] = s6[1]; m[0][2] = s6[2];
-  m[1][0] = s6[1]; m[1][1] = s6[3]; m[1][2] = s6[4];
-  m[2][0] = s6[2]; m[2][1] = s6[4]; m[2][2] = s6[5];
-}
-
-// The feature/new system (Denoiser.py:144-162); deg stays raw.
-__device__ __forceinline__ void three_term(const float n[3], const float p[3],
-                                           float deg, const float s6[6],
-                                           const float bnv[3], const float sv[3],
-                                           float opt[3]) {
-  float sr[3][3], m[3][3], nio[3][3];
-  srow(s6, sr);
-  const float deg1 = fadd(1.0f, deg);
-  for (int a = 0; a < 3; ++a)
-    for (int b = 0; b < 3; ++b) {
-      nio[a][b] = fmul(n[a < b ? a : b], n[a < b ? b : a]);
-      m[a][b] = fadd(fadd(a == b ? 1.0f : 0.0f, fmul(nio[a][b], deg1)), sr[a][b]);
-    }
-  float rhs[3];
-  for (int c = 0; c < 3; ++c)
-    rhs[c] = fadd(fadd(fadd(p[c], dot(nio[c], p)), dot(nio[c], sv)), bnv[c]);
-  solve3(m, rhs, p, opt);
-}
-
-// The edge system projected off the edge direction y.
-__device__ __forceinline__ void edge_solve(const float y[3], const float s6[6],
-                                           const float bnv[3],
-                                           const float qyy[3], float deg,
-                                           const float p[3], float opt[3]) {
-  float sr[3][3], m[3][3];
-  srow(s6, sr);
-  const float sy[3] = {dot(sr[0], y), dot(sr[1], y), dot(sr[2], y)};
-  const float ysy = dot(sy, y);
-  for (int a = 0; a < 3; ++a)
-    for (int b = 0; b < 3; ++b)
-      m[a][b] = fadd(fadd(fsub(fsub(sr[a][b], fmul(y[a], sy[b])), fmul(sy[a], y[b])),
-                          fmul(fmul(ysy, y[a]), y[b])),
-                     fmul(fmul(deg, y[a]), y[b]));
-  const float z[3] = {fsub(bnv[0], qyy[0]), fsub(bnv[1], qyy[1]), fsub(bnv[2], qyy[2])};
-  const float yz = dot(y, z), yp = dot(y, p);
-  float rhs[3];
-  for (int c = 0; c < 3; ++c)
-    rhs[c] = fadd(fsub(z[c], fmul(yz, y[c])), fmul(fmul(deg, yp), y[c]));
-  solve3(m, rhs, p, opt);
-}
 
 __global__ void pass_d_kernel(const float* __restrict__ gq,
                               const float* __restrict__ gr,
@@ -124,78 +58,12 @@ __global__ void pass_d_kernel(const float* __restrict__ gq,
       continue;
     }
     const float y[3] = {cls[n + i], cls[2 * n + i], cls[3 * n + i]};
-    float d2 = 1.0f;
-    if (kind == FLAT || kind == NEW) {
-      const float delta = scal[(1 + args.slot[cid]) * 128];
-      d2 = fmaxf(fmul(delta, delta), 1e-30f);
-    }
-
-    float deg = 0.0f, s6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float bnv[3] = {0.f, 0.f, 0.f}, sv[3] = {0.f, 0.f, 0.f};
-    float ext[12] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < jmax; ++j) {
-      const float d = pack_dist(p[0], p[1], p[2], qq, sm, wt, j);
-      if (!(d <= rk8 && d < MASKED)) continue;
-      const float nj[3] = {sm[R_N * wt + j], sm[(R_N + 1) * wt + j], sm[(R_N + 2) * wt + j]};
-      const float pj[3] = {sm[R_P * wt + j], sm[(R_P + 1) * wt + j], sm[(R_P + 2) * wt + j]};
-      const float pn = sm[R_PN * wt + j];
-      const float nnv[3] = {fmul(nj[0], pn), fmul(nj[1], pn), fmul(nj[2], pn)};
-      float sym[6];
-#pragma unroll
-      for (int c = 0; c < 6; ++c) sym[c] = sm[(R_SYM + c) * wt + j];
-      deg = fadd(deg, 1.0f);
-#pragma unroll
-      for (int c = 0; c < 6; ++c) s6[c] = fadd(s6[c], sym[c]);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        bnv[c] = fadd(bnv[c], nnv[c]);
-        sv[c] = fadd(sv[c], pj[c]);
-      }
-      const float dotj = fsub(pn, dot(p, nj));  // n_j.(p_j - p_i)
-      if (kind == FLAT) {
-        const float ninj = dot(nrm, nj);
-        const float sim = expf(fdiv(fmul(-16.0f, fsub(2.0f, fmul(2.0f, ninj))), d2));
-        const float close = expf(fdiv(fmul(-4.0f, d), d2));
-        const float wb = fmul(sim, close);
-        ext[0] = fadd(ext[0], fmul(wb, dotj));
-        ext[1] = fadd(ext[1], wb);
-      } else if (kind == EDGE) {
-        const float w = fmul(dot(y, nj), dot(y, pj));
-#pragma unroll
-        for (int c = 0; c < 3; ++c) ext[c] = fadd(ext[c], fmul(w, nj[c]));
-      } else if (kind == NEW) {
-        const float like = expf(fdiv(fmul(fmul(-9.0f, dotj), dotj), d2));
-#pragma unroll
-        for (int c = 0; c < 6; ++c) ext[c] = fadd(ext[c], fmul(like, sym[c]));
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          ext[6 + c] = fadd(ext[6 + c], fmul(like, nnv[c]));
-          ext[9 + c] = fadd(ext[9 + c], fmul(like, pj[c]));
-        }
-      }
-    }
-
-    const float alpha = args.alpha[cid];
-    float opt[3], res[3];
-    if (kind == FLAT) {
-      const float scalef = fmul(fdiv(ext[0], fmaxf(ext[1], 1e-30f)), alpha);
-      const float di[3] = {fmul(scalef, nrm[0]), fmul(scalef, nrm[1]), fmul(scalef, nrm[2])};
-      const bool ok = __fsqrt_rn(fmaxf(dot(di, di), 0.0f)) <= d_thr;
-      for (int c = 0; c < 3; ++c) res[c] = ok ? fadd(p[c], di[c]) : p[c];
-    } else {
-      if (kind == EDGE) {
-        edge_solve(y, s6, bnv, ext, deg, p, opt);
-      } else if (kind == CORNER) {
-        float m[3][3];
-        srow(s6, m);
-        solve3(m, bnv, p, opt);
-      } else if (kind == FEATURE) {
-        three_term(nrm, p, deg, s6, bnv, sv, opt);
-      } else {  // NEW
-        three_term(nrm, p, deg, ext, ext + 6, ext + 9, opt);
-      }
-      clamp_step(opt, p, alpha, d_thr, res);
-    }
+    const float none[3] = {0.f, 0.f, 0.f};
+    StepSums sums;
+    step_walk<false>(sm, wt, jmax, p, qq, rk8, nrm, y, kind,
+                     step_d2(scal, args, cid, kind), none, 0.0f, sums);
+    float res[3];
+    step_result(kind, sums, p, nrm, y, args.alpha[cid], d_thr, res);
     for (int c = 0; c < 3; ++c) out[c * n + i] = res[c];
   }
 }

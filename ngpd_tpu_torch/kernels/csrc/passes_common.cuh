@@ -1,4 +1,4 @@
-// Shared pieces of the four-pass kernels A-D (CUDA C++ for sm_90a).
+// Shared pieces of the pass kernels A-D and BD (CUDA C++ for sm_90a).
 //
 // Geometry, identical to ngpd_tpu/core/pallas_fused.py:874-884: the padded
 // cloud has n points in Morton order; query tile b (one CUDA block) holds
@@ -277,6 +277,186 @@ __device__ __forceinline__ void solve3(const float m[3][3], const float b[3],
       {fsub(fmul(f, g), fmul(d, i)), fsub(fmul(a, i), fmul(c, g)), fsub(fmul(c, d), fmul(a, f))},
       {fsub(fmul(d, h), fmul(e, g)), fsub(fmul(bb, g), fmul(a, h)), fsub(fmul(a, e), fmul(bb, d))}};
   for (int r = 0; r < 3; ++r) x[r] = ok ? fmul(dot(adj[r], b), inv_det) : fb[r];
+}
+
+// GR rows 0-17 staged by the passes that take the step sums (D, BD).
+constexpr int D_ROWS = R_P + 3;
+enum Step { FLAT = 0, EDGE, CORNER, FEATURE, NEW, DUMMY };  // ops/steps.py STEP_NAMES
+
+struct StepArgs {
+  int kind[3];      // Step of classes 0, 1, 2
+  float alpha[3];   // DenoiseConfig.alphas
+  int slot[3];      // delta slot of each class, -1 if none
+};
+
+// p + alpha (opt - p) where the step is shorter than d_thr, else p.
+__device__ __forceinline__ void clamp_step(const float opt[3], const float p[3],
+                                           float alpha, float d_thr,
+                                           float out[3]) {
+  const float di[3] = {fmul(fsub(opt[0], p[0]), alpha),
+                       fmul(fsub(opt[1], p[1]), alpha),
+                       fmul(fsub(opt[2], p[2]), alpha)};
+  const bool ok = __fsqrt_rn(fmaxf(dot(di, di), 0.0f)) < d_thr;
+  for (int c = 0; c < 3; ++c) out[c] = ok ? fadd(p[c], di[c]) : p[c];
+}
+
+// The symmetric matrix of six sums (00 01 02 11 12 22).
+__device__ __forceinline__ void srow(const float s6[6], float m[3][3]) {
+  m[0][0] = s6[0]; m[0][1] = s6[1]; m[0][2] = s6[2];
+  m[1][0] = s6[1]; m[1][1] = s6[3]; m[1][2] = s6[4];
+  m[2][0] = s6[2]; m[2][1] = s6[4]; m[2][2] = s6[5];
+}
+
+// The feature/new system (Denoiser.py:144-162); deg stays raw.
+__device__ __forceinline__ void three_term(const float n[3], const float p[3],
+                                           float deg, const float s6[6],
+                                           const float bnv[3], const float sv[3],
+                                           float opt[3]) {
+  float sr[3][3], m[3][3], nio[3][3];
+  srow(s6, sr);
+  const float deg1 = fadd(1.0f, deg);
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) {
+      nio[a][b] = fmul(n[a < b ? a : b], n[a < b ? b : a]);
+      m[a][b] = fadd(fadd(a == b ? 1.0f : 0.0f, fmul(nio[a][b], deg1)), sr[a][b]);
+    }
+  float rhs[3];
+  for (int c = 0; c < 3; ++c)
+    rhs[c] = fadd(fadd(fadd(p[c], dot(nio[c], p)), dot(nio[c], sv)), bnv[c]);
+  solve3(m, rhs, p, opt);
+}
+
+// The edge system projected off the edge direction y.
+__device__ __forceinline__ void edge_solve(const float y[3], const float s6[6],
+                                           const float bnv[3],
+                                           const float qyy[3], float deg,
+                                           const float p[3], float opt[3]) {
+  float sr[3][3], m[3][3];
+  srow(s6, sr);
+  const float sy[3] = {dot(sr[0], y), dot(sr[1], y), dot(sr[2], y)};
+  const float ysy = dot(sy, y);
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b)
+      m[a][b] = fadd(fadd(fsub(fsub(sr[a][b], fmul(y[a], sy[b])), fmul(sy[a], y[b])),
+                          fmul(fmul(ysy, y[a]), y[b])),
+                     fmul(fmul(deg, y[a]), y[b]));
+  const float z[3] = {fsub(bnv[0], qyy[0]), fsub(bnv[1], qyy[1]), fsub(bnv[2], qyy[2])};
+  const float yz = dot(y, z), yp = dot(y, p);
+  float rhs[3];
+  for (int c = 0; c < 3; ++c)
+    rhs[c] = fadd(fsub(z[c], fmul(yz, y[c])), fmul(fmul(deg, yp), y[c]));
+  solve3(m, rhs, p, opt);
+}
+
+// The window sums of one query's update over the pairs d <= rk_step.
+struct StepSums {
+  float deg, s6[6], bnv[3], sv[3];
+  float ext[12];  // the step's own: flat 2, edge 3 (q_yy), new 12
+};
+
+// One walk over the window columns [0, jmax) for a query of step `kind`:
+// the sums every step shares (deg, s6, b_nv, sv) and the step's own (none
+// for DUMMY, CORNER and FEATURE), with y the edge direction and d2 = max(delta^2, 1e-30) of
+// the flat and new steps. With CENTRE, also returns the max over the same
+// pairs of |p_j - cen|^2 = |p_j|^2 + (-2 p_j).cen + |cen|^2 (cc), 0 where
+// no pair passes; without it returns 0.
+template <bool CENTRE>
+__device__ __forceinline__ float step_walk(const float* sm, int wt, int jmax,
+                                           const float p[3], float qq, float rk8,
+                                           const float nrm[3], const float y[3],
+                                           int kind, float d2, const float cen[3],
+                                           float cc, StepSums& s) {
+  s.deg = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) s.s6[c] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) s.bnv[c] = s.sv[c] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 12; ++c) s.ext[c] = 0.0f;
+  float mx = 0.0f;
+  for (int j = 0; j < jmax; ++j) {
+    const float d = pack_dist(p[0], p[1], p[2], qq, sm, wt, j);
+    if (!(d <= rk8 && d < MASKED)) continue;
+    const float nj[3] = {sm[R_N * wt + j], sm[(R_N + 1) * wt + j], sm[(R_N + 2) * wt + j]};
+    const float pj[3] = {sm[R_P * wt + j], sm[(R_P + 1) * wt + j], sm[(R_P + 2) * wt + j]};
+    const float pn = sm[R_PN * wt + j];
+    const float nnv[3] = {fmul(nj[0], pn), fmul(nj[1], pn), fmul(nj[2], pn)};
+    float sym[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) sym[c] = sm[(R_SYM + c) * wt + j];
+    s.deg = fadd(s.deg, 1.0f);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) s.s6[c] = fadd(s.s6[c], sym[c]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s.bnv[c] = fadd(s.bnv[c], nnv[c]);
+      s.sv[c] = fadd(s.sv[c], pj[c]);
+    }
+    if (CENTRE) {
+      const float m2pj[3] = {sm[j], sm[wt + j], sm[2 * wt + j]};
+      mx = fmaxf(mx, fadd(fadd(sm[R_PP * wt + j], dot(m2pj, cen)), cc));
+    }
+    const float dotj = fsub(pn, dot(p, nj));  // n_j.(p_j - p_i)
+    if (kind == FLAT) {
+      const float ninj = dot(nrm, nj);
+      const float sim = expf(fdiv(fmul(-16.0f, fsub(2.0f, fmul(2.0f, ninj))), d2));
+      const float close = expf(fdiv(fmul(-4.0f, d), d2));
+      const float wb = fmul(sim, close);
+      s.ext[0] = fadd(s.ext[0], fmul(wb, dotj));
+      s.ext[1] = fadd(s.ext[1], wb);
+    } else if (kind == EDGE) {
+      const float w = fmul(dot(y, nj), dot(y, pj));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s.ext[c] = fadd(s.ext[c], fmul(w, nj[c]));
+    } else if (kind == NEW) {
+      const float like = expf(fdiv(fmul(fmul(-9.0f, dotj), dotj), d2));
+#pragma unroll
+      for (int c = 0; c < 6; ++c) s.ext[c] = fadd(s.ext[c], fmul(like, sym[c]));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        s.ext[6 + c] = fadd(s.ext[6 + c], fmul(like, nnv[c]));
+        s.ext[9 + c] = fadd(s.ext[9 + c], fmul(like, pj[c]));
+      }
+    }
+  }
+  return mx;
+}
+
+// The new position of a query of step `kind` (not DUMMY) from its sums:
+// the flat step's clamp keeps a step of exactly d_thr (<=), the solves'
+// needs it shorter (<).
+__device__ __forceinline__ void step_result(int kind, const StepSums& s,
+                                            const float p[3], const float nrm[3],
+                                            const float y[3], float alpha,
+                                            float d_thr, float res[3]) {
+  if (kind == FLAT) {
+    const float scalef = fmul(fdiv(s.ext[0], fmaxf(s.ext[1], 1e-30f)), alpha);
+    const float di[3] = {fmul(scalef, nrm[0]), fmul(scalef, nrm[1]), fmul(scalef, nrm[2])};
+    const bool ok = __fsqrt_rn(fmaxf(dot(di, di), 0.0f)) <= d_thr;
+    for (int c = 0; c < 3; ++c) res[c] = ok ? fadd(p[c], di[c]) : p[c];
+    return;
+  }
+  float opt[3];
+  if (kind == EDGE) {
+    edge_solve(y, s.s6, s.bnv, s.ext, s.deg, p, opt);
+  } else if (kind == CORNER) {
+    float m[3][3];
+    srow(s.s6, m);
+    solve3(m, s.bnv, p, opt);
+  } else if (kind == FEATURE) {
+    three_term(nrm, p, s.deg, s.s6, s.bnv, s.sv, opt);
+  } else {  // NEW
+    three_term(nrm, p, s.deg, s.ext, s.ext + 6, s.ext + 9, opt);
+  }
+  clamp_step(opt, p, alpha, d_thr, res);
+}
+
+// d2 of the flat and new steps of class `cid`: its delta by slot.
+__device__ __forceinline__ float step_d2(const float* scal, const StepArgs& args,
+                                         int cid, int kind) {
+  if (kind != FLAT && kind != NEW) return 1.0f;
+  const float delta = scal[(1 + args.slot[cid]) * 128];
+  return fmaxf(fmul(delta, delta), 1e-30f);
 }
 
 // Sum (or max) of one value a thread over the block, in a fixed order

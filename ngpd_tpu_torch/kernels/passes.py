@@ -1,9 +1,9 @@
-"""The four-pass engine's kernels, passes A-D: CUDA wrappers and plain
-PyTorch versions.
+"""The pass engine's kernels, passes A-D and the fused pass BD: CUDA
+wrappers and plain PyTorch versions.
 
 Port of the pass half of ``ngpd_tpu/core/pallas_fused.py`` (the kernels
-of ``pallas_denoise`` in exact-delta mode, l.232-560, and the packs of
-l.795-822). Every query tile of ``tile`` Morton-sorted points reads the
+of ``pallas_denoise``, l.232-787: A-D for exact-delta mode, A and BD for
+lagged-delta mode, and the packs of l.795-822). Every query tile of ``tile`` Morton-sorted points reads the
 window columns ``[starts[b], starts[b] + wt)`` with
 ``wt = min(tile + 2 * window, n)`` and
 ``starts = clip(arange(n // tile) * tile - window, 0, n - wt)``
@@ -28,6 +28,12 @@ Layouts of the port's own, compact where the reference pads to the TPU's
   maxp (nd, num_tiles): per delta class, max |p_j - centre|^2 over the
                 same pairs (the reference's (8, N) lane-0 block)
   new positions (3, N) (the reference's (8, N), rows 3-7 zero)
+  pass BD's parts (5 nd, num_tiles): per delta class ci, rows 5ci..5ci+2
+                the sum of p_j, row 5ci+3 the count and row 5ci+4 the max
+                |p_j - previous centre|^2 over the step-mask pairs of
+                that class's valid rows, and its classes (N,) (the
+                reference's (16, N) block: lane 0 of each tile, row 15
+                the classes)
 
 A wrapper given CUDA tensors launches its kernel (``csrc/pass_*.cu``) on
 the current stream and adds one to ``LAUNCHES[name]``; given CPU tensors
@@ -53,7 +59,7 @@ from ..ops.steps import (
 )
 from . import window as kw
 
-LAUNCHES = {"pass_a": 0, "pass_b": 0, "pass_c": 0, "pass_d": 0}
+LAUNCHES = {"pass_a": 0, "pass_b": 0, "pass_c": 0, "pass_d": 0, "pass_bd": 0}
 GQ_ROWS, GR_ROWS, CLS_ROWS = 16, 24, 4
 _MASKED = 1e30
 _CHUNK_ELEMS = 1 << 24  # (block, tile, wt) elements a chunk of the plain versions
@@ -108,6 +114,40 @@ def delta_scal(d_thr, parts: torch.Tensor, maxp=None) -> torch.Tensor:
         scal[4 : 4 + nd, 0:3] = tot[:, 0:3] / torch.clamp(tot[:, 3:4], min=1.0)
     if maxp is not None and nd:
         scal[1 : 1 + nd, 0] = torch.sqrt(torch.clamp(maxp.amax(dim=1), min=0.0))
+    return scal
+
+
+def initial_lag_scal(pos: torch.Tensor, nv: int, nd: int, d_thr=None) -> torch.Tensor:
+    """The lag state before the first iteration (l.1040-1056): every
+    delta class starts from the centroid of the valid columns of ``pos``
+    (3, N) and the cloud's radius about it. ``scal[0, 0]`` is ``d_thr``
+    when given."""
+    valid = torch.arange(pos.shape[1], device=pos.device) < nv
+    centroid = torch.sum(torch.where(valid[None, :], pos, 0.0), dim=1) / max(nv, 1)
+    radius0 = torch.sqrt(torch.max(torch.where(
+        valid, torch.sum((pos - centroid[:, None]) ** 2, dim=0), 0.0
+    )))
+    scal = torch.zeros((8, 128), dtype=torch.float32, device=pos.device)
+    if d_thr is not None:
+        scal[0, 0] = d_thr
+    scal[1 : 1 + nd, 0] = radius0
+    scal[4 : 4 + nd, 0:3] = centroid
+    return scal
+
+
+def lag_scal(d_thr, parts: torch.Tensor) -> torch.Tensor:
+    """The next lag state from pass BD's partials ``parts`` (5 nd,
+    num_tiles), on their device without a host sync (l.1066-1079): per
+    delta class, centre = sum p_j / max(count, 1) and delta = sqrt of the
+    largest |p_j - previous centre|^2."""
+    nd = parts.shape[0] // 5
+    scal = torch.zeros((8, 128), dtype=torch.float32, device=parts.device)
+    scal[0, 0] = d_thr
+    if nd:
+        per = parts.reshape(nd, 5, -1)
+        tot = per[:, 0:4].sum(dim=2)
+        scal[4 : 4 + nd, 0:3] = tot[:, 0:3] / torch.clamp(tot[:, 3:4], min=1.0)
+        scal[1 : 1 + nd, 0] = torch.sqrt(torch.clamp(per[:, 4].amax(dim=1), min=0.0))
     return scal
 
 
@@ -254,71 +294,130 @@ def pass_c_plain(gq2, gr2, cls, scal, win: kw.Windows, needs_delta):
     return maxp
 
 
+def _steps(tq, wr, d, cls, y, scal, cfg: DenoiseConfig, strategy, needs_delta):
+    """Every step of the strategy on one chunk, then selected by class
+    (the D part of l.402-560 and l.599-722). ``cls`` (B, tile) classes,
+    ``y`` three (B, tile) rows of edge directions. Returns (new positions
+    as three (B, tile) rows, the step mask (B, tile, wt) as floats)."""
+    slot = {c: i for i, c in enumerate(needs_delta)}
+    d_thr = scal[0, 0]
+    m8f = ((d <= tq[9]) & (d < _MASKED)).to(d.dtype)
+    p_i = tuple(tq[c, ..., 0] for c in range(3))
+    n_i = tuple(tq[5 + c, ..., 0] for c in range(3))
+
+    def wsum(weight, rows):
+        return tuple(torch.sum(weight * r, dim=-1) for r in rows)
+
+    nnv = tuple(wr[5 + c] * wr[8] for c in range(3))
+    deg = torch.sum(m8f, dim=-1)
+    s6 = wsum(m8f, wr[9:15])
+    b_nv = wsum(m8f, nnv)
+    sv = wsum(m8f, wr[15:18])
+    dotj = wr[8] - (tq[0] * wr[5] + tq[1] * wr[6] + tq[2] * wr[7])
+
+    results = {}
+    for cid in range(3):
+        name, alpha = strategy[cid], cfg.alphas[cid]
+        if name in ("flat", "new"):
+            delta = scal[1 + slot[cid], 0]
+            d2 = torch.clamp(delta * delta, min=1e-30)
+        if name == "flat":
+            ninj = tq[5] * wr[5] + tq[6] * wr[6] + tq[7] * wr[7]
+            sim = torch.exp(-16.0 * (2.0 - 2.0 * ninj) / d2)
+            close = torch.exp(-4.0 * torch.where(d < _MASKED, d, 0.0) / d2)
+            wb = sim * close * m8f
+            results[cid] = flat_step(torch.sum(wb * dotj, dim=-1),
+                                     torch.sum(wb, dim=-1), n_i, p_i, alpha, d_thr)
+        elif name == "edge":
+            y3 = tuple(c[..., None] for c in y)
+            ny = y3[0] * wr[5] + y3[1] * wr[6] + y3[2] * wr[7]
+            py = y3[0] * wr[15] + y3[1] * wr[16] + y3[2] * wr[17]
+            q_yy = wsum(m8f * ny * py, wr[5:8])
+            results[cid] = clamp_step(edge_solve(y, s6, b_nv, q_yy, deg, p_i),
+                                      p_i, alpha, d_thr)
+        elif name == "corner":
+            opt, _ = solve3x3_components(srow(s6), b_nv, p_i)
+            results[cid] = clamp_step(opt, p_i, alpha, d_thr)
+        elif name == "feature":
+            results[cid] = clamp_step(three_term_solve(n_i, p_i, deg, s6, b_nv, sv),
+                                      p_i, alpha, d_thr)
+        elif name == "new":
+            like = torch.exp(-9.0 * dotj * dotj / d2) * m8f
+            opt = three_term_solve(n_i, p_i, deg, wsum(like, wr[9:15]),
+                                   wsum(like, nnv), wsum(like, wr[15:18]))
+            results[cid] = clamp_step(opt, p_i, alpha, d_thr)
+        elif name == "dummy":
+            results[cid] = p_i
+        else:
+            raise ValueError(name)
+    return select_by_class(cls, results), m8f
+
+
 def pass_d_plain(gq2, gr2, cls, scal, win: kw.Windows, cfg: DenoiseConfig,
                  strategy, needs_delta):
     """Class-dispatched vertex updates with guarded 3x3 solves and the
     d_thr clamp; every step computed, then selected (l.402-560)."""
     n, t = win.n, win.tile
-    slot = {c: i for i, c in enumerate(needs_delta)}
-    d_thr = scal[0, 0]
     out = torch.empty((3, n), dtype=gq2.dtype, device=gq2.device)
     for b0, b1 in chunks(win):
         tq = _tiles(gq2, win, b0, b1)
         tc = _tiles(cls, win, b0, b1)
         wr, col_valid = _window(gr2, win, b0, b1, 18)
         d = _dist(tq, wr, col_valid)
-        m8f = ((d <= tq[9]) & (d < _MASKED)).to(d.dtype)
-        p_i = tuple(tq[c, ..., 0] for c in range(3))
-        n_i = tuple(tq[5 + c, ..., 0] for c in range(3))
-
-        def wsum(weight, rows):
-            return tuple(torch.sum(weight * r, dim=-1) for r in rows)
-
-        nnv = tuple(wr[5 + c] * wr[8] for c in range(3))
-        deg = torch.sum(m8f, dim=-1)
-        s6 = wsum(m8f, wr[9:15])
-        b_nv = wsum(m8f, nnv)
-        sv = wsum(m8f, wr[15:18])
-        dotj = wr[8] - (tq[0] * wr[5] + tq[1] * wr[6] + tq[2] * wr[7])
-
-        results = {}
-        for cid in range(3):
-            name, alpha = strategy[cid], cfg.alphas[cid]
-            if name in ("flat", "new"):
-                delta = scal[1 + slot[cid], 0]
-                d2 = torch.clamp(delta * delta, min=1e-30)
-            if name == "flat":
-                ninj = tq[5] * wr[5] + tq[6] * wr[6] + tq[7] * wr[7]
-                sim = torch.exp(-16.0 * (2.0 - 2.0 * ninj) / d2)
-                close = torch.exp(-4.0 * torch.where(d < _MASKED, d, 0.0) / d2)
-                wb = sim * close * m8f
-                results[cid] = flat_step(torch.sum(wb * dotj, dim=-1),
-                                         torch.sum(wb, dim=-1), n_i, p_i, alpha, d_thr)
-            elif name == "edge":
-                y = tuple(tc[1 + c, ..., 0] for c in range(3))
-                ny = tc[1] * wr[5] + tc[2] * wr[6] + tc[3] * wr[7]
-                py = tc[1] * wr[15] + tc[2] * wr[16] + tc[3] * wr[17]
-                q_yy = wsum(m8f * ny * py, wr[5:8])
-                results[cid] = clamp_step(edge_solve(y, s6, b_nv, q_yy, deg, p_i),
-                                          p_i, alpha, d_thr)
-            elif name == "corner":
-                opt, _ = solve3x3_components(srow(s6), b_nv, p_i)
-                results[cid] = clamp_step(opt, p_i, alpha, d_thr)
-            elif name == "feature":
-                results[cid] = clamp_step(three_term_solve(n_i, p_i, deg, s6, b_nv, sv),
-                                          p_i, alpha, d_thr)
-            elif name == "new":
-                like = torch.exp(-9.0 * dotj * dotj / d2) * m8f
-                opt = three_term_solve(n_i, p_i, deg, wsum(like, wr[9:15]),
-                                       wsum(like, nnv), wsum(like, wr[15:18]))
-                results[cid] = clamp_step(opt, p_i, alpha, d_thr)
-            elif name == "dummy":
-                results[cid] = p_i
-            else:
-                raise ValueError(name)
-        new_p = select_by_class(tc[0, ..., 0], results)
+        new_p, _ = _steps(tq, wr, d, tc[0, ..., 0],
+                          tuple(tc[1 + c, ..., 0] for c in range(3)), scal, cfg,
+                          strategy, needs_delta)
         out[:, b0 * t : b1 * t] = torch.stack(new_p).reshape(3, -1)
     return out
+
+
+def next_packs(pos: torch.Tensor, gq2: torch.Tensor):
+    """The packs pass BD hands to the next iteration (l.730-756): those of
+    the new positions ``pos`` (3, N) and the normals this iteration ran
+    with (``gq2`` rows 5-7), the ones row and rows 8-15 of ``gq2`` carried
+    over."""
+    gq_n, gr_n = build_packs(pos, gq2[5:8])
+    gq_n[3], gr_n[4] = gq2[3], gq2[3]
+    gq_n[8:16] = gq2[8:16]
+    return gq_n, gr_n
+
+
+def pass_bd_plain(gq2, gr2, scal_prev, win: kw.Windows, cfg: DenoiseConfig,
+                  strategy, needs_delta):
+    """Passes B and D on one distance block (l.565-787): NVT2 -> classes
+    and edge directions; the steps with those directions and the previous
+    iteration's deltas, padding rows pinned; the next packs; per tile and
+    delta class, sum p_j, the count and max |p_j - previous centre|^2
+    over the step mask (0 where masked). Returns (GQ' (16, N), GR' (24,
+    N), classes (N,), parts (5 nd, num_tiles))."""
+    cos_rho = kw.cos_f32(cfg.angle)
+    n, t = win.n, win.tile
+    pos = torch.empty((3, n), dtype=gq2.dtype, device=gq2.device)
+    cls_out = torch.empty(n, dtype=gq2.dtype, device=gq2.device)
+    parts = torch.empty((5 * len(needs_delta), n // t), dtype=gq2.dtype,
+                        device=gq2.device)
+    for b0, b1 in chunks(win):
+        tq = _tiles(gq2, win, b0, b1)
+        wr, col_valid = _window(gr2, win, b0, b1, 18)
+        d = _dist(tq, wr, col_valid)
+        w, v = _nvt_eigh(tq, wr, d, cos_rho)
+        c = classes_c(w, cfg.class_scale)
+        new_p, m8f = _steps(tq, wr, d, c, v[0], scal_prev, cfg, strategy, needs_delta)
+        row_valid = _row_valid(win, b0, b1, gq2.device)
+        new_p = tuple(torch.where(row_valid[..., 0], q, tq[k, ..., 0])
+                      for k, q in enumerate(new_p))
+        cols = slice(b0 * t, b1 * t)
+        cls_out[cols] = c.reshape(-1)
+        pos[:, cols] = torch.stack(new_p).reshape(3, -1)
+
+        for ci, k in enumerate(needs_delta):
+            mc = m8f * ((c[..., None] == float(k)) & row_valid).to(d.dtype)
+            for comp in range(3):
+                parts[5 * ci + comp, b0:b1] = torch.sum(mc * wr[15 + comp], dim=(1, 2))
+            parts[5 * ci + 3, b0:b1] = torch.sum(mc, dim=(1, 2))
+            parts[5 * ci + 4, b0:b1] = torch.amax(
+                mc * _centre_dist2(wr, scal_prev, ci), dim=(1, 2))
+    return (*next_packs(pos, gq2), cls_out, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -401,15 +500,23 @@ def pass_c(gq2, gr2, cls, scal, win: kw.Windows, needs_delta):
     return maxp
 
 
-def pass_d(gq2, gr2, cls, scal, win: kw.Windows, cfg: DenoiseConfig, strategy,
-           needs_delta):
-    """Pass D: the new positions (3, N)."""
-    _delta_classes(needs_delta)
+def _step_args(strategy, needs_delta, cfg: DenoiseConfig) -> tuple:
+    """The kernels' step arguments: kinds (indices of STEP_NAMES), alphas
+    and delta slots of classes 0-2."""
     kinds = tuple(STEP_NAMES.index(s) for s in strategy)  # ValueError if unknown
     slots = tuple(needs_delta.index(c) if c in needs_delta else -1 for c in range(3))
     for c in range(3):
         if strategy[c] in ("flat", "new") and slots[c] < 0:
             raise ValueError(f"class {c} ({strategy[c]}) needs a delta slot")
+    return (*kinds, *(float(a) for a in cfg.alphas), *slots)
+
+
+def pass_d(gq2, gr2, cls, scal, win: kw.Windows, cfg: DenoiseConfig, strategy,
+           needs_delta):
+    """Pass D: the new positions (3, N)."""
+    _delta_classes(needs_delta)
+    needs_delta = tuple(needs_delta)
+    step_args = _step_args(strategy, needs_delta, cfg)
     on_cuda = _check(win, gq2=(gq2, GQ_ROWS), gr2=(gr2, GR_ROWS), cls=(cls, CLS_ROWS))
     _check_scal(scal, gq2)
     if not on_cuda:
@@ -417,5 +524,29 @@ def pass_d(gq2, gr2, cls, scal, win: kw.Windows, cfg: DenoiseConfig, strategy,
     out = torch.empty((3, win.n), dtype=torch.float32, device=gq2.device)
     kw.launch("pass_d", LAUNCHES, gq2.data_ptr(), gr2.data_ptr(), cls.data_ptr(),
               scal.data_ptr(), win.starts.data_ptr(), out.data_ptr(), win.n, win.nv,
-              win.tile, win.wt_c, *kinds, *(float(a) for a in cfg.alphas), *slots)
+              win.tile, win.wt_c, *step_args)
     return out
+
+
+def pass_bd(gq2, gr2, scal_prev, win: kw.Windows, cfg: DenoiseConfig, strategy,
+            needs_delta):
+    """Pass BD: (GQ' (16, N), GR' (24, N), classes (N,), parts (5 nd,
+    num_tiles)) from the post-pass-A packs and the previous lag state.
+    The next packs are new buffers, never the inputs."""
+    dc = _delta_classes(needs_delta)
+    needs_delta = tuple(needs_delta)
+    step_args = _step_args(strategy, needs_delta, cfg)
+    on_cuda = _check(win, gq2=(gq2, GQ_ROWS), gr2=(gr2, GR_ROWS))
+    _check_scal(scal_prev, gq2)
+    if not on_cuda:
+        return pass_bd_plain(gq2, gr2, scal_prev, win, cfg, strategy, needs_delta)
+    nd = len(needs_delta)
+    gq_n, gr_n = torch.empty_like(gq2), torch.empty_like(gr2)
+    cls = torch.empty(win.n, dtype=torch.float32, device=gq2.device)
+    parts = torch.empty((5 * nd, win.n // win.tile), dtype=torch.float32,
+                        device=gq2.device)
+    kw.launch("pass_bd", LAUNCHES, gq2.data_ptr(), gr2.data_ptr(), scal_prev.data_ptr(),
+              win.starts.data_ptr(), gq_n.data_ptr(), gr_n.data_ptr(), cls.data_ptr(),
+              parts.data_ptr(), win.n, win.nv, win.tile, win.wt_c,
+              kw.cos_f32(cfg.angle), cfg.class_scale, *step_args, nd, *dc)
+    return gq_n, gr_n, cls, parts

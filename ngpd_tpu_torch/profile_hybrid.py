@@ -1,7 +1,7 @@
 """Where the time goes in one hybrid-denoise run on the card.
 
     python -m ngpd_tpu_torch.profile_hybrid [--n 1000000] [--iters 20] [--k 32]
-                                            [--passes]
+                                            [--passes | --lagged]
 
 Runs the bench workload (``bench.make_cloud``, lagged_nvt1) once to warm
 up, then once under ``torch.profiler`` with CPU and CUDA activities, and
@@ -10,9 +10,10 @@ synchronize), the device's busy time (union of kernel intervals) and idle
 share, device time and kernel count by group (K0, K1, K2, and every other
 kernel, i.e. the per-point torch stages, Morton sort and unsort), and the
 ten kernels with the most device time. ``--passes`` profiles the
-four-pass engine (``denoise_passes``, exact delta) on the same cloud
-instead, grouped by pass A-D and torch (prologue, packs, delta state,
-sort). Needs a card.
+pass engine (``denoise_passes``, exact delta) on the same cloud instead,
+grouped by pass A-D and torch (prologue, packs, delta state, sort);
+``--lagged`` its lagged-delta mode (pass A, the fused pass BD, torch).
+Needs a card.
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ import torch
 
 
 def _group(name: str) -> str:
-    for k in ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d"):
+    for k in ("k0", "k1", "k2", "pass_a", "pass_bd", "pass_b", "pass_c", "pass_d"):
         if f"{k}_kernel" in name:
             return k.upper()
     return "torch"
 
 
-def profile_run(n: int, iters: int, k: int, passes: bool = False) -> dict:
+def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
+    """``engine``: "hybrid", "passes" (exact delta) or "passes_lagged"."""
     from torch.profiler import ProfilerActivity, profile
 
     from .bench import make_cloud
@@ -46,8 +48,9 @@ def profile_run(n: int, iters: int, k: int, passes: bool = False) -> dict:
     cfg = DenoiseConfig(feature_k=k, step_k=8)
 
     def once():
-        if passes:
-            denoise_passes(pts, nr, cfg, iterations=iters, device=dev)
+        if engine != "hybrid":
+            denoise_passes(pts, nr, cfg, iterations=iters, device=dev,
+                           delta_mode="lagged" if engine == "passes_lagged" else "exact")
         else:
             denoise_hybrid(pts, nr, cfg, iterations=iters, lagged_nvt1=True, device=dev)
         torch.cuda.synchronize(dev)
@@ -81,7 +84,7 @@ def profile_run(n: int, iters: int, k: int, passes: bool = False) -> dict:
     busy = (busy + cur_t - cur_s) / 1e6
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     return {
-        "engine": "passes" if passes else "hybrid",
+        "engine": engine,
         "n": n, "iters": iters, "k": k, "device": torch.cuda.get_device_name(dev),
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
         "groups": groups,
@@ -94,10 +97,13 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--k", type=int, default=32)
-    ap.add_argument("--passes", action="store_true",
-                    help="profile the four-pass engine instead of the hybrid")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--passes", action="store_const", dest="engine", const="passes",
+                       help="profile the pass engine (exact delta) instead of the hybrid")
+    which.add_argument("--lagged", action="store_const", dest="engine",
+                       const="passes_lagged", help="profile the pass engine in lagged-delta mode")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_run(args.n, args.iters, args.k, args.passes)))
+    print(json.dumps(profile_run(args.n, args.iters, args.k, args.engine or "hybrid")))
 
 
 if __name__ == "__main__":

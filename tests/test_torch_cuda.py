@@ -138,19 +138,107 @@ def test_pass_kernels_match_plain(cuda_device, strategy, tile, window):
         assert share <= 1e-3 and worst <= 2e-2
 
 
+@pytest.mark.parametrize("tile,window", [(256, 128), (128, 512), (512, 64)])
+@pytest.mark.parametrize("strategy", STRATEGIES, ids="-".join)
+def test_pass_bd_matches_plain(cuda_device, strategy, tile, window):
+    """The fused pass BD against its plain version on the packs the plain
+    pass A gives, with a lag state that is not the initial one (the plain
+    version's own partials after one pass): classes >= 99.9% equal; on the
+    points whose class agrees, each class's next positions within 1e-5 on
+    >= 99.9% and within 2e-2 on all; the next packs bit for bit the packs
+    of those positions with the normals, ones and thresholds carried
+    (``next_packs``; every product and sum is rounded on its own on both
+    sides); padding rows pinned; the partials of tiles without a class
+    flip within 1e-5 of each row's largest value."""
+    from ngpd_tpu_torch.bench import make_corner_cloud
+    from ngpd_tpu_torch.core.cuda_fused import passes_prologue
+    from ngpd_tpu_torch.kernels import passes as kp
+
+    noisy, nrm, _ = make_corner_cloud(16_000)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    st = passes_prologue(noisy, nrm, cfg, strategy, num_valid=15_900,
+                         tile=tile, window=window, device=cuda_device)
+    win, nd = st.win, st.needs_delta
+    gq2, gr2 = kp.pass_a_plain(st.gq, st.gr, win, cfg)
+    scal0 = kp.initial_lag_scal(st.gq[0:3], win.nv, len(nd), st.d_thr)
+    scal = kp.lag_scal(st.d_thr, kp.pass_bd_plain(gq2, gr2, scal0, win, cfg, strategy, nd)[3])
+    ref_q, _, ref_cls, ref_parts = kp.pass_bd_plain(gq2, gr2, scal, win, cfg, strategy, nd)
+    got_q, got_r, got_cls, got_parts = kp.pass_bd(gq2, gr2, scal, win, cfg, strategy, nd)
+    torch.cuda.synchronize()
+    same = got_cls == ref_cls
+    assert float(same.float().mean()) >= 0.999
+    want_q, want_r = kp.next_packs(got_q[0:3], gq2)
+    assert torch.equal(got_q, want_q) and torch.equal(got_r, want_r)
+    pad = torch.arange(win.n, device=cuda_device) >= win.nv
+    assert torch.equal(got_q[0:3, pad], gq2[0:3, pad])
+    for c in range(3):
+        cols = (ref_cls == float(c)) & same
+        assert int(cols.sum()) >= 100
+        share, worst = _flips(got_q[0:3], ref_q[0:3], 1e-5, cols)
+        assert share <= 1e-3 and worst <= 2e-2
+    if nd:
+        same_tiles = same.reshape(-1, win.tile).all(dim=1)
+        scale = ref_parts.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+        rel = ((got_parts - ref_parts).abs() / scale)[:, same_tiles]
+        assert float(rel.max()) < 1e-5
+
+
+@pytest.mark.parametrize("delta_mode", ["exact", "lagged"])
 @pytest.mark.parametrize("n_in,num_valid", [(16_384, None), (16_000, 15_900)])
-def test_card_passes_match_cpu(cuda_device, n_in, num_valid):
+def test_card_passes_match_cpu(cuda_device, n_in, num_valid, delta_mode):
     """denoise_passes on the card against the CPU path, under the
     hybrid's mask-flip bound, on a cloud of whole tiles and on a padded
-    one."""
+    one, in both delta modes."""
     from ngpd_tpu_torch.core.cuda_fused import denoise_passes
 
     noisy, nrm, _ = make_cloud(16_384)
     noisy, nrm = noisy[:n_in], nrm[:n_in]
     g, _, gc = denoise_passes(noisy, nrm, iterations=2, num_valid=num_valid,
-                              device=cuda_device)
+                              delta_mode=delta_mode, device=cuda_device)
     c, _, cc = denoise_passes(noisy, nrm, iterations=2, num_valid=num_valid,
-                              device="cpu")
+                              delta_mode=delta_mode, device="cpu")
     diff = (g.cpu() - c).abs().amax(dim=1).numpy()
     assert np.mean(gc.cpu().numpy() == cc.numpy()) >= 0.99
     assert np.mean(diff <= 2e-3) >= 0.999 and diff.max() <= 2e-2
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_card_knn_matches_cpu(cuda_device, exclude_self):
+    """knn and knn_grid on the card against the CPU: the distance block is
+    three products and two sums a pair, rounded alike on both, and the
+    selection breaks ties by position, so indices and distances are equal
+    bit for bit, on a cloud with exact ties (an integer grid) too."""
+    from ngpd_tpu_torch.ops.knn import estimate_cell_size, knn, knn_grid
+
+    noisy, _, _ = make_cloud(16_384)
+    g = np.arange(12, dtype=np.float32)
+    grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3)
+    for pts, k in ((noisy, 16), (grid, 10)):
+        c = torch.as_tensor(pts)
+        cn, cd = knn(c, k, exclude_self=exclude_self, num_valid=len(pts) - 50)
+        gn, gd = knn(c.to(cuda_device), k, exclude_self=exclude_self,
+                     num_valid=len(pts) - 50)
+        assert gn.idx.device.type == "cuda"
+        assert torch.equal(gn.idx.cpu(), cn.idx) and torch.equal(gn.mask.cpu(), cn.mask)
+        assert torch.equal(gd.cpu(), cd)
+    cell = float(estimate_cell_size(torch.as_tensor(noisy), 16))
+    assert float(estimate_cell_size(torch.as_tensor(noisy).to(cuda_device), 16)) == cell
+    cn, cd = knn_grid(torch.as_tensor(noisy), 16, cell, exclude_self=exclude_self)
+    gn, gd = knn_grid(torch.as_tensor(noisy).to(cuda_device), 16, cell,
+                      exclude_self=exclude_self)
+    assert torch.equal(gn.idx.cpu(), cn.idx) and torch.equal(gd.cpu(), cd)
+
+
+def test_card_dense_denoise_matches_cpu(cuda_device):
+    """The dense (N, k) pipeline on the card against the CPU: plain torch
+    on both, sums in another order; classes >= 99.9% equal and positions
+    within 1e-5 on those points."""
+    from ngpd_tpu_torch.core.pipeline import denoise
+
+    noisy, nrm, _ = make_cloud(16_384)
+    g, gn, gc = denoise(noisy, nrm, iterations=2, device=cuda_device)
+    c, cn, cc = denoise(noisy, nrm, iterations=2, device="cpu")
+    same = gc.cpu() == cc
+    assert float(same.float().mean()) >= 0.999
+    diff = (g.cpu() - c).abs().amax(dim=1)
+    assert float((diff[same] <= 1e-5).float().mean()) >= 0.999 and float(diff.max()) <= 2e-2

@@ -1,10 +1,10 @@
-"""Pass kernels A-D of the port against the JAX Pallas kernels.
+"""Pass kernels A-D and BD of the port against the JAX Pallas kernels.
 
 The plain PyTorch versions (``ngpd_tpu_torch/kernels/passes.py``, what the
 wrappers run on CPU tensors) are held against
-``ngpd_tpu/core/pallas_fused.py``'s ``_make_pass_a/_b/_c/_d`` run through
-``pl.pallas_call(..., interpret=True)`` with ``pallas_denoise``'s grid spec
-(l.915-1035, two prefetched scalars), on the same Morton-sorted cube-corner
+``ngpd_tpu/core/pallas_fused.py``'s ``_make_pass_a/_b/_c/_d/_bd`` run
+through ``pl.pallas_call(..., interpret=True)`` with ``pallas_denoise``'s
+grid spec (l.915-1035, two prefetched scalars), on the same Morton-sorted cube-corner
 packs (919 points padded to 1024, tile 128, window 128). Every pass but A
 is fed the reference's output of the pass before, so each comparison sees
 one pass alone. The CUDA kernels are held against these plain versions on
@@ -310,6 +310,91 @@ def test_pass_d_matches_pallas(strategy):
         share, worst = _flip_share(got, want[0:3], 1e-5, cls[0] == float(c))
         assert share <= 1e-3 and worst <= 2e-2, (c, share, worst)
     assert float((got - gq2[0:3]).abs().max()) > 1e-3  # the points moved
+
+
+def _lag_state(needs_delta):
+    """A lag state that is not the initial one: the centres and deltas the
+    exact-delta passes B and C give on this cloud, each class its own."""
+    return _scal_full(needs_delta)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES, ids="-".join)
+def test_pass_bd_matches_pallas(strategy):
+    """The fused pass BD under pallas_denoise's grid spec (l.953-977), for
+    0, 1, 2 and 3 delta classes and a lag state that is not the initial
+    one. Classes equal; the next packs' carried rows (ones, normals,
+    thresholds, zeros) equal; positions and the rows built from them
+    within 1e-5 on all but counted flips, class by class; all 5 nd partial
+    rows within 1e-5 of each row's largest value, the counts exactly; the
+    reference's other partial rows zero and its row 15 the classes."""
+    needs_delta = tuple(c for c in range(3) if strategy[c] in ("flat", "new"))
+    nd = len(needs_delta)
+    st = _state()
+    wt, nt = st.win.wt_c, st.win.n // TILE
+    gq2, gr2 = _ref_a()
+    scal = _lag_state(needs_delta)
+    want_q, want_r, want_parts = _call(
+        pf._make_pass_bd(TILE, wt, JaxConfig(), strategy, needs_delta, num_tiles=nt),
+        [_ANY, _ANY, _SCAL], (16, 24, 16),
+        [pltpu.VMEM((2, 16, TILE), jnp.float32), pltpu.VMEM((2, 24, wt), jnp.float32),
+         pltpu.SemaphoreType.DMA((2, 2))],
+        _j(gq2), _j(gr2), _j(scal),
+    )
+    got_q, got_r, got_cls, got_parts = kp.pass_bd(gq2, gr2, scal, st.win,
+                                                  DenoiseConfig(), strategy, needs_delta)
+    assert torch.equal(got_cls, want_parts[15])
+    assert set(torch.unique(got_cls).long().tolist()) == {0, 1, 2}
+    keep_q = [3, *range(5, 16)]
+    assert torch.equal(got_q[keep_q], want_q[keep_q])
+    assert torch.equal(got_r[[4, *range(5, 8), *range(9, 15)]],
+                       want_r[[4, *range(5, 8), *range(9, 15)]])
+    assert not want_r[18:].any() and not got_r[18:].any()
+    pad = torch.arange(st.win.n) >= st.win.nv
+    assert torch.equal(got_q[0:3, pad], gq2[0:3, pad])  # padding rows pinned
+    for c in range(3):
+        cols = got_cls == float(c)
+        for got, want in ((got_q[0:5], want_q[0:5]), (got_r[[0, 1, 2, 3, 8, 15, 16, 17]],
+                                                      want_r[[0, 1, 2, 3, 8, 15, 16, 17]])):
+            share, worst = _flip_share(got, want, 1e-5, cols)
+            assert share <= 1e-3 and worst <= 2e-2, (c, share, worst)
+    assert float((got_q[0:3] - gq2[0:3]).abs().max()) > 1e-3  # the points moved
+    ptile = _tile_lane0(want_parts, 15)
+    assert got_parts.shape == (5 * nd, nt)
+    assert not ptile[5 * nd :].any()
+    if nd:
+        want = ptile[: 5 * nd]
+        scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+        assert float(((got_parts - want).abs() / scale).max()) < REL_TOL
+        assert torch.equal(got_parts[3::5], want[3::5])
+        assert (got_parts[4::5].amax(dim=1) > 0).all()  # every delta class has a spread
+
+
+def test_lag_scal_matches_reference_loop():
+    """lag_scal builds the next lag state as pallas_denoise does from the
+    lane-0 partials (l.1072-1079), and initial_lag_scal the first one
+    (l.1040-1056)."""
+    rng = np.random.default_rng(3)
+    parts = torch.as_tensor(rng.uniform(0.5, 2.0, size=(10, 8)).astype(np.float32))
+    d_thr = torch.tensor(0.25)
+    got = kp.lag_scal(d_thr, parts)
+    pj = jnp.asarray(parts.numpy())
+    for ci in range(2):
+        base = 5 * ci
+        centre = jnp.sum(pj[base : base + 3], axis=1) / jnp.maximum(jnp.sum(pj[base + 3]), 1.0)
+        delta = jnp.sqrt(jnp.maximum(jnp.max(pj[base + 4]), 0.0))
+        np.testing.assert_allclose(got[4 + ci, 0:3].numpy(), np.asarray(centre), rtol=1e-6)
+        np.testing.assert_allclose(float(got[1 + ci, 0]), float(delta), rtol=1e-6)
+    assert float(got[0, 0]) == 0.25 and not got[3].any() and not got[6:].any()
+    st = _state()
+    first = kp.initial_lag_scal(st.gq[0:3], st.win.nv, 2, st.d_thr)
+    pos = st.gq[0:3, : st.win.nv]
+    centroid = pos.sum(dim=1) / st.win.nv
+    torch.testing.assert_close(first[4, 0:3], centroid, rtol=1e-6, atol=0)
+    torch.testing.assert_close(first[5, 0:3], centroid, rtol=1e-6, atol=0)
+    radius = ((pos - centroid[:, None]) ** 2).sum(dim=0).max().sqrt()
+    torch.testing.assert_close(first[1, 0], radius, rtol=1e-6, atol=0)
+    assert float(first[2, 0]) == float(first[1, 0]) and float(first[3, 0]) == 0.0
+    assert float(first[0, 0]) == float(st.d_thr)
 
 
 def test_strategies_cover_every_step():

@@ -111,7 +111,8 @@ def _pass_calls(gq, gr, cls, scal, win):
     return (lambda: kp.pass_a(gq, gr, win, cfg),
             lambda: kp.pass_b(gq, gr, win, cfg, (0,)),
             lambda: kp.pass_c(gq, gr, cls, scal, win, (0,)),
-            lambda: kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "edge", "feature"), (0,)))
+            lambda: kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "edge", "feature"), (0,)),
+            lambda: kp.pass_bd(gq, gr, scal, win, cfg, ("flat", "edge", "feature"), (0,)))
 
 
 def test_pass_wrappers_raise_instead_of_falling_back(monkeypatch):
@@ -153,6 +154,23 @@ def test_pass_wrappers_reject_other_devices_and_bad_operands():
         kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "curve", "feature"), (0,))
     with pytest.raises(ValueError, match="delta slot"):
         kp.pass_d(gq, gr, cls, scal, win, cfg, ("flat", "edge", "feature"), ())
+    strategy = ("flat", "edge", "feature")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        kp.pass_bd(gq.to("meta"), gr.to("meta"), scal.to("meta"), meta, cfg, strategy, (0,))
+    with pytest.raises(TypeError):
+        kp.pass_bd(gq, gr.double(), scal, win, cfg, strategy, (0,))
+    with pytest.raises(ValueError, match="shape"):
+        kp.pass_bd(gq, gr[:18].contiguous(), scal, win, cfg, strategy, (0,))
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.pass_bd(gq.T.contiguous().T, gr, scal, win, cfg, strategy, (0,))
+    with pytest.raises(ValueError, match="scal"):
+        kp.pass_bd(gq, gr, scal[:, :64].contiguous(), win, cfg, strategy, (0,))
+    with pytest.raises(ValueError, match="delta slot"):
+        kp.pass_bd(gq, gr, scal, win, cfg, strategy, ())
+    with pytest.raises(ValueError, match="needs_delta"):
+        kp.pass_bd(gq, gr, scal, win, cfg, strategy, (0, 3))
+    with pytest.raises(ValueError):
+        kp.pass_bd(gq, gr, scal, win, cfg, ("flat", "edge", "sharpen"), (0,))
 
 
 def test_cpu_pass_wrappers_use_plain_versions():
@@ -165,7 +183,46 @@ def test_cpu_pass_wrappers_use_plain_versions():
         assert torch.equal(got, want)
     assert torch.equal(kp.pass_c(gq, gr, cls, scal, win, (0,)),
                        kp.pass_c_plain(gq, gr, cls, scal, win, (0,)))
-    assert kp.LAUNCHES == before
+    strategy = ("flat", "edge", "feature")
+    for got, want in zip(kp.pass_bd(gq, gr, scal, win, cfg, strategy, (0,)),
+                         kp.pass_bd_plain(gq, gr, scal, win, cfg, strategy, (0,))):
+        assert torch.equal(got, want)
+    assert kp.LAUNCHES == before and "pass_bd" in kp.LAUNCHES
+
+
+def test_pass_bd_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
+    """Operands that pass as CUDA go to the kernel launch; the plain
+    version is not called, whether the launch succeeds or raises."""
+    gq, gr, _, scal, win = _small_packs()
+    called = []
+    monkeypatch.setattr(kp, "_check", lambda *a, **k: True)
+    monkeypatch.setattr(kp, "pass_bd_plain", lambda *a, **k: called.append("plain"))
+
+    def refuse(name, counts, *args):
+        called.append(name)
+        raise RuntimeError("pass_bd launch failed with cudaError 1")
+
+    monkeypatch.setattr(kw, "launch", refuse)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kp.pass_bd(gq, gr, scal, win, DenoiseConfig(), ("flat", "edge", "feature"), (0,))
+    assert called == ["pass_bd"]
+
+
+def test_build_lists_every_kernel_with_its_argument_types():
+    assert build.SOURCES == ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d",
+                             "pass_bd")
+    assert set(build.ARGTYPES) == set(build.SOURCES)
+    for name in build.SOURCES:
+        assert name in {**kw.LAUNCHES, **kp.LAUNCHES}
+        # One ctypes type per parameter of the C launch function.
+        src = (build.CSRC / f"{name}.cu").read_text()
+        sig = src[src.index(f"ngpd_{name}_launch("):]
+        params = sig[sig.index("(") + 1 : sig.index(")")].split(",")
+        assert len(params) == len(build.ARGTYPES[name]), name
+        for text, ctype in zip(params, build.ARGTYPES[name]):
+            want = (build._VP if "*" in text else
+                    build._F if "float" in text else build._I)
+            assert ctype is want, (name, text)
 
 
 def test_kernel_sources_target_sm90a():

@@ -5,7 +5,9 @@ its plain version. Here, on the CPU, the wrappers run the plain versions,
 so each case puts a wrong stand-in in a wrapper's place (a corner step
 with a scaled right-hand side, a feature step without its ``sv`` sums, an
 edge step with scaled ``b_nv`` sums, edge directions negated or moved by
-1e-3) and expects the check to end the run. The cloud is
+1e-3; for the fused pass BD a partial x1.01, the next packs' normals
+dropped, the lagged delta read from the wrong slot, a padding row moved)
+and expects the check to end the run. The cloud is
 ``make_corner_cloud(16_384)``, where every class has over a hundred
 points in the first iteration (``test_right_passes_pass`` asserts it),
 so every step runs on over a hundred.
@@ -32,7 +34,8 @@ EDGE_CORNER = ("dummy", "edge", "corner")
 @functools.lru_cache(maxsize=None)
 def _state(strategy):
     pts, nrm, _ = make_corner_cloud(16_384)
-    return passes_prologue(pts, nrm, CFG, strategy, device="cpu")
+    # 100 trailing rows are padding, so pass BD's pinning is held too.
+    return passes_prologue(pts, nrm, CFG, strategy, num_valid=16_284, device="cpu")
 
 
 def _pass_d_with(name, wrong):
@@ -55,7 +58,45 @@ def _pass_b_edge(change):
     return pass_b
 
 
+def _pass_bd_with(change):
+    """pass_bd_plain with its outputs (gq, gr, cls, parts) changed."""
+    def pass_bd(*args, **kwargs):
+        return change(*kp.pass_bd_plain(*args, **kwargs))
+    return pass_bd
+
+
+def _scaled_partial(gq, gr, cls, parts):
+    parts = parts.clone()
+    parts[4] *= 1.01  # the first delta class's max |p_j - centre|^2
+    return gq, gr, cls, parts
+
+
+def _normals_dropped(gq, gr, cls, parts):
+    gq = gq.clone()
+    gq[5:8] = 0.0
+    return gq, gr, cls, parts
+
+
+def _padding_moved(gq, gr, cls, parts):
+    gq = gq.clone()
+    gq[0, -1] += 1e-3
+    return gq, gr, cls, parts
+
+
+def _pass_bd_wrong_slot(gq2, gr2, scal, *args, **kwargs):
+    """Every delta class reads the next class's delta."""
+    wrong = scal.clone()
+    wrong[1:4, 0] = torch.roll(scal[1:4, 0], 1)
+    return kp.pass_bd_plain(gq2, gr2, wrong, *args, **kwargs)
+
+
+ALL_DELTA = ("flat", "new", "flat")
+
 MUTANTS = {
+    "bd-partial": (CORNER_FEATURE, "pass_bd", _pass_bd_with(_scaled_partial)),
+    "bd-normals-dropped": (EDGE_CORNER, "pass_bd", _pass_bd_with(_normals_dropped)),
+    "bd-wrong-slot": (ALL_DELTA, "pass_bd", _pass_bd_wrong_slot),
+    "bd-padding-moved": (CORNER_FEATURE, "pass_bd", _pass_bd_with(_padding_moved)),
     "corner-rhs": (CORNER_FEATURE, "pass_d", _pass_d_with(
         "solve3x3_components",
         lambda f: lambda rows, b, p: f(rows, tuple(x * 1.01 for x in b), p))),
@@ -75,7 +116,7 @@ def no_cuda_sync(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
 
 
-@pytest.mark.parametrize("strategy", [CORNER_FEATURE, EDGE_CORNER], ids="-".join)
+@pytest.mark.parametrize("strategy", [CORNER_FEATURE, EDGE_CORNER, ALL_DELTA], ids="-".join)
 def test_right_passes_pass(no_cuda_sync, strategy):
     """With the wrappers as they are, every check holds and every class
     has at least MIN_CLASS_POINTS points."""
@@ -84,6 +125,9 @@ def test_right_passes_pass(no_cuda_sync, strategy):
     assert min(checks["PASS_B"]["class_counts"].values()) >= cs.MIN_CLASS_POINTS
     assert all(v > 0 for k, v in checks["PASS_D"]["moved"].items()
                if strategy[int(k[-1])] != "dummy")
+    assert all(v > 0 for k, v in checks["PASS_BD"]["moved"].items()
+               if not k.endswith("dummy"))
+    assert len(set(checks["PASS_BD"]["deltas"])) == len(checks["PASS_BD"]["deltas"])
 
 
 @pytest.mark.parametrize("mutant", list(MUTANTS))
