@@ -14,7 +14,8 @@ exit code and no result line:
              other strategy variants at 65,536 points, and at the CLI's
              shape (100k points, window 512, feature_k 16); kernel time
              (median of CUDA-event-timed launches), plain time, library
-             time, bound
+             time, bound; for K2 its registers, spills and blocks an SM
+             and the share of a warp's 32-column words that it skips
   main       the main path: ``ngpd_tpu_torch.bench.run``, 1M points, k 32,
              20 iterations, lagged_nvt1; CD gate and launch counts
   fresh_k1   65,536 points, 4 iterations, lagged_nvt1 off: K1 launches 4x
@@ -27,7 +28,8 @@ exit code and no result line:
              versions at 1M points (feature_k 32, tile 256, window 128),
              each fed the plain output of the pass before (BD reads pass
              A's packs and a lag state with centres from one plain BD
-             pass); kernel, plain and bound times as for ``kernels``
+             pass); kernel, plain and bound times as for ``kernels``, and
+             pass BD's registers, spills and blocks an SM
   pass_variants the same checks at 65,536 points of tiled cube corners,
              where every class has hundreds of points, for all four
              strategies (pass C off, three delta classes); fails when a
@@ -56,7 +58,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -74,6 +75,7 @@ from ngpd_tpu_torch.core.cuda_fused import (
 )
 from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
 from ngpd_tpu_torch.io.obj import save_obj
+from ngpd_tpu_torch.kernel_lab import time_launches
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -114,22 +116,6 @@ def say(phase: str, **fields) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
-
-
-def time_launches(fn, reps: int = 25) -> float:
-    """Median ms of one launch, each bracketed by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def time_once(fn):
@@ -238,6 +224,19 @@ def row_pair_counts(pack: torch.Tensor, win, rk_rows=(6, 7)):
     return feat, step
 
 
+def build_facts(name: str, kernel: str, flags: tuple, geometry: tuple) -> dict:
+    """What the build says of the variant ``kernel<flags...>`` of source
+    ``name``: ptxas registers and spill bytes, and the blocks of it that
+    one SM holds at ``geometry`` (the arguments of the library's
+    ``ngpd_<name>_blocks_per_sm``)."""
+    entry = build.template_entry(build.ptxas_report(build.library_path(name)), kernel, *flags)
+    if "registers" not in entry:
+        fail(f"no ptxas record of {kernel}{flags} in the build log of {name}.cu")
+    blocks = getattr(build.load_library(name), f"ngpd_{name}_blocks_per_sm")(*geometry)
+    return {"registers": entry["registers"], "spill_stores": entry["spill_stores"],
+            "spill_loads": entry["spill_loads"], "blocks_per_sm": blocks}
+
+
 def pair_counts(pack: torch.Tensor, win) -> tuple[int, int]:
     """Pairs within rk_feat and within rk_step over the slim pack."""
     feat, step = row_pair_counts(pack, win)
@@ -282,6 +281,10 @@ def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
     rec[1]["ms"] = time_launches(lambda: kw.k1(pack, win, cfg.angle))
     rec[2]["ms"] = time_launches(
         lambda: kw.k2(pack2, st.scal, win, cfg.angle, strategy, nd))
+    variant = tuple(s in strategy for s in ("flat", "edge", "new"))
+    rec[2].update(build_facts("k2", "k2_kernel", variant,
+                              (win.tile, win.wt_c, *map(int, variant))))
+    rec[2]["words_skipped"] = kw.skipped_word_share(pack2[0:3], pack2[6], pack2[7], win)
 
     # Bounds from this run's shapes and data.
     pairs = n * wt_c
@@ -508,6 +511,7 @@ def check_passes(cfg, st, strategy, timed: bool,
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                     "library_note": "no single PyTorch call computes masked, "
                     "angle-filtered window sums followed by a per-point eigh or 3x3 solve"})
+    out[-1].update(build_facts("pass_bd", "pass_bd_kernel", (True,), (win.tile, wt)))
     return out, rec
 
 

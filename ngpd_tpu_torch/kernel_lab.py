@@ -1,0 +1,207 @@
+"""Builds of K2 and pass BD side by side on the card: outputs and times.
+
+    python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
+        [--variant NAME=FLAG[,FLAG...]] ... [--corner] [--rounds 3] [--n 1000000]
+
+Builds ``k2.cu`` and ``pass_bd.cu`` of this checkout as they are (the
+``tree`` build), once more for each ``--variant`` with extra nvcc flags
+(the sources' switches: ``-DNGPD_NO_SKIP`` scans every word,
+``-DNGPD_NO_ACCUM`` keeps the scan and drops both accumulations,
+``-DNGPD_NO_WALK`` keeps staging, the per-point math and the output rows
+only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_FEAT_UNROLL=n`` and
+``-DNGPD_STEP_UNROLL=n`` set how many set bits a turn of each accumulation
+takes side by side, ``-DNGPD_K2_MIN_BLOCKS=n`` and ``-DNGPD_BD_MIN_BLOCKS=n``
+set the launch bounds), and for each ``--against`` from another directory
+of sources with the same launch interface (an older checkout's ``csrc``,
+unpacked with ``git archive``), into ``build/lab/``.
+
+At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
+tile 256, window 128, default strategy) it prints one JSON line a build
+and kernel: ptxas registers and spills, blocks an SM where the build can
+say, whether every output equals the tree build's bit for bit (rows that
+differ and the largest difference otherwise), and the launch time, median
+of 25 CUDA-event-timed launches, least and median over ``--rounds`` rounds
+that take the builds in turn. ``--corner`` adds the output comparison on
+the 65,536-point corner cloud for all four strategies. Builds with a timing
+switch compute something else by design; their ``equal`` is false. Needs a
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+from contextlib import contextmanager
+from pathlib import Path
+
+import torch
+
+from . import bench
+from .config import DenoiseConfig
+from .core import hybrid_stages as hs
+from .core.cuda_fused import passes_prologue, prologue
+from .kernels import build
+from .kernels import passes as kp
+from .kernels import window as kw
+
+NAMES = ("k2", "pass_bd")
+LAB_DIR = build.BUILD_DIR.parent / "lab"
+STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
+              ("dummy", "edge", "corner"), ("flat", "new", "flat"))
+
+
+def load_builds(variants: dict, against: dict) -> dict:
+    """{build name: {kernel name: (CDLL, library path)}}, all compiled in
+    one round of nvcc processes."""
+    spec = {"tree": (build.CSRC, ())}
+    spec.update({v: (build.CSRC, tuple(flags)) for v, flags in variants.items()})
+    spec.update({name: (Path(csrc).resolve(), ()) for name, csrc in against.items()})
+    paths = {(b, k): build.library_path(k, csrc, extra, LAB_DIR)
+             for b, (csrc, extra) in spec.items() for k in NAMES}
+    build.compile_all({p: (spec[b][0] / f"{k}.cu", spec[b][1]) for (b, k), p in paths.items()})
+    out = {}
+    for (b, k), p in paths.items():
+        lib = ctypes.CDLL(str(p))
+        fn = getattr(lib, f"ngpd_{k}_launch")
+        fn.argtypes, fn.restype = build.ARGTYPES[k], ctypes.c_int
+        out.setdefault(b, {})[k] = (lib, p)
+    return out
+
+
+@contextmanager
+def using(libs: dict):
+    """Route the wrappers' launches to one build's libraries."""
+    saved = dict(build._LIBS)
+    build._LIBS.update({k: lib for k, (lib, _) in libs.items()})
+    try:
+        yield
+    finally:
+        build._LIBS.clear()
+        build._LIBS.update(saved)
+
+
+def time_launches(fn, reps: int = 25) -> float:
+    """Median ms of one launch, each bracketed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def k2_call(n: int, cloud, strategy, cfg):
+    noisy, nrm, _ = cloud(n)
+    st = prologue(noisy, nrm, cfg, strategy, device="cuda")
+    pack2 = hs.vu_stage(kw.k1(st.pack, st.win, cfg.angle), st.pack, cfg)
+    scal = st.scal.clone()
+    scal[1:4, 0] = st.d_thr * torch.tensor([1.0, 2.0, 4.0], device=scal.device)
+    nd = len(st.needs_delta)
+    return lambda: (kw.k2(pack2, scal, st.win, cfg.angle, strategy, nd),)
+
+
+def bd_call(n: int, cloud, strategy, cfg):
+    noisy, nrm, _ = cloud(n)
+    st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
+    win, nd = st.win, st.needs_delta
+    gq2, gr2 = kp.pass_a(st.gq, st.gr, win, cfg)
+    first = kp.initial_lag_scal(st.gq[0:3], win.nv, len(nd), st.d_thr)
+    lag = kp.lag_scal(st.d_thr, kp.pass_bd(gq2, gr2, first, win, cfg, strategy, nd)[3])
+    for ci in range(len(nd)):
+        lag[1 + ci, 0] = st.d_thr * 2.0 ** ci
+    return lambda: kp.pass_bd(gq2, gr2, lag, win, cfg, strategy, nd)
+
+
+def compare(got, want) -> dict:
+    """Whether two tuples of tensors are equal element for element, the
+    rows (or, of a vector, the count) that differ and the largest gap."""
+    rows, worst = [], 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        bad = (g != w) & ~(torch.isnan(g) & torch.isnan(w))  # NaN equals NaN here
+        if bool(bad.any()):
+            rows.append([k, bad.reshape(bad.shape[0], -1).any(dim=1).nonzero()[:, 0].tolist()
+                         if bad.dim() > 1 else int(bad.sum())])
+            worst = max(worst, float((g - w).abs().nan_to_num().max()))
+    return {"equal": not rows, "differing_rows": rows, "max_abs_diff": worst}
+
+
+def ptxas_of(kernel: str, library: Path) -> dict:
+    report = build.ptxas_report(library)
+    entry = (build.template_entry(report, "k2_kernel", True, True, False) if kernel == "k2"
+             else build.template_entry(report, "pass_bd_kernel", True) or
+             next((r for r in report if "pass_bd_kernel" in r["function"]), {}))
+    return {k: v for k, v in entry.items() if k != "function"}
+
+
+def blocks_per_sm(kernel: str, lib) -> int | None:
+    fn = getattr(lib, f"ngpd_{kernel}_blocks_per_sm", None)
+    if fn is None:
+        return None
+    return fn(256, 512, 1, 1, 0) if kernel == "k2" else fn(256, 512)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.kernel_lab")
+    ap.add_argument("--against", action="append", default=[], metavar="NAME=CSRC_DIR")
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=FLAGS")
+    ap.add_argument("--corner", action="store_true")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--n", type=int, default=1_000_000)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_lab needs an NVIDIA GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    variants = {}
+    for v in args.variant:
+        name, _, flags = v.partition("=")
+        variants[name] = [f for f in flags.split(",") if f]
+    builds = load_builds(variants, dict(a.split("=", 1) for a in args.against))
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+
+    calls = {"k2": k2_call(args.n, bench.make_cloud, STRATEGIES[0], cfg),
+             "pass_bd": bd_call(args.n, bench.make_cloud, STRATEGIES[0], cfg)}
+    for kernel, call in calls.items():
+        with using(builds["tree"]):
+            want = call()
+        outs = {}
+        for b, libs in builds.items():
+            with using(libs):
+                outs[b] = compare(call(), want)
+        times = {b: [] for b in builds}
+        for _ in range(args.rounds):
+            for b, libs in builds.items():
+                with using(libs):
+                    times[b].append(time_launches(call))
+        for b, libs in builds.items():
+            print(json.dumps({"kernel": kernel, "build": b, "flags": variants.get(b, []),
+                              "n": args.n, **ptxas_of(kernel, libs[kernel][1]),
+                              "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0]),
+                              **outs[b], "ms_min": min(times[b]),
+                              "ms_median": statistics.median(times[b])}), flush=True)
+
+    if args.corner:
+        for strategy in STRATEGIES:
+            for kernel, make in (("k2", k2_call), ("pass_bd", bd_call)):
+                call = make(65_536, bench.make_corner_cloud, strategy, cfg)
+                with using(builds["tree"]):
+                    want = call()
+                for b, libs in builds.items():
+                    if b == "tree":
+                        continue
+                    with using(libs):
+                        print(json.dumps({"kernel": kernel, "build": b, "cloud": "corner 65536",
+                                          "strategy": strategy, **compare(call(), want)}),
+                              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,9 @@
 Each source in ``csrc/`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into ``build/kernels/``
 at the root of the checkout (listed in ``.gitignore``). The file name
-carries a hash of the sources and flags, so an edited source is rebuilt
-and a stale library is never loaded. The nvcc processes of all sources
+carries a hash of the source, of every header in ``HEADERS`` and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. The nvcc processes of all sources
 start together.
 
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
-HEADERS = ("window_common.cuh", "passes_common.cuh")
+HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,48 +64,84 @@ def find_nvcc() -> str:
     )
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (f"{name}.cu", *HEADERS):
-        h.update((CSRC / f).read_bytes())
+def _digest(source: Path, headers, extra=()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
+    for f in (source, *headers):
+        h.update(Path(f).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"libngpd_{name}_{_digest(name)}.so"
+def library_path(name: str, csrc: Path = CSRC, extra=(), out_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of ``csrc/name.cu`` built with the ``extra`` nvcc
+    flags goes. The package's own sources hash the listed ``HEADERS``, any
+    other directory every ``.cuh`` in it."""
+    headers = ([csrc / f for f in HEADERS] if csrc == CSRC
+               else sorted(csrc.glob("*.cuh")))
+    return out_dir / f"libngpd_{name}_{_digest(csrc / f'{name}.cu', headers, extra)}.so"
 
 
-def build_kernels() -> dict[str, Path]:
-    """Compile every source whose library is missing, all nvcc processes
-    at once. Returns {name: library path}; raises with nvcc's output on a
-    failed build. The ptxas report (registers, spills) of each build is
-    kept beside its library as ``<lib>.log``."""
-    paths = {name: library_path(name) for name in SOURCES}
-    todo = {k: p for k, p in paths.items() if not p.is_file()}
+def compile_all(jobs: dict) -> None:
+    """Compile ``{library path: (source, extra flags)}`` wherever the
+    library is missing, all nvcc processes at once, each with its source's
+    directory on the include path; raises with nvcc's output on a failed
+    build. The ptxas report (registers, spills) of each build is kept
+    beside its library as ``<lib>.log``."""
+    todo = {p: j for p, j in jobs.items() if not p.is_file()}
     if not todo:
-        return paths
+        return
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, path in todo.items():
+    for path, (source, extra) in todo.items():
+        path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(path.name + f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(source.parent), "-o", str(tmp),
+               str(source)]
+        procs[path] = (tmp, source, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     errors = []
-    for name, (tmp, proc) in procs.items():
+    for path, (tmp, source, proc) in procs.items():
         log, _ = proc.communicate()
-        path = todo[name]
         path.with_name(path.name + ".log").write_text(log)
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for {source.name}:\n{log}")
             continue
         os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def build_kernels() -> dict[str, Path]:
+    """Compile every source whose library is missing. Returns {name:
+    library path}."""
+    paths = {name: library_path(name) for name in SOURCES}
+    compile_all({p: (CSRC / f"{name}.cu", ()) for name, p in paths.items()})
     return paths
+
+
+def ptxas_report(library: Path) -> list[dict]:
+    """The ptxas log kept beside ``library``, one record an entry function:
+    its mangled name, registers, stack frame and spill bytes."""
+    log = Path(str(library) + ".log")
+    out = []
+    for line in log.read_text().splitlines() if log.is_file() else ():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            out.append({"function": m.group(1)})
+        elif out and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                line)):
+            out[-1].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif out and (m := re.search(r"Used (\d+) registers", line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def template_entry(report: list[dict], kernel: str, *flags: bool) -> dict:
+    """The record of ``kernel<flags...>`` (bool template arguments) in a
+    ``ptxas_report``; empty if it is not there."""
+    tag = kernel + "I" + "".join(f"Lb{int(f)}E" for f in flags) + "E"
+    return next((r for r in report if tag in r["function"]), {})
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -18,28 +18,105 @@
 // What bounds it on the H100: operations. Every (query, column) pair
 // needs its distance and two threshold tests; the ~step_k and
 // ~feature_k columns that pass add up to ~60 sums, three exps among
-// them. Traffic is 32 bytes read and 4*rows written a point.
+// them. Traffic is 32 bytes read and 4*rows written a point. The
+// distances must match the plain version bit for bit, so the pairs run on
+// the float32 pipes: TF32 keeps 10 mantissa bits and a split-TF32 product
+// is not bit-equal either, so wgmma has no place here.
 //
-// Design: as K1, one block per query tile with the window's p, n, |p|^2
-// and p.n staged in shared memory and one thread per query, all
-// accumulators in registers (about 60 at the default strategy). The
-// strategy's variants are template flags (FLAT, EDGE, NEW) and the
-// count of lagged classes nd (0-3) a runtime argument.
-#include "window_common.cuh"
+// Design: one block per query tile with the window's -2p, |p|^2, n and
+// p.n staged in shared memory and one thread per query. The walk is
+// walk_common.cuh's, in chunks of 16 words of 32 columns. Scan: per word a
+// warp first asks whether the word's bounding box can reach any of its
+// queries and skips it if not; else each lane computes the word's 32
+// distances branch-free and keeps a feature and a step bit word in shared
+// memory. Accumulate: each lane visits its own feature bits of the chunk
+// (NVT2 sums, the angle filter on a recomputed distance), then its own
+// step bits (s6 ... maxd), each in one flat loop from the lowest bit up.
+// Every sum belongs to one of the two loops and is taken in ascending
+// column order, as a walk over all columns takes it, so the output equals
+// that walk's bit for bit. All accumulators stay in registers; the lagged
+// classes' centres are read from shared memory where they are used. The
+// strategy's variants are template flags (FLAT, EDGE, NEW) and the count of
+// lagged classes nd (0-3) a runtime argument.
+//
+// Measured at 1M points, tile 256, 512 columns (kernel_lab.py, NVIDIA H100
+// 80GB HBM3 at 700 W): 0.64 ms a launch where one walk over all columns
+// with an early `continue` took 2.27 ms; the per-word bit walk alone
+// 1.03 ms (a warp then waits for the busiest lane of every word, 102
+// turns a warp where the flat loop takes ~45), the word skip 5% of the
+// rest. The scan takes 0.24 ms, the two accumulations 0.28 ms, the output
+// rows 0.10 ms, staging 0.02 ms. ptxas: 127 registers and no spill for
+// FLAT + EDGE, two blocks of 256 threads an SM; bounding it to three
+// blocks spills 252 bytes and is slower (0.75 ms), as is taking two or
+// four set bits a turn side by side (registers again).
+#include "walk_common.cuh"
+
+#ifndef NGPD_K2_MIN_BLOCKS
+#define NGPD_K2_MIN_BLOCKS 2
+#endif
 
 namespace ngpd {
 
+// Staged rows, each wp floats: the first four are the scan's.
+enum K2Row { K_M2P = 0, K_PP = 3, K_N = 4, K_PN = 7, K_ROWS = 8 };
+
+// Stage the window columns [s, s + wt_c) of the slim pack: -2p, |p|^2, n,
+// p.n; zeros in columns [wt_c, wp).
+__device__ __forceinline__ void stage_k2(const float* __restrict__ pack, int n,
+                                         int s, int wt_c, int wp, float* sm) {
+  for (int j = threadIdx.x; j < wp; j += blockDim.x) {
+    float p[3] = {0.f, 0.f, 0.f}, nj[3] = {0.f, 0.f, 0.f};
+    if (j < wt_c) {
+      const int c = s + j;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p[k] = pack[k * n + c];
+        nj[k] = pack[(3 + k) * n + c];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sm[(K_M2P + k) * wp + j] = -2.0f * p[k];
+      sm[(K_N + k) * wp + j] = nj[k];
+    }
+    sm[K_PP * wp + j] = sq_norm3(p[0], p[1], p[2]);
+    sm[K_PN * wp + j] = dot3(p[0], p[1], p[2], nj[0], nj[1], nj[2]);
+  }
+}
+
 template <bool FLAT, bool EDGE, bool NEW>
-__global__ void k2_kernel(const float* __restrict__ pack,
-                          const int* __restrict__ starts,
-                          const float* __restrict__ scal,
-                          float* __restrict__ out, int n, int nv, int tile,
-                          int wt_c, float cos_rho, int nd, int total) {
-  extern __shared__ float sm[];  // W_ROWS rows of wt_c
+__global__ void __launch_bounds__(256, NGPD_K2_MIN_BLOCKS)
+k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
+          const float* __restrict__ scal, float* __restrict__ out, int n,
+          int nv, int tile, int wt_c, int wp, float cos_rho, int nd,
+          int total) {
+  // K_ROWS rows of wp, BOX_FLOATS a word, then one chunk's feature and
+  // step bit words, one a (word, thread).
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float cen[3][4];  // lagged class ci: centre x, y, z, |centre|^2
+  float* boxes = sm + K_ROWS * wp;
+  unsigned* fbits = reinterpret_cast<unsigned*>(boxes + BOX_FLOATS * (wp >> 5)) + threadIdx.x;
+  unsigned* sbits = fbits + CHUNK_WORDS * blockDim.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-  stage_window<W_ROWS>(pack, n, s, wt_c, sm);
+#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the output rows alone
+  stage_k2(pack, n, s, wt_c, wp, sm);
+#endif
+  if (threadIdx.x < 3) {
+    const int ci = threadIdx.x;
+    float c[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[k] = ci < nd ? scal[(4 + ci) * 128 + k] : 0.0f;
+    cen[ci][0] = c[0];
+    cen[ci][1] = c[1];
+    cen[ci][2] = c[2];
+    cen[ci][3] = sq_norm3(c[0], c[1], c[2]);
+  }
   __syncthreads();
+#ifndef NGPD_NO_SKIP
+  reduce_word_boxes(sm, wp, boxes);
+  __syncthreads();
+#endif
 
   // Lag state (scal is (8, 128)).
   float d2_flat = 0.0f, d2_new = 0.0f;
@@ -51,23 +128,24 @@ __global__ void k2_kernel(const float* __restrict__ pack,
     const float dl = scal[2 * 128];
     d2_new = fmaxf(__fmul_rn(dl, dl), 1e-30f);
   }
-  float cen[3][3], csq[3];
-#pragma unroll
-  for (int ci = 0; ci < 3; ++ci) {
-    const bool on = ci < nd;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) cen[ci][c] = on ? scal[(4 + ci) * 128 + c] : 0.0f;
-    csq[ci] = sq_norm3(cen[ci][0], cen[ci][1], cen[ci][2]);
-  }
 
   const int jmax = min(wt_c, nv - s);  // columns past nv are masked
+#ifdef NGPD_NO_WALK  // timing aid: staging and the output rows alone
+  const int nwords = 0;
+#else
+  const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
+#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float q0 = pack[i], q1 = pack[n + i], q2 = pack[2 * n + i];
     const float m0 = pack[3 * n + i], m1 = pack[4 * n + i],
                 m2 = pack[5 * n + i];
-    const float rkf = pack[6 * n + i], rk8 = pack[7 * n + i];
     const float p2q = sq_norm3(q0, q1, q2);
+    const float thr_f = mask_threshold(pack[6 * n + i]);
+    const float thr_s = mask_threshold(pack[7 * n + i]);
+#ifndef NGPD_NO_SKIP
+    const WarpBox wb = warp_box(q0, q1, q2, p2q, fmaxf(thr_f, thr_s));
+#endif
 
     float kept[6] = {0.f}, all[6] = {0.f}, n_kept = 0.0f, n_all = 0.0f;
     float s6[6] = {0.f}, bnv[3] = {0.f}, sv[3] = {0.f}, deg = 0.0f;
@@ -78,22 +156,48 @@ __global__ void k2_kernel(const float* __restrict__ pack,
     // A masked column adds m8f * dist2 = 0 to the reference's max.
     bool zero_seen = jmax < wt_c;
 
-    for (int j = 0; j < jmax; ++j) {
-      const float p0 = sm[W_PX * wt_c + j], p1 = sm[W_PY * wt_c + j],
-                  p2 = sm[W_PZ * wt_c + j];
-      const float d = sq_dist(q0, q1, q2, p2q, p0, p1, p2, sm[W_PP * wt_c + j]);
-      const bool mk = d <= rkf && d < 1e30f;
-      const bool m8 = d <= rk8 && d < 1e30f;
-      if (!m8) zero_seen = true;
-      if (!(mk || m8)) continue;
-      const float n0 = sm[W_NX * wt_c + j], n1 = sm[W_NY * wt_c + j],
-                  n2 = sm[W_NZ * wt_c + j];
-      const float pn = sm[W_PN * wt_c + j];
-      const float sym[6] = {__fmul_rn(n0, n0), __fmul_rn(n0, n1),
-                            __fmul_rn(n0, n2), __fmul_rn(n1, n1),
-                            __fmul_rn(n1, n2), __fmul_rn(n2, n2)};
-      const float dotj = __fsub_rn(pn, dot3(q0, q1, q2, n0, n1, n2));
-      if (mk) {
+    for (int w0 = 0; w0 < nwords; w0 += CHUNK_WORDS) {
+      // The scan of one chunk: bit words to shared memory.
+      unsigned nz_f = 0u, nz_s = 0u;
+      const int cw = min(CHUNK_WORDS, nwords - w0);
+      for (int wl = 0; wl < cw; ++wl) {
+        const int j0 = (w0 + wl) << 5;
+#ifndef NGPD_NO_SKIP
+        if (word_skippable(wb, boxes + (w0 + wl) * BOX_FLOATS)) {
+          zero_seen = true;
+          continue;
+        }
+#endif
+        const unsigned valid = word_valid(jmax - j0);
+        unsigned bf, bs;
+        scan_word(sm, wp, j0, q0, q1, q2, p2q, thr_f, thr_s, bf, bs);
+        bf &= valid;
+        bs &= valid;
+        if (bs != valid) zero_seen = true;
+        if (bf) {
+          fbits[wl * blockDim.x] = bf;
+          nz_f |= 1u << wl;
+        }
+        if (bs) {
+          sbits[wl * blockDim.x] = bs;
+          nz_s |= 1u << wl;
+        }
+      }
+#ifdef NGPD_NO_ACCUM  // timing aid: the scan alone
+      deg = __fadd_rn(deg, (float)(__popc(nz_f) + __popc(nz_s)));
+      continue;
+#endif
+
+      // The feature bits: NVT2 with the angle filter.
+      walk_chunk(fbits, blockDim.x, nz_f, w0 << 5, [&](int j) {
+        const float d = col_dist(sm, wp, j, q0, q1, q2, p2q);
+        const float n0 = sm[K_N * wp + j], n1 = sm[(K_N + 1) * wp + j],
+                    n2 = sm[(K_N + 2) * wp + j];
+        const float sym[6] = {__fmul_rn(n0, n0), __fmul_rn(n0, n1),
+                              __fmul_rn(n0, n2), __fmul_rn(n1, n1),
+                              __fmul_rn(n1, n2), __fmul_rn(n2, n2)};
+        const float dotj =
+            __fsub_rn(sm[K_PN * wp + j], dot3(q0, q1, q2, n0, n1, n2));
 #pragma unroll
         for (int c = 0; c < 6; ++c) all[c] = __fadd_rn(all[c], sym[c]);
         n_all = __fadd_rn(n_all, 1.0f);
@@ -102,64 +206,75 @@ __global__ void k2_kernel(const float* __restrict__ pack,
           for (int c = 0; c < 6; ++c) kept[c] = __fadd_rn(kept[c], sym[c]);
           n_kept = __fadd_rn(n_kept, 1.0f);
         }
-      }
-      if (!m8) continue;
-      const float nn[3] = {n0, n1, n2};
-      const float pp[3] = {p0, p1, p2};
-      const float nnv[3] = {__fmul_rn(n0, pn), __fmul_rn(n1, pn),
-                            __fmul_rn(n2, pn)};
+      });
+
+      // The step bits: the update stage's sums.
+      walk_chunk(sbits, blockDim.x, nz_s, w0 << 5, [&](int j) {
+        const float n0 = sm[K_N * wp + j], n1 = sm[(K_N + 1) * wp + j],
+                    n2 = sm[(K_N + 2) * wp + j];
+        const float pn = sm[K_PN * wp + j];
+        // p from -2p: halving is exact.
+        const float pp[3] = {-0.5f * sm[K_M2P * wp + j],
+                             -0.5f * sm[(K_M2P + 1) * wp + j],
+                             -0.5f * sm[(K_M2P + 2) * wp + j]};
+        const float sym[6] = {__fmul_rn(n0, n0), __fmul_rn(n0, n1),
+                              __fmul_rn(n0, n2), __fmul_rn(n1, n1),
+                              __fmul_rn(n1, n2), __fmul_rn(n2, n2)};
+        const float nnv[3] = {__fmul_rn(n0, pn), __fmul_rn(n1, pn),
+                              __fmul_rn(n2, pn)};
+        const float dotj = __fsub_rn(pn, dot3(q0, q1, q2, n0, n1, n2));
 #pragma unroll
-      for (int c = 0; c < 6; ++c) s6[c] = __fadd_rn(s6[c], sym[c]);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        bnv[c] = __fadd_rn(bnv[c], nnv[c]);
-        sv[c] = __fadd_rn(sv[c], pp[c]);
-      }
-      deg = __fadd_rn(deg, 1.0f);
-      if constexpr (EDGE) {
-        // Pairs (c, a) with c <= a in the order 00 01 02 11 12 22.
-        const int pc[6] = {0, 0, 0, 1, 1, 2}, pa[6] = {0, 1, 2, 1, 2, 2};
-#pragma unroll
-        for (int k = 0; k < 6; ++k) {
-          const float base = __fmul_rn(nn[pc[k]], nn[pa[k]]);
-#pragma unroll
-          for (int b = 0; b < 3; ++b)
-            q18[k * 3 + b] = __fadd_rn(q18[k * 3 + b], __fmul_rn(base, pp[b]));
-        }
-      }
-      if constexpr (FLAT) {
-        const float ninj = dot3(m0, m1, m2, n0, n1, n2);
-        const float sim = expf(__fdiv_rn(
-            __fmul_rn(-16.0f, __fsub_rn(2.0f, __fmul_rn(2.0f, ninj))),
-            d2_flat));
-        const float close = expf(__fdiv_rn(__fmul_rn(-4.0f, d), d2_flat));
-        const float wb = __fmul_rn(sim, close);
-        fl_num = __fadd_rn(fl_num, __fmul_rn(wb, dotj));
-        fl_den = __fadd_rn(fl_den, wb);
-      }
-      if constexpr (NEW) {
-        const float like = expf(__fdiv_rn(
-            __fmul_rn(__fmul_rn(-9.0f, dotj), dotj), d2_new));
-#pragma unroll
-        for (int c = 0; c < 6; ++c)
-          nw[c] = __fadd_rn(nw[c], __fmul_rn(like, sym[c]));
+        for (int c = 0; c < 6; ++c) s6[c] = __fadd_rn(s6[c], sym[c]);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          nw[6 + c] = __fadd_rn(nw[6 + c], __fmul_rn(like, nnv[c]));
-          nw[9 + c] = __fadd_rn(nw[9 + c], __fmul_rn(like, pp[c]));
+          bnv[c] = __fadd_rn(bnv[c], nnv[c]);
+          sv[c] = __fadd_rn(sv[c], pp[c]);
         }
-      }
+        deg = __fadd_rn(deg, 1.0f);
+        if constexpr (EDGE) {
+          // Pairs (c, a) with c <= a in the order 00 01 02 11 12 22: n_c n_a
+          // is sym.
 #pragma unroll
-      for (int ci = 0; ci < 3; ++ci) {
-        if (ci < nd) {
-          const float dist2 = __fadd_rn(
-              __fsub_rn(sm[W_PP * wt_c + j],
-                        __fmul_rn(2.0f, dot3(p0, p1, p2, cen[ci][0],
-                                             cen[ci][1], cen[ci][2]))),
-              csq[ci]);
-          maxd[ci] = fmaxf(maxd[ci], dist2);
+          for (int k = 0; k < 6; ++k)
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+              q18[k * 3 + b] = __fadd_rn(q18[k * 3 + b], __fmul_rn(sym[k], pp[b]));
         }
-      }
+        if constexpr (FLAT) {
+          const float d = col_dist(sm, wp, j, q0, q1, q2, p2q);
+          const float ninj = dot3(m0, m1, m2, n0, n1, n2);
+          const float sim = expf(__fdiv_rn(
+              __fmul_rn(-16.0f, __fsub_rn(2.0f, __fmul_rn(2.0f, ninj))),
+              d2_flat));
+          const float close = expf(__fdiv_rn(__fmul_rn(-4.0f, d), d2_flat));
+          const float wbl = __fmul_rn(sim, close);
+          fl_num = __fadd_rn(fl_num, __fmul_rn(wbl, dotj));
+          fl_den = __fadd_rn(fl_den, wbl);
+        }
+        if constexpr (NEW) {
+          const float like = expf(__fdiv_rn(
+              __fmul_rn(__fmul_rn(-9.0f, dotj), dotj), d2_new));
+#pragma unroll
+          for (int c = 0; c < 6; ++c)
+            nw[c] = __fadd_rn(nw[c], __fmul_rn(like, sym[c]));
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            nw[6 + c] = __fadd_rn(nw[6 + c], __fmul_rn(like, nnv[c]));
+            nw[9 + c] = __fadd_rn(nw[9 + c], __fmul_rn(like, pp[c]));
+          }
+        }
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) {
+          if (ci < nd) {
+            const float dist2 = __fadd_rn(
+                __fsub_rn(sm[K_PP * wp + j],
+                          __fmul_rn(2.0f, dot3(pp[0], pp[1], pp[2], cen[ci][0],
+                                               cen[ci][1], cen[ci][2]))),
+                cen[ci][3]);
+            maxd[ci] = fmaxf(maxd[ci], dist2);
+          }
+        }
+      });
     }
 
     // Write the rows in _k2_layout order.
@@ -196,21 +311,54 @@ __global__ void k2_kernel(const float* __restrict__ pack,
   }
 }
 
+static int k2_threads(int tile) { return tile < 256 ? tile : 256; }
+
+static size_t k2_smem(int tile, int wt_c) {
+  const int wp = round_up32(wt_c);
+  return sizeof(float) * ((size_t)K_ROWS * wp + (size_t)BOX_FLOATS * (wp >> 5) +
+                          2 * (size_t)CHUNK_WORDS * k2_threads(tile));
+}
+
+// Shared memory above 48 KB is allowed once a variant and window size.
+template <bool FLAT, bool EDGE, bool NEW>
+static void k2_allow(size_t smem) {
+  static size_t allowed = 0;
+  allow_smem(k2_kernel<FLAT, EDGE, NEW>, smem, allowed);
+}
+
 template <bool FLAT, bool EDGE, bool NEW>
 static void launch_k2(const float* pack, const int* starts, const float* scal,
                       float* out, int n, int nv, int tile, int wt_c,
                       float cos_rho, int nd, int total, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * W_ROWS * (size_t)wt_c;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(k2_kernel<FLAT, EDGE, NEW>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  const int threads = tile < 256 ? tile : 256;
-  k2_kernel<FLAT, EDGE, NEW><<<n / tile, threads, smem, stream>>>(
-      pack, starts, scal, out, n, nv, tile, wt_c, cos_rho, nd, total);
+  const size_t smem = k2_smem(tile, wt_c);
+  k2_allow<FLAT, EDGE, NEW>(smem);
+  k2_kernel<FLAT, EDGE, NEW><<<n / tile, k2_threads(tile), smem, stream>>>(
+      pack, starts, scal, out, n, nv, tile, wt_c, round_up32(wt_c), cos_rho,
+      nd, total);
+}
+
+template <bool FLAT, bool EDGE, bool NEW>
+static int blocks_k2(int tile, int wt_c) {
+  int blocks = 0;
+  k2_allow<FLAT, EDGE, NEW>(k2_smem(tile, wt_c));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, k2_kernel<FLAT, EDGE, NEW>, k2_threads(tile), k2_smem(tile, wt_c));
+  return blocks;
 }
 
 }  // namespace ngpd
+
+#define NGPD_K2_DISPATCH(CALL)                                               \
+  switch ((use_flat ? 4 : 0) | (use_edge ? 2 : 0) | (use_new ? 1 : 0)) {     \
+    case 0: CALL(false, false, false) break;                                 \
+    case 1: CALL(false, false, true) break;                                  \
+    case 2: CALL(false, true, false) break;                                  \
+    case 3: CALL(false, true, true) break;                                   \
+    case 4: CALL(true, false, false) break;                                  \
+    case 5: CALL(true, false, true) break;                                   \
+    case 6: CALL(true, true, false) break;                                   \
+    case 7: CALL(true, true, true) break;                                    \
+  }
 
 // pack: (8, n) post-VU pack [p, f, rkf, rks]; starts: (n / tile,) int32
 // window starts; scal: (8, 128) lag state; out: (total, n).
@@ -225,22 +373,21 @@ extern "C" int ngpd_k2_launch(const void* pack, const void* starts,
   const float* sc = static_cast<const float*>(scal);
   float* o = static_cast<float*>(out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int key = (use_flat ? 4 : 0) | (use_edge ? 2 : 0) | (use_new ? 1 : 0);
-#define NGPD_K2_CASE(K, F, E, W)                                              \
-  case K:                                                                     \
-    launch_k2<F, E, W>(p, st, sc, o, n, nv, tile, wt_c, cos_rho, nd, total, \
-                       cs);                                                   \
-    break;
-  switch (key) {
-    NGPD_K2_CASE(0, false, false, false)
-    NGPD_K2_CASE(1, false, false, true)
-    NGPD_K2_CASE(2, false, true, false)
-    NGPD_K2_CASE(3, false, true, true)
-    NGPD_K2_CASE(4, true, false, false)
-    NGPD_K2_CASE(5, true, false, true)
-    NGPD_K2_CASE(6, true, true, false)
-    NGPD_K2_CASE(7, true, true, true)
-  }
-#undef NGPD_K2_CASE
+#define NGPD_K2_LAUNCH(F, E, W) \
+  launch_k2<F, E, W>(p, st, sc, o, n, nv, tile, wt_c, cos_rho, nd, total, cs);
+  NGPD_K2_DISPATCH(NGPD_K2_LAUNCH)
+#undef NGPD_K2_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Blocks of the variant's kernel that one SM holds at this geometry, as
+// the runtime counts them from its registers and shared memory.
+extern "C" int ngpd_k2_blocks_per_sm(int tile, int wt_c, int use_flat,
+                                     int use_edge, int use_new) {
+  using namespace ngpd;
+  int blocks = 0;
+#define NGPD_K2_BLOCKS(F, E, W) blocks = blocks_k2<F, E, W>(tile, wt_c);
+  NGPD_K2_DISPATCH(NGPD_K2_BLOCKS)
+#undef NGPD_K2_BLOCKS
+  return blocks;
 }

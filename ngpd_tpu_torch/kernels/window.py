@@ -235,6 +235,66 @@ def k2_plain(pack: torch.Tensor, scal: torch.Tensor, win: Windows,
 
 
 # ---------------------------------------------------------------------------
+# The word skip of K2 and pass BD (csrc/walk_common.cuh), plain copy
+# ---------------------------------------------------------------------------
+
+_DIST_MARGIN = 16 * 2.0 ** -24  # dist_margin of walk_common.cuh
+
+
+def mask_threshold(rk: torch.Tensor) -> torch.Tensor:
+    """t with ``d <= t`` exactly where ``d <= rk and d < 1e30``."""
+    top = torch.tensor(_MASKED, dtype=torch.float32)
+    below = torch.nextafter(top, torch.zeros(())).to(rk.device)
+    return torch.where(rk >= top.to(rk.device), below, rk)
+
+
+def word_skippable(q_lo, q_hi, qq, thr, box_lo, box_hi, pp) -> torch.Tensor:
+    """True where no query inside the box ``[q_lo, q_hi]`` (last axis x, y,
+    z; squared norms up to ``qq``) can have a column of a word with
+    positions inside ``[box_lo, box_hi]`` (squared norms up to ``pp``)
+    within ``thr``: the squared gap between the boxes, lowered by its own
+    rounding and by the computed distance's error bound of 16 ulps of
+    ``qq + pp``, exceeds ``thr``. Operation for operation the kernels'
+    ``word_skippable``; a NaN skips nothing."""
+    gap = torch.clamp(torch.maximum(box_lo - q_hi, q_lo - box_hi), min=0.0)
+    lb = gap[..., 0] * gap[..., 0]
+    lb = lb + gap[..., 1] * gap[..., 1]
+    lb = lb + gap[..., 2] * gap[..., 2]
+    return lb * 0.99999 - _DIST_MARGIN * (qq + pp) > thr
+
+
+def skippable_words(pos: torch.Tensor, rk_feat: torch.Tensor, rk_step: torch.Tensor,
+                    win: Windows) -> torch.Tensor:
+    """The kernels' decision for every (block, warp of 32 consecutive
+    queries, word of 32 window columns), (n // tile, tile // 32, words)
+    bool, from positions ``pos`` (3, n) and the two threshold rows. Words
+    are those of the staged window: pitch ``wt_c`` rounded up to 32, zeros
+    past ``wt_c``."""
+    n, t = win.n, win.tile
+    nb, words = n // t, -(-win.wt_c // 32)
+    cols = torch.arange(words * 32, device=pos.device)
+    idx = (win.starts.long()[:, None] + cols[None, :]).clamp(max=n - 1)
+    pw = torch.where((cols < win.wt_c)[None, :, None], pos.T[idx], 0.0)
+    ppw = pw[..., 0] * pw[..., 0] + pw[..., 1] * pw[..., 1] + pw[..., 2] * pw[..., 2]
+    pw = pw.view(nb, 1, words, 32, 3)
+    q = pos.T.reshape(nb, t // 32, 1, 32, 3)
+    qq = (q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]).amax(dim=3)
+    thr = mask_threshold(torch.maximum(rk_feat, rk_step)).view(nb, t // 32, 1, 32).amax(dim=3)
+    return word_skippable(q.amin(dim=3), q.amax(dim=3), qq, thr, pw.amin(dim=3),
+                          pw.amax(dim=3), ppw.view(nb, 1, words, 32).amax(dim=3))
+
+
+def skipped_word_share(pos, rk_feat, rk_step, win: Windows) -> float:
+    """Share of the (warp, word) scans with a valid column that the
+    kernels skip."""
+    skip = skippable_words(pos, rk_feat, rk_step, win)
+    live = torch.clamp(torch.clamp(win.nv - win.starts.long(), max=win.wt_c), min=0)
+    has_valid = torch.arange(skip.shape[2], device=pos.device)[None, :] * 32 < live[:, None]
+    total = int(has_valid.sum()) * skip.shape[1]
+    return float((skip & has_valid[:, None, :]).sum()) / max(total, 1)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 

@@ -31,16 +31,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("window", [128, 512])
+# Window 512 gives wt_c 1,280 (40 words of 32 columns); window 99 gives
+# 454, neither a multiple of 32 nor of 4 (a masked last word, an aligned
+# row pitch); 15,877 valid points end 5 columns into the last tile's window.
+@pytest.mark.parametrize("window,num_valid", [(128, None), (512, None), (99, None),
+                                              (128, 15_877)])
 @pytest.mark.parametrize("strategy", STRATEGIES, ids="-".join)
-def test_kernels_match_plain(cuda_device, strategy, window):
+def test_kernels_match_plain(cuda_device, strategy, window, num_valid):
     """Thresholds and counts are computed in the same order with the same
     rounding on both sides, so K0's rows other than the edge sums match
     exactly; sums run in another order, so they agree to 1e-5 of each
     row's largest value."""
     noisy, nrm, _ = make_cloud(16_384)
     cfg = DenoiseConfig(feature_k=32, step_k=8)
-    st = prologue(noisy, nrm, cfg, strategy, window=window, device=cuda_device)
+    st = prologue(noisy, nrm, cfg, strategy, num_valid=num_valid, window=window,
+                  device=cuda_device)
     pack, win = st.pack, st.win
     got0 = kw.k0(pack, win, cfg.feature_k, cfg.step_k)
     ref0 = kw.k0_plain(pack, win, cfg.feature_k, cfg.step_k)
@@ -138,9 +143,16 @@ def test_pass_kernels_match_plain(cuda_device, strategy, tile, window):
         assert share <= 1e-3 and worst <= 2e-2
 
 
-@pytest.mark.parametrize("tile,window", [(256, 128), (128, 512), (512, 64)])
+# Beside the shapes of the other passes: wt 454 (window 99: a masked last
+# word), wt 1,280 (40 words), 15,621 valid points (5 columns into the last
+# tile's window), and wt 2,928 (tile 128, window 1,400), too wide for the
+# step bits to stay in shared memory beside it, so the second accumulation
+# scans again.
+@pytest.mark.parametrize("tile,window,num_valid", [
+    (256, 128, 15_900), (128, 512, 15_900), (512, 64, 15_900), (256, 99, 15_900),
+    (256, 512, 15_900), (256, 128, 15_621), (128, 1_400, 15_900)])
 @pytest.mark.parametrize("strategy", STRATEGIES, ids="-".join)
-def test_pass_bd_matches_plain(cuda_device, strategy, tile, window):
+def test_pass_bd_matches_plain(cuda_device, strategy, tile, window, num_valid):
     """The fused pass BD against its plain version on the packs the plain
     pass A gives, with a lag state that is not the initial one (the plain
     version's own partials after one pass): classes >= 99.9% equal; on the
@@ -156,7 +168,7 @@ def test_pass_bd_matches_plain(cuda_device, strategy, tile, window):
 
     noisy, nrm, _ = make_corner_cloud(16_000)
     cfg = DenoiseConfig(feature_k=32, step_k=8)
-    st = passes_prologue(noisy, nrm, cfg, strategy, num_valid=15_900,
+    st = passes_prologue(noisy, nrm, cfg, strategy, num_valid=num_valid,
                          tile=tile, window=window, device=cuda_device)
     win, nd = st.win, st.needs_delta
     gq2, gr2 = kp.pass_a_plain(st.gq, st.gr, win, cfg)

@@ -1,6 +1,7 @@
 """Rules of the port: it stands alone and never falls back to the CPU."""
 
 import ast
+import shutil
 from pathlib import Path
 
 import pytest
@@ -225,6 +226,65 @@ def test_build_lists_every_kernel_with_its_argument_types():
             assert ctype is want, (name, text)
 
 
+def test_every_header_is_hashed_into_the_library_names():
+    """A header that ``build.HEADERS`` does not list would not rename the
+    libraries when it is edited, and a stale one would be loaded."""
+    on_disk = sorted(p.name for p in build.CSRC.glob("*.cuh"))
+    assert sorted(build.HEADERS) == on_disk
+    assert "walk_common.cuh" in build.HEADERS
+
+
+@pytest.mark.parametrize("header", build.HEADERS)
+def test_an_edited_header_renames_the_libraries(header, tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name, csrc).name for name in build.SOURCES}
+    with open(csrc / header, "a") as f:
+        f.write("// edited\n")
+    after = {name: build.library_path(name, csrc).name for name in build.SOURCES}
+    assert all(before[name] != after[name] for name in build.SOURCES)
+    (csrc / "k2.cu").write_text((csrc / "k2.cu").read_text() + "// edited\n")
+    assert build.library_path("k2", csrc).name != after["k2"]
+    assert build.library_path("k1", csrc).name == after["k1"]
+
+
+def test_redesigned_kernels_keep_their_launch_interface():
+    """K2 and pass BD are launched with the argument lists they had before
+    their redesign; the wrappers and every caller rely on them."""
+    vp, i, f = build._VP, build._I, build._F
+    assert build.ARGTYPES["k2"] == (vp, vp, vp, vp, i, i, i, i, f, i, i, i, i, i, vp)
+    assert build.ARGTYPES["pass_bd"] == (
+        vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, f, i, i, i, f, f, f, i, i, i,
+        i, i, i, i, vp)
+    for name in ("k2", "pass_bd"):
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int ngpd_{name}_blocks_per_sm(' in src
+        assert '#include "walk_common.cuh"' in src
+        assert "wgmma" in src  # the header says why the tensor cores are not used
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path):
+    lib = tmp_path / "libngpd_k2_0.so"
+    (tmp_path / "libngpd_k2_0.so.log").write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd9k2_kernelILb1ELb1ELb0EEEvPKfPKiS2_Pfiiiiifii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN4ngpd9k2_kernelILb1ELb1ELb0EEEv\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 127 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd9k2_kernelILb0ELb0ELb0EEEvPKfPKiS2_Pfiiiiifii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 90 registers, used 1 barriers\n")
+    report = build.ptxas_report(lib)
+    assert [r["registers"] for r in report] == [127, 90]
+    entry = build.template_entry(report, "k2_kernel", True, True, False)
+    assert (entry["registers"], entry["spill_stores"], entry["spill_loads"],
+            entry["stack_bytes"]) == (127, 12, 4, 8)
+    assert build.template_entry(report, "k2_kernel", True, True, True) == {}
+    assert build.ptxas_report(tmp_path / "missing.so") == []
+
+
 def test_kernel_sources_target_sm90a():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
@@ -235,3 +295,25 @@ def test_kernel_sources_target_sm90a():
         assert "What bounds it on the H100" in src
     assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_kernel_lab_compares_outputs_bit_for_bit():
+    from ngpd_tpu_torch import kernel_lab
+
+    a = (torch.arange(12.0).reshape(3, 4), torch.tensor([1.0, float("nan")]))
+    same = kernel_lab.compare(a, tuple(x.clone() for x in a))
+    assert same["equal"] and same["differing_rows"] == []  # NaN equals NaN here
+    b = (a[0].clone(), a[1].clone())
+    b[0][2, 1] += 0.5
+    diff = kernel_lab.compare(b, a)
+    assert not diff["equal"] and diff["differing_rows"] == [[0, [2]]]
+    assert diff["max_abs_diff"] == 0.5
+
+
+def test_kernel_lab_needs_a_card():
+    from ngpd_tpu_torch import kernel_lab
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        kernel_lab.main([])

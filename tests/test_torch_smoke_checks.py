@@ -1,4 +1,4 @@
-"""chip_smoke.py's pass checks fail a wrong pass kernel.
+"""chip_smoke.py's checks fail a wrong kernel.
 
 On the card, ``chip_smoke.check_passes`` holds each pass kernel against
 its plain version. Here, on the CPU, the wrappers run the plain versions,
@@ -10,7 +10,10 @@ dropped, the lagged delta read from the wrong slot, a padding row moved)
 and expects the check to end the run. The cloud is
 ``make_corner_cloud(16_384)``, where every class has over a hundred
 points in the first iteration (``test_right_passes_pass`` asserts it),
-so every step runs on over a hundred.
+so every step runs on over a hundred. For the window walk of K2 and pass
+BD a stand-in drops one 32-column word of every window, what an
+over-eager word skip or a wrong tail mask would do, and must end
+``check_kernels`` and ``check_pass_bd``.
 """
 
 import functools
@@ -19,10 +22,11 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from ngpd_tpu_torch.bench import make_corner_cloud
+from ngpd_tpu_torch.bench import make_cloud, make_corner_cloud
 from ngpd_tpu_torch.config import DenoiseConfig
-from ngpd_tpu_torch.core.cuda_fused import passes_prologue
+from ngpd_tpu_torch.core.cuda_fused import passes_prologue, prologue
 from ngpd_tpu_torch.kernels import passes as kp
+from ngpd_tpu_torch.kernels import window as kw
 
 torch.set_num_threads(2)
 
@@ -145,3 +149,80 @@ def test_missing_class_fails(no_cuda_sync):
     with pytest.raises(SystemExit):
         cs.check_passes(CFG, _state(CORNER_FEATURE), CORNER_FEATURE, timed=False,
                         min_class=10_000)
+
+
+# ---------------------------------------------------------------------------
+# The window walk: a dropped word
+# ---------------------------------------------------------------------------
+
+DROPPED_WORD = 6  # columns 192-223 of every window: near the tile's first queries
+DEFAULT = ("flat", "edge", "feature")
+
+
+def _without_word(valid: torch.Tensor) -> torch.Tensor:
+    valid = valid.clone()
+    valid[..., 32 * DROPPED_WORD : 32 * (DROPPED_WORD + 1)] = False
+    return valid
+
+
+def _k2_dropping_a_word(*args, **kwargs):
+    """The plain K2 on windows whose word DROPPED_WORD reads as masked."""
+    original = kw._col_valid
+    kw._col_valid = lambda *a: _without_word(original(*a))
+    try:
+        return kw.k2_plain(args[0], args[1], args[2], kw.cos_f32(args[3]), *args[4:], **kwargs)
+    finally:
+        kw._col_valid = original
+
+
+def _pass_bd_dropping_a_word(*args, **kwargs):
+    original = kp._window
+
+    def window(*a):
+        wr, valid = original(*a)
+        return wr, _without_word(valid)
+
+    kp._window = window
+    try:
+        return kp.pass_bd_plain(*args, **kwargs)
+    finally:
+        kp._window = original
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_state():
+    pts, nrm, _ = make_cloud(8_192)
+    return prologue(pts, nrm, CFG, DEFAULT, num_valid=8_100, device="cpu")
+
+
+def test_right_window_kernels_pass(no_cuda_sync):
+    rec = cs.check_kernels(CFG, _hybrid_state(), DEFAULT, timed=False)
+    assert [r["name"] for r in rec] == ["K0", "K1", "K2"]
+    assert all(r["max_abs_err"] == 0.0 for r in rec)  # the plain versions both times
+
+
+def test_k2_that_drops_a_word_fails(no_cuda_sync, monkeypatch):
+    monkeypatch.setattr(kw, "k2", _k2_dropping_a_word)
+    with pytest.raises(SystemExit):
+        cs.check_kernels(CFG, _hybrid_state(), DEFAULT, timed=False)
+
+
+def _pass_a_packs(strategy):
+    st = _state(strategy)
+    return st, kp.pass_a_plain(st.gq, st.gr, st.win, CFG)
+
+
+@pytest.mark.parametrize("strategy", [EDGE_CORNER, ALL_DELTA], ids="-".join)
+def test_right_pass_bd_passes(no_cuda_sync, strategy):
+    st, (gq2, gr2) = _pass_a_packs(strategy)
+    rec = {}
+    cs.check_pass_bd(CFG, st, strategy, gq2, gr2, rec)
+    assert rec["PASS_BD"]["class_flips"] == 0 and rec["PASS_BD"]["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("strategy", [EDGE_CORNER, ALL_DELTA], ids="-".join)
+def test_pass_bd_that_drops_a_word_fails(no_cuda_sync, monkeypatch, strategy):
+    st, (gq2, gr2) = _pass_a_packs(strategy)
+    monkeypatch.setattr(kp, "pass_bd", _pass_bd_dropping_a_word)
+    with pytest.raises(SystemExit):
+        cs.check_pass_bd(CFG, st, strategy, gq2, gr2, {})
