@@ -29,7 +29,7 @@ exit code and no result line:
              each fed the plain output of the pass before (BD reads pass
              A's packs and a lag state with centres from one plain BD
              pass); kernel, plain and bound times as for ``kernels``, and
-             pass BD's registers, spills and blocks an SM
+             the registers, spills and blocks an SM of passes B, D and BD
   pass_variants the same checks at 65,536 points of tiled cube corners,
              where every class has hundreds of points, for all four
              strategies (pass C off, three delta classes); fails when a
@@ -75,7 +75,7 @@ from ngpd_tpu_torch.core.cuda_fused import (
 )
 from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
 from ngpd_tpu_torch.io.obj import save_obj
-from ngpd_tpu_torch.kernel_lab import time_launches
+from ngpd_tpu_torch.kernel_lab import ENTRIES, time_launches
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -511,7 +511,10 @@ def check_passes(cfg, st, strategy, timed: bool,
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                     "library_note": "no single PyTorch call computes masked, "
                     "angle-filtered window sums followed by a per-point eigh or 3x3 solve"})
-    out[-1].update(build_facts("pass_bd", "pass_bd_kernel", (True,), (win.tile, wt)))
+    for r in out:  # the kernels built on the walk of pass_walk.cuh
+        name = r["name"].lower()
+        if name in ("pass_b", "pass_d", "pass_bd"):
+            r.update(build_facts(name, *ENTRIES[name], (win.tile, wt)))
     return out, rec
 
 

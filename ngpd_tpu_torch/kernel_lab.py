@@ -1,30 +1,35 @@
-"""Builds of K2 and pass BD side by side on the card: outputs and times.
+"""Builds of K2 and passes B, D and BD side by side on the card: outputs
+and times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
-        [--variant NAME=FLAG[,FLAG...]] ... [--corner] [--rounds 3] [--n 1000000]
+        [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
+        [--rounds 3] [--n 1000000]
 
-Builds ``k2.cu`` and ``pass_bd.cu`` of this checkout as they are (the
-``tree`` build), once more for each ``--variant`` with extra nvcc flags
-(the sources' switches: ``-DNGPD_NO_SKIP`` scans every word,
-``-DNGPD_NO_ACCUM`` keeps the scan and drops both accumulations,
+Builds ``k2.cu``, ``pass_b.cu``, ``pass_d.cu`` and ``pass_bd.cu`` of this
+checkout as they are (the ``tree`` build), once more for each
+``--variant`` with extra nvcc flags (the sources' switches:
+``-DNGPD_NO_SKIP`` scans every word of K2, ``-DNGPD_NO_KEEP`` makes
+passes B and BD scan their step bits again instead of keeping them,
+``-DNGPD_NO_ACCUM`` keeps the scans and drops the accumulations,
 ``-DNGPD_NO_WALK`` keeps staging, the per-point math and the output rows
-only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_FEAT_UNROLL=n`` and
-``-DNGPD_STEP_UNROLL=n`` set how many set bits a turn of each accumulation
-takes side by side, ``-DNGPD_K2_MIN_BLOCKS=n`` and ``-DNGPD_BD_MIN_BLOCKS=n``
-set the launch bounds), and for each ``--against`` from another directory
-of sources with the same launch interface (an older checkout's ``csrc``,
-unpacked with ``git archive``), into ``build/lab/``.
+only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_K2_MIN_BLOCKS=n``,
+``-DNGPD_B_MIN_BLOCKS=n``, ``-DNGPD_D_MIN_BLOCKS=n`` and
+``-DNGPD_BD_MIN_BLOCKS=n`` set the launch bounds), and for each ``--against`` from another directory of sources
+with the same launch interface (an older checkout's ``csrc``, unpacked
+with ``git archive``), into ``build/lab/``. ``--kernel`` limits the run to
+the kernels named (default: all of ``NAMES``).
 
 At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
 tile 256, window 128, default strategy) it prints one JSON line a build
-and kernel: ptxas registers and spills, blocks an SM where the build can
-say, whether every output equals the tree build's bit for bit (rows that
-differ and the largest difference otherwise), and the launch time, median
-of 25 CUDA-event-timed launches, least and median over ``--rounds`` rounds
-that take the builds in turn. ``--corner`` adds the output comparison on
-the 65,536-point corner cloud for all four strategies. Builds with a timing
-switch compute something else by design; their ``equal`` is false. Needs a
-card.
+and kernel: ptxas registers and spills, blocks an SM, whether every output
+equals the tree build's bit for bit (rows that differ and the largest
+difference otherwise), and the launch time, median of 25 CUDA-event-timed
+launches, least and median over ``--rounds`` rounds that take the builds
+in turn. Each pass kernel is fed the plain outputs of the passes before
+it, as ``chip_smoke.check_passes`` feeds it. ``--corner`` adds the output
+comparison on the 65,536-point corner cloud for all four strategies.
+Builds with a timing switch compute something else by design; their
+``equal`` is false. Needs a card.
 """
 
 from __future__ import annotations
@@ -47,20 +52,20 @@ from .kernels import build
 from .kernels import passes as kp
 from .kernels import window as kw
 
-NAMES = ("k2", "pass_bd")
+NAMES = ("k2", "pass_b", "pass_d", "pass_bd")
 LAB_DIR = build.BUILD_DIR.parent / "lab"
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
 
-def load_builds(variants: dict, against: dict) -> dict:
+def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
     """{build name: {kernel name: (CDLL, library path)}}, all compiled in
     one round of nvcc processes."""
     spec = {"tree": (build.CSRC, ())}
     spec.update({v: (build.CSRC, tuple(flags)) for v, flags in variants.items()})
     spec.update({name: (Path(csrc).resolve(), ()) for name, csrc in against.items()})
     paths = {(b, k): build.library_path(k, csrc, extra, LAB_DIR)
-             for b, (csrc, extra) in spec.items() for k in NAMES}
+             for b, (csrc, extra) in spec.items() for k in names}
     build.compile_all({p: (spec[b][0] / f"{k}.cu", spec[b][1]) for (b, k), p in paths.items()})
     out = {}
     for (b, k), p in paths.items():
@@ -108,6 +113,29 @@ def k2_call(n: int, cloud, strategy, cfg):
     return lambda: (kw.k2(pack2, scal, st.win, cfg.angle, strategy, nd),)
 
 
+def _pass_a_state(n: int, cloud, strategy, cfg):
+    """The pass engine's prologue state on the card and the plain pass A's
+    packs."""
+    noisy, nrm, _ = cloud(n)
+    st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
+    return st, *kp.pass_a_plain(st.gq, st.gr, st.win, cfg)
+
+
+def b_call(n: int, cloud, strategy, cfg):
+    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
+    return lambda: kp.pass_b(gq2, gr2, st.win, cfg, st.needs_delta)
+
+
+def d_call(n: int, cloud, strategy, cfg):
+    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
+    win, nd = st.win, st.needs_delta
+    cls, parts = kp.pass_b_plain(gq2, gr2, win, cfg, nd)
+    scal = kp.delta_scal(st.d_thr, parts)
+    if nd:
+        scal = kp.delta_scal(st.d_thr, parts, kp.pass_c_plain(gq2, gr2, cls, scal, win, nd))
+    return lambda: (kp.pass_d(gq2, gr2, cls, scal, win, cfg, strategy, nd),)
+
+
 def bd_call(n: int, cloud, strategy, cfg):
     noisy, nrm, _ = cloud(n)
     st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
@@ -118,6 +146,16 @@ def bd_call(n: int, cloud, strategy, cfg):
     for ci in range(len(nd)):
         lag[1 + ci, 0] = st.d_thr * 2.0 ** ci
     return lambda: kp.pass_bd(gq2, gr2, lag, win, cfg, strategy, nd)
+
+
+# Each kernel's call at the main shapes, its entry function in the ptxas
+# report (the template flags of the variant the main shapes launch) and
+# the arguments of its ``ngpd_<name>_blocks_per_sm`` there.
+CALLS = {"k2": k2_call, "pass_b": b_call, "pass_d": d_call, "pass_bd": bd_call}
+ENTRIES = {"k2": ("k2_kernel", (True, True, False)), "pass_b": ("pass_b_kernel", (True,)),
+           "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,))}
+GEOMETRY = {"k2": (256, 512, 1, 1, 0), "pass_b": (256, 512), "pass_d": (256, 512),
+            "pass_bd": (256, 512)}
 
 
 def compare(got, want) -> dict:
@@ -135,23 +173,23 @@ def compare(got, want) -> dict:
 
 def ptxas_of(kernel: str, library: Path) -> dict:
     report = build.ptxas_report(library)
-    entry = (build.template_entry(report, "k2_kernel", True, True, False) if kernel == "k2"
-             else build.template_entry(report, "pass_bd_kernel", True) or
-             next((r for r in report if "pass_bd_kernel" in r["function"]), {}))
+    name, flags = ENTRIES[kernel]
+    # Older sources may build the kernel without its template flags.
+    entry = build.template_entry(report, name, *flags) or next(
+        (r for r in report if name in r["function"]), {})
     return {k: v for k, v in entry.items() if k != "function"}
 
 
 def blocks_per_sm(kernel: str, lib) -> int | None:
     fn = getattr(lib, f"ngpd_{kernel}_blocks_per_sm", None)
-    if fn is None:
-        return None
-    return fn(256, 512, 1, 1, 0) if kernel == "k2" else fn(256, 512)
+    return None if fn is None else fn(*GEOMETRY[kernel])
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.kernel_lab")
     ap.add_argument("--against", action="append", default=[], metavar="NAME=CSRC_DIR")
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=FLAGS")
+    ap.add_argument("--kernel", action="append", choices=NAMES, default=[])
     ap.add_argument("--corner", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -164,12 +202,12 @@ def main(argv=None) -> None:
     for v in args.variant:
         name, _, flags = v.partition("=")
         variants[name] = [f for f in flags.split(",") if f]
-    builds = load_builds(variants, dict(a.split("=", 1) for a in args.against))
+    names = tuple(args.kernel) or NAMES
+    builds = load_builds(variants, dict(a.split("=", 1) for a in args.against), names)
     cfg = DenoiseConfig(feature_k=32, step_k=8)
 
-    calls = {"k2": k2_call(args.n, bench.make_cloud, STRATEGIES[0], cfg),
-             "pass_bd": bd_call(args.n, bench.make_cloud, STRATEGIES[0], cfg)}
-    for kernel, call in calls.items():
+    for kernel in names:
+        call = CALLS[kernel](args.n, bench.make_cloud, STRATEGIES[0], cfg)
         with using(builds["tree"]):
             want = call()
         outs = {}
@@ -190,8 +228,8 @@ def main(argv=None) -> None:
 
     if args.corner:
         for strategy in STRATEGIES:
-            for kernel, make in (("k2", k2_call), ("pass_bd", bd_call)):
-                call = make(65_536, bench.make_corner_cloud, strategy, cfg)
+            for kernel in names:
+                call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg)
                 with using(builds["tree"]):
                     want = call()
                 for b, libs in builds.items():

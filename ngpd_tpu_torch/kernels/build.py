@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
-HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh")
+HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh",
+           "pass_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -138,9 +139,10 @@ def ptxas_report(library: Path) -> list[dict]:
 
 
 def template_entry(report: list[dict], kernel: str, *flags: bool) -> dict:
-    """The record of ``kernel<flags...>`` (bool template arguments) in a
-    ``ptxas_report``; empty if it is not there."""
-    tag = kernel + "I" + "".join(f"Lb{int(f)}E" for f in flags) + "E"
+    """The record of ``kernel<flags...>`` (bool template arguments; none
+    for a kernel that is not a template) in a ``ptxas_report``; empty if it
+    is not there."""
+    tag = kernel + ("I" + "".join(f"Lb{int(f)}E" for f in flags) if flags else "") + "E"
     return next((r for r in report if tag in r["function"]), {})
 
 

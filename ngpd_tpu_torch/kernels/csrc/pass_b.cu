@@ -16,43 +16,77 @@
 // test and twelve sums, and each point one eigendecomposition; it reads
 // the 40-row packs and writes 4 rows a point.
 //
-// Design: as pass A, one block per query tile with the window's GR rows
-// 0-17 in shared memory and one thread per query. A thread whose point
-// is valid and of a delta class walks the window a second time for the
-// step-mask sums (the class needs the eigensolver, which needs the first
-// walk). The per-tile partials are reduced over the block in a fixed
-// order (warp shuffles, then warps in turn), without atomics, and
-// written compactly as (4 nd, num_tiles).
-#include "passes_common.cuh"
+// Design: the first half of pass BD, on its walk (pass_walk.cuh). One
+// block per query tile with the window's GR rows 0-17 in shared memory at
+// a pitch of whole 32-column words, one thread a query. One scan, chunk by
+// chunk, computes each distance once into a feature and a step bit word;
+// the feature bits feed the NVT2 sums at once, the step words of the whole
+// window stay in shared memory (one a (word, thread)). After the
+// eigensolver only a valid row of a delta class walks its step bits, from
+// the lowest up, for sum p_j and the count: ascending column order, then
+// added into the thread's partials row by row, the order of one walk over
+// all columns, so the numbers are that walk's. The per-tile partials are
+// reduced over the block in a fixed order (warp shuffles, then warps in
+// turn), without atomics, and written compactly as (4 nd, num_tiles). The
+// distances must match the plain version bit for bit, so there is no
+// wgmma here (walk_common.cuh). A window too wide for the step bits
+// (above ~2,200 columns at 256 threads) takes KEEP = false and scans the
+// chunks of a delta-class row again.
+//
+// Measured at 1M points, tile 256, 512 columns (kernel_lab.py, NVIDIA H100
+// 80GB HBM3 at 700 W, one call): 0.58 ms a launch where two walks over all
+// columns with an early `continue` took 1.48 ms; scanning the step bits
+// again instead of keeping them, 0.74 ms. The scan takes ~0.29 ms, the two
+// accumulations ~0.17 ms, the per-point math and the 4 rows 0.09 ms,
+// staging 0.03 ms. ptxas: bounded to three blocks of 256 threads an SM it
+// takes 80 registers and spills 4 bytes; two blocks (100 registers) take
+// 0.64 ms, and a fourth does not fit beside the kept bits (0.59 ms at 64
+// registers).
+#include "pass_walk.cuh"
+
+#ifndef NGPD_B_MIN_BLOCKS
+#define NGPD_B_MIN_BLOCKS 3
+#endif
 
 namespace ngpd {
 
-constexpr int B_ROWS = R_P + 3;
-
-__global__ void pass_b_kernel(const float* __restrict__ gq,
-                              const float* __restrict__ gr,
-                              const int* __restrict__ starts,
-                              float* __restrict__ cls_out,
-                              float* __restrict__ parts, int n, int nv,
-                              int tile, int wt, float cos_rho,
-                              float class_scale, int nd, int dc0, int dc1,
-                              int dc2) {
-  extern __shared__ float sm[];  // B_ROWS rows of wt
+template <bool KEEP>
+__global__ void __launch_bounds__(256, NGPD_B_MIN_BLOCKS)
+pass_b_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
+              const int* __restrict__ starts, float* __restrict__ cls_out,
+              float* __restrict__ parts, int n, int nv, int tile, int wt, int wp,
+              float cos_rho, float class_scale, int nd, int dc0, int dc1, int dc2) {
+  // D_ROWS rows of wp, one chunk's bit words and, with KEEP, the step bit
+  // words of the whole window, one a (word, thread).
+  extern __shared__ __align__(16) float sm[];
   __shared__ float red[32];
+  unsigned* cbits = reinterpret_cast<unsigned*>(sm + D_ROWS * wp) + threadIdx.x;
+  unsigned* sbits = cbits + CHUNK_WORDS * blockDim.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-  stage_rows(gr, n, s, wt, B_ROWS, sm);
+#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the per-point math alone
+  stage_rows_pitched<D_ROWS>(gr, n, s, wt, wp, sm);
+#endif
   __syncthreads();
 
   const int dcls[3] = {dc0, dc1, dc2};
   float acc[3][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   const int jmax = min(wt, nv - s);  // columns past nv are masked
+#ifdef NGPD_NO_WALK  // timing aid: staging, the per-point math and the cls rows alone
+  const int nwords = 0;
+#else
+  const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
+#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float q[3] = {gq[i], gq[n + i], gq[2 * n + i]};
     const float qq = gq[Q_PP * n + i];
+    const float thr_f = mask_threshold(gq[Q_RKF * n + i]);
+    const float thr_s = mask_threshold(gq[Q_RKS * n + i]);
+    const NvtSums nvt =
+        nvt_pass<KEEP>(sm, wp, nwords, jmax, sbits, cbits, q, qq, thr_f, thr_s, cos_rho);
     float t6[6], w[3], v[3][3];
-    nvt_t6(sm, wt, jmax, q, qq, gq[Q_RKF * n + i], cos_rho, t6);
+    nvt_mean(nvt, t6);
     eigh3(t6, w, v);
     const float cls = classify(w, class_scale);
     cls_out[i] = cls;
@@ -64,15 +98,12 @@ __global__ void pass_b_kernel(const float* __restrict__ gq,
     for (int k = 0; k < nd; ++k)
       if (cls == (float)dcls[k]) ci = k;
     if (ci < 0 || i >= nv) continue;
-    const float rk8 = gq[Q_RKS * n + i];
     float sp[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < jmax; ++j) {
-      const float d = pack_dist(q[0], q[1], q[2], qq, sm, wt, j);
-      if (!(d <= rk8 && d < MASKED)) continue;
+    walk_step_bits<KEEP>(sm, wp, nwords, jmax, sbits, cbits, q, qq, thr_s, [&](int j) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) sp[c] = fadd(sp[c], sm[(R_P + c) * wt + j]);
+      for (int c = 0; c < 3; ++c) sp[c] = fadd(sp[c], sm[(R_P + c) * wp + j]);
       sp[3] = fadd(sp[3], 1.0f);
-    }
+    });
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       if (k == ci)
@@ -92,6 +123,12 @@ __global__ void pass_b_kernel(const float* __restrict__ gq,
   }
 }
 
+template <bool KEEP>
+static void b_allow(size_t smem) {
+  static size_t allowed = 0;
+  allow_smem(pass_b_kernel<KEEP>, smem, allowed);
+}
+
 }  // namespace ngpd
 
 // gq, gr: (16, n), (24, n) post-pass-A packs; starts: (n / tile,) int32;
@@ -103,12 +140,40 @@ extern "C" int ngpd_pass_b_launch(const void* gq, const void* gr,
                                   float cos_rho, float class_scale, int nd,
                                   int dc0, int dc1, int dc2, void* stream) {
   using namespace ngpd;
-  const size_t smem = prepare_launch(pass_b_kernel, B_ROWS, wt);
-  pass_b_kernel<<<n / tile, pass_threads(tile), smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gq), static_cast<const float*>(gr),
-      static_cast<const int*>(starts), static_cast<float*>(cls_out),
-      static_cast<float*>(parts), n, nv, tile, wt, cos_rho, class_scale, nd,
-      dc0, dc1, dc2);
+  const bool keep = walk_keeps(tile, wt);
+  const size_t smem = walk_smem(tile, wt, keep);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+#define NGPD_B_LAUNCH(KEEP)                                                    \
+  b_allow<KEEP>(smem);                                                         \
+  pass_b_kernel<KEEP><<<n / tile, pass_threads(tile), smem, cs>>>(             \
+      static_cast<const float*>(gq), static_cast<const float*>(gr),            \
+      static_cast<const int*>(starts), static_cast<float*>(cls_out),           \
+      static_cast<float*>(parts), n, nv, tile, wt, round_up32(wt), cos_rho,    \
+      class_scale, nd, dc0, dc1, dc2);
+  if (keep) {
+    NGPD_B_LAUNCH(true)
+  } else {
+    NGPD_B_LAUNCH(false)
+  }
+#undef NGPD_B_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel that one SM holds at this geometry, as the runtime
+// counts them from its registers and shared memory.
+extern "C" int ngpd_pass_b_blocks_per_sm(int tile, int wt) {
+  using namespace ngpd;
+  int blocks = 0;
+  const bool keep = walk_keeps(tile, wt);
+  const size_t smem = walk_smem(tile, wt, keep);
+  if (keep) {
+    b_allow<true>(smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_b_kernel<true>,
+                                                  pass_threads(tile), smem);
+  } else {
+    b_allow<false>(smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_b_kernel<false>,
+                                                  pass_threads(tile), smem);
+  }
+  return blocks;
 }

@@ -26,7 +26,8 @@
 //
 // Design: one block per query tile with the window's GR rows 0-17 in
 // shared memory and one thread per query; a query's window distances are
-// computed once. The walk is walk_common.cuh's, in chunks of 16 words of
+// computed once. The walk is walk_common.cuh's and its accumulations
+// pass_walk.cuh's, shared with passes B and D; in chunks of 16 words of
 // 32 columns: each lane computes a word's 32 distances branch-free into a
 // feature and a step bit word. The feature words of the chunk feed the
 // NVT2 sums at once, the lane visiting its own set bits in one flat loop
@@ -56,171 +57,16 @@
 // call) and is not used. The scan takes ~0.23 ms, the two accumulations
 // ~0.23 ms, the per-point math and the 41 output rows 0.15 ms, staging
 // 0.04 ms. ptxas: bounded to three blocks of 256 threads an SM it takes 80
-// registers and spills 148 bytes around the eigensolver; two blocks (119
+// registers and spills 160 bytes around the eigensolver; two blocks (119
 // registers, no spill) and four (64 registers, 312 bytes spilled) are both
 // slower (0.74 ms).
-#include "passes_common.cuh"
-#include "walk_common.cuh"
+#include "pass_walk.cuh"
 
 #ifndef NGPD_BD_MIN_BLOCKS
 #define NGPD_BD_MIN_BLOCKS 3
 #endif
 
 namespace ngpd {
-
-// The sums of the filtered NVT (nvt_t6 of passes_common.cuh).
-struct NvtSums {
-  float kept[6], all[6], n_kept, n_all;
-};
-
-// One passing column of the NVT2 accumulation.
-__device__ __forceinline__ void nvt_column(const float* sm, int wp, int j,
-                                           const float q[3], float qq,
-                                           float cos_rho, NvtSums& a) {
-  const float d = col_dist(sm, wp, j, q[0], q[1], q[2], qq);
-  const float nj[3] = {sm[R_N * wp + j], sm[(R_N + 1) * wp + j], sm[(R_N + 2) * wp + j]};
-  const float dotj = fsub(sm[R_PN * wp + j], dot(q, nj));
-  const bool keep = keeps_angle(dotj, d, cos_rho);
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    const float s = sm[(R_SYM + c) * wp + j];
-    a.all[c] = fadd(a.all[c], s);
-    if (keep) a.kept[c] = fadd(a.kept[c], s);
-  }
-  a.n_all = fadd(a.n_all, 1.0f);
-  if (keep) a.n_kept = fadd(a.n_kept, 1.0f);
-}
-
-// One passing column of the step accumulation, step_walk's body of
-// passes_common.cuh operation for operation: the sums every step shares
-// and those of step `kind` (CORNER stands for every step that has none:
-// corner, feature, dummy); with `centre`, mx also takes |p_j - cen|^2.
-template <int kind>
-__device__ __forceinline__ void step_column(const float* sm, int wp, int j,
-                                            const float p[3], float qq,
-                                            const float nrm[3], const float y[3],
-                                            float d2, bool centre,
-                                            const float cen[3], float cc,
-                                            StepSums& s, float& mx) {
-  const float nj[3] = {sm[R_N * wp + j], sm[(R_N + 1) * wp + j], sm[(R_N + 2) * wp + j]};
-  const float pj[3] = {sm[R_P * wp + j], sm[(R_P + 1) * wp + j], sm[(R_P + 2) * wp + j]};
-  const float pn = sm[R_PN * wp + j];
-  const float nnv[3] = {fmul(nj[0], pn), fmul(nj[1], pn), fmul(nj[2], pn)};
-  float sym[6];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) sym[c] = sm[(R_SYM + c) * wp + j];
-  s.deg = fadd(s.deg, 1.0f);
-#pragma unroll
-  for (int c = 0; c < 6; ++c) s.s6[c] = fadd(s.s6[c], sym[c]);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    s.bnv[c] = fadd(s.bnv[c], nnv[c]);
-    s.sv[c] = fadd(s.sv[c], pj[c]);
-  }
-  if (centre) {
-    const float m2pj[3] = {sm[j], sm[wp + j], sm[2 * wp + j]};
-    mx = fmaxf(mx, fadd(fadd(sm[R_PP * wp + j], dot(m2pj, cen)), cc));
-  }
-  const float dotj = fsub(pn, dot(p, nj));  // n_j.(p_j - p_i)
-  if constexpr (kind == FLAT) {
-    const float d = col_dist(sm, wp, j, p[0], p[1], p[2], qq);
-    const float ninj = dot(nrm, nj);
-    const float sim = expf(fdiv(fmul(-16.0f, fsub(2.0f, fmul(2.0f, ninj))), d2));
-    const float close = expf(fdiv(fmul(-4.0f, d), d2));
-    const float wb = fmul(sim, close);
-    s.ext[0] = fadd(s.ext[0], fmul(wb, dotj));
-    s.ext[1] = fadd(s.ext[1], wb);
-  } else if constexpr (kind == EDGE) {
-    const float w = fmul(dot(y, nj), dot(y, pj));
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s.ext[c] = fadd(s.ext[c], fmul(w, nj[c]));
-  } else if constexpr (kind == NEW) {
-    const float like = expf(fdiv(fmul(fmul(-9.0f, dotj), dotj), d2));
-#pragma unroll
-    for (int c = 0; c < 6; ++c) s.ext[c] = fadd(s.ext[c], fmul(like, sym[c]));
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      s.ext[6 + c] = fadd(s.ext[6 + c], fmul(like, nnv[c]));
-      s.ext[9 + c] = fadd(s.ext[9 + c], fmul(like, pj[c]));
-    }
-  }
-}
-
-// The second accumulation of one query, chunk by chunk: its step bit
-// words are in sbits (every word of the window, one a (word, thread)) or,
-// without KEEP, scanned again into the chunk buffer cbits.
-template <int kind, bool KEEP>
-__device__ __forceinline__ void step_pass(const float* sm, int wp, int nwords,
-                                          int jmax, const unsigned* sbits,
-                                          unsigned* cbits, const float p[3],
-                                          float qq, float thr_f, float thr_s,
-                                          const float nrm[3], const float y[3],
-                                          float d2, bool centre,
-                                          const float cen[3], float cc,
-                                          StepSums& s, float& mx) {
-  for (int w0 = 0; w0 < nwords; w0 += CHUNK_WORDS) {
-    const int cw = min(CHUNK_WORDS, nwords - w0);
-    const unsigned* words = KEEP ? sbits + w0 * blockDim.x : cbits;
-    unsigned nz = 0u;
-    for (int wl = 0; wl < cw; ++wl) {
-      unsigned bs;
-      if constexpr (KEEP) {
-        bs = words[wl * blockDim.x];
-      } else {
-        unsigned bf;
-        const int j0 = (w0 + wl) << 5;
-        scan_word(sm, wp, j0, p[0], p[1], p[2], qq, thr_f, thr_s, bf, bs);
-        bs &= word_valid(jmax - j0);
-        cbits[wl * blockDim.x] = bs;
-      }
-      if (bs) nz |= 1u << wl;
-    }
-    walk_chunk(words, blockDim.x, nz, w0 << 5, [&](int j) {
-      step_column<kind>(sm, wp, j, p, qq, nrm, y, d2, centre, cen, cc, s, mx);
-    });
-  }
-}
-
-// Stage GR rows [0, ROWS) of the window columns [s, s + wt) at pitch wp,
-// zeros in columns [wt, wp). A thread has six rows' loads in flight at a
-// time, 16 bytes each where the rows are 16-byte aligned in device memory.
-template <int ROWS>
-__device__ __forceinline__ void stage_rows_pitched(const float* __restrict__ gr,
-                                                   int n, int s, int wt, int wp,
-                                                   float* sm) {
-  constexpr int BATCH = 6;
-  static_assert(ROWS % BATCH == 0, "rows are staged six at a time");
-  const bool aligned =
-      ((n | s | wt) & 3) == 0 && (reinterpret_cast<size_t>(gr) & 15) == 0;
-  if (aligned) {
-    for (int k = threadIdx.x; k < (wt >> 2); k += blockDim.x) {
-#pragma unroll
-      for (int r0 = 0; r0 < ROWS; r0 += BATCH) {
-        float4 v[BATCH];
-#pragma unroll
-        for (int r = 0; r < BATCH; ++r)
-          v[r] = *reinterpret_cast<const float4*>(gr + (size_t)(r0 + r) * n + s + 4 * k);
-#pragma unroll
-        for (int r = 0; r < BATCH; ++r)
-          *reinterpret_cast<float4*>(sm + (r0 + r) * wp + 4 * k) = v[r];
-      }
-    }
-  } else {
-    for (int j = threadIdx.x; j < wt; j += blockDim.x) {
-#pragma unroll
-      for (int r0 = 0; r0 < ROWS; r0 += BATCH) {
-        float v[BATCH];
-#pragma unroll
-        for (int r = 0; r < BATCH; ++r) v[r] = gr[(size_t)(r0 + r) * n + s + j];
-#pragma unroll
-        for (int r = 0; r < BATCH; ++r) sm[(r0 + r) * wp + j] = v[r];
-      }
-    }
-  }
-  for (int j = wt + threadIdx.x; j < wp; j += blockDim.x)
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) sm[r * wp + j] = 0.0f;
-}
 
 template <bool KEEP>
 __global__ void __launch_bounds__(256, NGPD_BD_MIN_BLOCKS)
@@ -265,36 +111,12 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
 
     // The one scan, chunk by chunk: feature bits into the NVT2 sums, step
     // bits kept.
-    NvtSums nvt = {{0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
-    for (int w0 = 0; w0 < nwords; w0 += CHUNK_WORDS) {
-      const int cw = min(CHUNK_WORDS, nwords - w0);
-      unsigned nz = 0u;
-      for (int wl = 0; wl < cw; ++wl) {
-        const int w = w0 + wl;
-        const unsigned valid = word_valid(jmax - (w << 5));
-        unsigned bf, bs;
-        scan_word(sm, wp, w << 5, p[0], p[1], p[2], qq, thr_f, thr_s, bf, bs);
-        bf &= valid;
-        bs &= valid;
-        if constexpr (KEEP) sbits[w * blockDim.x] = bs;
-        if (bf) {
-          cbits[wl * blockDim.x] = bf;
-          nz |= 1u << wl;
-        }
-      }
-#ifdef NGPD_NO_ACCUM  // timing aid: the scan alone
-      nvt.n_all = fadd(nvt.n_all, (float)__popc(nz));
-#else
-      walk_chunk(cbits, blockDim.x, nz, w0 << 5,
-                 [&](int j) { nvt_column(sm, wp, j, p, qq, cos_rho, nvt); });
-#endif
-    }
+    const NvtSums nvt =
+        nvt_pass<KEEP>(sm, wp, nwords, jmax, sbits, cbits, p, qq, thr_f, thr_s, cos_rho);
 
     // B: NVT2 -> class and edge direction.
     float t6[6], w[3], v[3][3];
-    const bool rescue = nvt.n_kept == 0.0f;
-    const float wsum = fmaxf(rescue ? nvt.n_all : nvt.n_kept, 1.0f);
-    for (int c = 0; c < 6; ++c) t6[c] = fdiv(rescue ? nvt.all[c] : nvt.kept[c], wsum);
+    nvt_mean(nvt, t6);
     eigh3(t6, w, v);
     const float cls = classify(w, class_scale);
     const float y[3] = {v[0][0], v[0][1], v[0][2]};
@@ -310,14 +132,7 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
       if (cid == dcls[k]) ci = k;
     float res[3] = {p[0], p[1], p[2]};
     if (i < nv && (kind != DUMMY || ci >= 0)) {
-      StepSums sums;
-      sums.deg = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) sums.s6[c] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) sums.bnv[c] = sums.sv[c] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 12; ++c) sums.ext[c] = 0.0f;
+      StepSums sums{};  // every sum 0
       float cen[3] = {0.f, 0.f, 0.f}, cc = 0.0f, mx = 0.0f;
       if (ci >= 0) {
 #pragma unroll
@@ -326,15 +141,8 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
       }
       const float d2 = step_d2(scal, args, cid, kind);
 #ifndef NGPD_NO_ACCUM
-      // One loop a step kind: no branch on the kind inside it.
-#define NGPD_STEP_PASS(KIND)                                                  \
-  step_pass<KIND, KEEP>(sm, wp, nwords, jmax, sbits, cbits, p, qq, thr_f,      \
-                        thr_s, nrm, y, d2, ci >= 0, cen, cc, sums, mx)
-      if (kind == FLAT) NGPD_STEP_PASS(FLAT);
-      else if (kind == EDGE) NGPD_STEP_PASS(EDGE);
-      else if (kind == NEW) NGPD_STEP_PASS(NEW);
-      else NGPD_STEP_PASS(CORNER);
-#undef NGPD_STEP_PASS
+      step_pass_of<KEEP>(kind, sm, wp, nwords, jmax, sbits, cbits, p, qq, thr_s, nrm, y,
+                         d2, ci >= 0, cen, cc, sums, mx);
 #endif
 #pragma unroll
       for (int k = 0; k < 3; ++k)
@@ -384,18 +192,6 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   }
 }
 
-// Shared memory of one block: the window rows, a chunk's bit words, and
-// with `keep` the window's step bit words.
-static size_t bd_smem(int tile, int wt, bool keep) {
-  const int wp = round_up32(wt), words = wp >> 5;
-  return sizeof(float) * ((size_t)D_ROWS * wp +
-                          (size_t)pass_threads(tile) * (CHUNK_WORDS + (keep ? words : 0)));
-}
-
-constexpr size_t SM_SMEM = 232448;  // bytes a block can use on sm_90
-
-static bool bd_keeps(int tile, int wt) { return bd_smem(tile, wt, true) <= SM_SMEM; }
-
 template <bool KEEP>
 static void bd_allow(size_t smem) {
   static size_t allowed = 0;
@@ -422,8 +218,8 @@ extern "C" int ngpd_pass_bd_launch(const void* gq, const void* gr,
   using namespace ngpd;
   const StepArgs args = {{kind0, kind1, kind2}, {alpha0, alpha1, alpha2},
                          {slot0, slot1, slot2}};
-  const bool keep = bd_keeps(tile, wt);
-  const size_t smem = bd_smem(tile, wt, keep);
+  const bool keep = walk_keeps(tile, wt);
+  const size_t smem = walk_smem(tile, wt, keep);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
 #define NGPD_BD_LAUNCH(KEEP)                                                   \
   bd_allow<KEEP>(smem);                                                        \
@@ -447,8 +243,8 @@ extern "C" int ngpd_pass_bd_launch(const void* gq, const void* gr,
 extern "C" int ngpd_pass_bd_blocks_per_sm(int tile, int wt) {
   using namespace ngpd;
   int blocks = 0;
-  const bool keep = bd_keeps(tile, wt);
-  const size_t smem = bd_smem(tile, wt, keep);
+  const bool keep = walk_keeps(tile, wt);
+  const size_t smem = walk_smem(tile, wt, keep);
   if (keep) {
     bd_allow<true>(smem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_bd_kernel<true>,

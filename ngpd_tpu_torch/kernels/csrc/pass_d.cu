@@ -20,36 +20,61 @@
 // exp each), and each point one guarded 3x3 solve. It reads the 40-row
 // packs and 4 cls rows and writes 3 rows a point.
 //
-// Design: as pass A, one block per query tile with the window's GR rows
-// 0-17 in shared memory and one thread per query; the accumulators of the
-// widest step (new: 25) stay in registers. Threads of one warp whose
-// points take different steps diverge only in the step's own sums. The
-// walk and the steps (step_walk, step_result) are passes_common.cuh's,
-// shared with the fused pass BD.
-#include "passes_common.cuh"
+// Design: the second half of pass BD, on its walk (pass_walk.cuh). One
+// block per query tile with the window's GR rows 0-17 in shared memory at
+// a pitch of whole 32-column words, one thread a query. The class and the
+// edge direction are inputs, so one accumulation is all there is: per
+// chunk of 16 words, a branch-free scan against rk_step alone into bit
+// words, then the lane's set bits from the lowest up in one flat loop,
+// one loop a step kind (step_pass), so only the selected step's sums are
+// taken, in ascending column order: the numbers are those of one walk
+// over all columns. The accumulators of the widest step (new: 25) stay in
+// registers. The distances must match the plain version bit for bit, so
+// there is no wgmma here (walk_common.cuh).
+//
+// Measured at 1M points, tile 256, 512 columns (kernel_lab.py, NVIDIA H100
+// 80GB HBM3 at 700 W, one call): 0.40 ms a launch where one walk over all
+// columns with an early `continue` took 1.37 ms. The scan takes ~0.22 ms,
+// the accumulation ~0.08 ms, the per-point math and the 3 rows 0.06 ms,
+// staging 0.03 ms. K2's word skip gained nothing (0.406 ms with, 0.403
+// without, and more spills) and is not used. ptxas: three blocks of 256
+// threads an SM, 80 registers, 12 bytes spilled; two blocks (116
+// registers) take 0.46 ms, four (64 registers, 40 bytes spilled) 0.45 ms.
+#include "pass_walk.cuh"
+
+#ifndef NGPD_D_MIN_BLOCKS
+#define NGPD_D_MIN_BLOCKS 3
+#endif
 
 namespace ngpd {
 
-__global__ void pass_d_kernel(const float* __restrict__ gq,
-                              const float* __restrict__ gr,
-                              const float* __restrict__ cls,
-                              const float* __restrict__ scal,
-                              const int* __restrict__ starts,
-                              float* __restrict__ out, int n, int nv, int tile,
-                              int wt, StepArgs args) {
-  extern __shared__ float sm[];  // D_ROWS rows of wt
+__global__ void __launch_bounds__(256, NGPD_D_MIN_BLOCKS)
+pass_d_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
+              const float* __restrict__ cls, const float* __restrict__ scal,
+              const int* __restrict__ starts, float* __restrict__ out, int n,
+              int nv, int tile, int wt, int wp, StepArgs args) {
+  // D_ROWS rows of wp, then one chunk's bit words, one a (word, thread).
+  extern __shared__ __align__(16) float sm[];
+  unsigned* cbits = reinterpret_cast<unsigned*>(sm + D_ROWS * wp) + threadIdx.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-  stage_rows(gr, n, s, wt, D_ROWS, sm);
+#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the per-point math alone
+  stage_rows_pitched<D_ROWS>(gr, n, s, wt, wp, sm);
+#endif
   __syncthreads();
   const float d_thr = scal[0];
 
   const int jmax = min(wt, nv - s);  // columns past nv are masked
+#ifdef NGPD_NO_WALK  // timing aid: staging and the per-point math alone
+  const int nwords = 0;
+#else
+  const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
+#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float p[3] = {gq[i], gq[n + i], gq[2 * n + i]};
-    const float qq = gq[Q_PP * n + i], rk8 = gq[Q_RKS * n + i];
-    const float nrm[3] = {gq[Q_N * n + i], gq[(Q_N + 1) * n + i], gq[(Q_N + 2) * n + i]};
+    const float qq = gq[Q_PP * n + i];
+    const float thr_s = mask_threshold(gq[Q_RKS * n + i]);
     const float c_i = cls[i];
     const int cid = c_i == 0.0f ? 0 : (c_i == 1.0f ? 1 : 2);
     const int kind = args.kind[cid];
@@ -57,15 +82,23 @@ __global__ void pass_d_kernel(const float* __restrict__ gq,
       for (int c = 0; c < 3; ++c) out[c * n + i] = p[c];
       continue;
     }
+    const float nrm[3] = {gq[Q_N * n + i], gq[(Q_N + 1) * n + i], gq[(Q_N + 2) * n + i]};
     const float y[3] = {cls[n + i], cls[2 * n + i], cls[3 * n + i]};
     const float none[3] = {0.f, 0.f, 0.f};
-    StepSums sums;
-    step_walk<false>(sm, wt, jmax, p, qq, rk8, nrm, y, kind,
-                     step_d2(scal, args, cid, kind), none, 0.0f, sums);
+    StepSums sums{};  // every sum 0
+    float mx = 0.0f;
+    const float d2 = step_d2(scal, args, cid, kind);
+    step_pass_of<false>(kind, sm, wp, nwords, jmax, nullptr, cbits, p, qq, thr_s, nrm, y, d2,
+                        false, none, 0.0f, sums, mx);
     float res[3];
     step_result(kind, sums, p, nrm, y, args.alpha[cid], d_thr, res);
     for (int c = 0; c < 3; ++c) out[c * n + i] = res[c];
   }
+}
+
+static void d_allow(size_t smem) {
+  static size_t allowed = 0;
+  allow_smem(pass_d_kernel, smem, allowed);
 }
 
 }  // namespace ngpd
@@ -85,12 +118,25 @@ extern "C" int ngpd_pass_d_launch(const void* gq, const void* gr,
   using namespace ngpd;
   const StepArgs args = {{kind0, kind1, kind2}, {alpha0, alpha1, alpha2},
                          {slot0, slot1, slot2}};
-  const size_t smem = prepare_launch(pass_d_kernel, D_ROWS, wt);
+  const size_t smem = walk_smem(tile, wt, false);
+  d_allow(smem);
   pass_d_kernel<<<n / tile, pass_threads(tile), smem,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(gq), static_cast<const float*>(gr),
       static_cast<const float*>(cls), static_cast<const float*>(scal),
       static_cast<const int*>(starts), static_cast<float*>(out), n, nv, tile,
-      wt, args);
+      wt, round_up32(wt), args);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel that one SM holds at this geometry, as the runtime
+// counts them from its registers and shared memory.
+extern "C" int ngpd_pass_d_blocks_per_sm(int tile, int wt) {
+  using namespace ngpd;
+  int blocks = 0;
+  const size_t smem = walk_smem(tile, wt, false);
+  d_allow(smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_d_kernel,
+                                                pass_threads(tile), smem);
+  return blocks;
 }

@@ -279,7 +279,7 @@ __device__ __forceinline__ void solve3(const float m[3][3], const float b[3],
   for (int r = 0; r < 3; ++r) x[r] = ok ? fmul(dot(adj[r], b), inv_det) : fb[r];
 }
 
-// GR rows 0-17 staged by the passes that take the step sums (D, BD).
+// GR rows 0-17, staged by passes B, D and BD.
 constexpr int D_ROWS = R_P + 3;
 enum Step { FLAT = 0, EDGE, CORNER, FEATURE, NEW, DUMMY };  // ops/steps.py STEP_NAMES
 
@@ -353,74 +353,6 @@ struct StepSums {
   float deg, s6[6], bnv[3], sv[3];
   float ext[12];  // the step's own: flat 2, edge 3 (q_yy), new 12
 };
-
-// One walk over the window columns [0, jmax) for a query of step `kind`:
-// the sums every step shares (deg, s6, b_nv, sv) and the step's own (none
-// for DUMMY, CORNER and FEATURE), with y the edge direction and d2 = max(delta^2, 1e-30) of
-// the flat and new steps. With CENTRE, also returns the max over the same
-// pairs of |p_j - cen|^2 = |p_j|^2 + (-2 p_j).cen + |cen|^2 (cc), 0 where
-// no pair passes; without it returns 0.
-template <bool CENTRE>
-__device__ __forceinline__ float step_walk(const float* sm, int wt, int jmax,
-                                           const float p[3], float qq, float rk8,
-                                           const float nrm[3], const float y[3],
-                                           int kind, float d2, const float cen[3],
-                                           float cc, StepSums& s) {
-  s.deg = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) s.s6[c] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) s.bnv[c] = s.sv[c] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 12; ++c) s.ext[c] = 0.0f;
-  float mx = 0.0f;
-  for (int j = 0; j < jmax; ++j) {
-    const float d = pack_dist(p[0], p[1], p[2], qq, sm, wt, j);
-    if (!(d <= rk8 && d < MASKED)) continue;
-    const float nj[3] = {sm[R_N * wt + j], sm[(R_N + 1) * wt + j], sm[(R_N + 2) * wt + j]};
-    const float pj[3] = {sm[R_P * wt + j], sm[(R_P + 1) * wt + j], sm[(R_P + 2) * wt + j]};
-    const float pn = sm[R_PN * wt + j];
-    const float nnv[3] = {fmul(nj[0], pn), fmul(nj[1], pn), fmul(nj[2], pn)};
-    float sym[6];
-#pragma unroll
-    for (int c = 0; c < 6; ++c) sym[c] = sm[(R_SYM + c) * wt + j];
-    s.deg = fadd(s.deg, 1.0f);
-#pragma unroll
-    for (int c = 0; c < 6; ++c) s.s6[c] = fadd(s.s6[c], sym[c]);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      s.bnv[c] = fadd(s.bnv[c], nnv[c]);
-      s.sv[c] = fadd(s.sv[c], pj[c]);
-    }
-    if (CENTRE) {
-      const float m2pj[3] = {sm[j], sm[wt + j], sm[2 * wt + j]};
-      mx = fmaxf(mx, fadd(fadd(sm[R_PP * wt + j], dot(m2pj, cen)), cc));
-    }
-    const float dotj = fsub(pn, dot(p, nj));  // n_j.(p_j - p_i)
-    if (kind == FLAT) {
-      const float ninj = dot(nrm, nj);
-      const float sim = expf(fdiv(fmul(-16.0f, fsub(2.0f, fmul(2.0f, ninj))), d2));
-      const float close = expf(fdiv(fmul(-4.0f, d), d2));
-      const float wb = fmul(sim, close);
-      s.ext[0] = fadd(s.ext[0], fmul(wb, dotj));
-      s.ext[1] = fadd(s.ext[1], wb);
-    } else if (kind == EDGE) {
-      const float w = fmul(dot(y, nj), dot(y, pj));
-#pragma unroll
-      for (int c = 0; c < 3; ++c) s.ext[c] = fadd(s.ext[c], fmul(w, nj[c]));
-    } else if (kind == NEW) {
-      const float like = expf(fdiv(fmul(fmul(-9.0f, dotj), dotj), d2));
-#pragma unroll
-      for (int c = 0; c < 6; ++c) s.ext[c] = fadd(s.ext[c], fmul(like, sym[c]));
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        s.ext[6 + c] = fadd(s.ext[6 + c], fmul(like, nnv[c]));
-        s.ext[9 + c] = fadd(s.ext[9 + c], fmul(like, pj[c]));
-      }
-    }
-  }
-  return mx;
-}
 
 // The new position of a query of step `kind` (not DUMMY) from its sums:
 // the flat step's clamp keeps a step of exactly d_thr (<=), the solves'

@@ -1,5 +1,6 @@
-// The window walk of K2 and pass BD: a branch-free mask scan over words
-// of 32 columns, then a walk over the set bits only (CUDA C++ for sm_90a).
+// The window walk of K2 and passes B, D and BD: a branch-free mask scan
+// over words of 32 columns, then a walk over the set bits only (CUDA C++
+// for sm_90a).
 //
 // One thread holds one query. In chunks of 16 words (512 columns) it first
 // scans: per word of 32 window columns, the 32 squared distances from
@@ -125,6 +126,35 @@ __device__ __forceinline__ void scan_word(const float* sm, int wp, int j0,
       if (d <= thr_s) bs |= 1u << (4 * g + e);
     }
   }
+}
+
+// The same scan against one threshold: bit b is set where
+// col_dist(j0 + b) <= thr.
+__device__ __forceinline__ unsigned scan_word(const float* sm, int wp, int j0,
+                                              float q0, float q1, float q2,
+                                              float qq, float thr) {
+  const float4* x4 = reinterpret_cast<const float4*>(sm + j0);
+  const float4* y4 = reinterpret_cast<const float4*>(sm + wp + j0);
+  const float4* z4 = reinterpret_cast<const float4*>(sm + 2 * wp + j0);
+  const float4* p4 = reinterpret_cast<const float4*>(sm + 3 * wp + j0);
+  unsigned bits = 0u;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const float4 x = x4[g], y = y4[g], z = z4[g], pp = p4[g];
+    const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+    const float zs[4] = {z.x, z.y, z.z, z.w}, ps[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float d = __fmul_rn(q0, xs[e]);
+      d = __fadd_rn(d, __fmul_rn(q1, ys[e]));
+      d = __fadd_rn(d, __fmul_rn(q2, zs[e]));
+      d = __fadd_rn(d, ps[e]);
+      d = __fadd_rn(d, qq);
+      d = fmaxf(d, 0.0f);
+      if (d <= thr) bits |= 1u << (4 * g + e);
+    }
+  }
+  return bits;
 }
 
 // ---- Skipping words that cannot pass --------------------------------------

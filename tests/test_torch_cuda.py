@@ -195,6 +195,52 @@ def test_pass_bd_matches_plain(cuda_device, strategy, tile, window, num_valid):
         assert float(rel.max()) < 1e-5
 
 
+@pytest.mark.parametrize("tile,window,num_valid", [
+    (256, 128, 15_900), (128, 512, 15_900), (512, 64, 15_900), (256, 99, 15_900),
+    (256, 512, 15_900), (256, 128, 15_621), (128, 1_400, 15_900)])
+@pytest.mark.parametrize("strategy", STRATEGIES, ids="-".join)
+def test_pass_b_and_d_match_plain(cuda_device, strategy, tile, window, num_valid):
+    """Passes B and D, rebuilt on pass BD's walk, against their plain
+    versions at BD's shapes (at wt 2,928 pass B scans its step bits again),
+    each fed the plain output of the passes before: classes >= 99.9%
+    equal; the edge directions of points both call edge, and each class's
+    positions, within 1e-5 on >= 99.9% and within 2e-2 on all; the
+    partials of tiles without a class flip within 1e-5 of each row's
+    largest value."""
+    from ngpd_tpu_torch.bench import make_corner_cloud
+    from ngpd_tpu_torch.core.cuda_fused import passes_prologue
+    from ngpd_tpu_torch.kernels import passes as kp
+
+    noisy, nrm, _ = make_corner_cloud(16_000)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    st = passes_prologue(noisy, nrm, cfg, strategy, num_valid=num_valid,
+                         tile=tile, window=window, device=cuda_device)
+    win, nd = st.win, st.needs_delta
+    gq2, gr2 = kp.pass_a_plain(st.gq, st.gr, win, cfg)
+    ref_cls, ref_parts = kp.pass_b_plain(gq2, gr2, win, cfg, nd)
+    got_cls, got_parts = kp.pass_b(gq2, gr2, win, cfg, nd)
+    same = got_cls[0] == ref_cls[0]
+    assert float(same.float().mean()) >= 0.999
+    classes = [ref_cls[0] == float(c) for c in range(3)]
+    share, worst = _flips(got_cls[1:4], ref_cls[1:4], 1e-5, classes[1] & same)
+    assert share <= 1e-3 and worst <= 2e-2
+    if nd:
+        same_tiles = same.reshape(-1, win.tile).all(dim=1)
+        scale = ref_parts.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+        rel = ((got_parts - ref_parts).abs() / scale)[:, same_tiles]
+        assert float(rel.max()) < 1e-5
+    scal = kp.delta_scal(st.d_thr, ref_parts)
+    if nd:
+        scal = kp.delta_scal(st.d_thr, ref_parts,
+                             kp.pass_c_plain(gq2, gr2, ref_cls, scal, win, nd))
+    ref_d = kp.pass_d_plain(gq2, gr2, ref_cls, scal, win, cfg, strategy, nd)
+    got_d = kp.pass_d(gq2, gr2, ref_cls, scal, win, cfg, strategy, nd)
+    for cols in classes:
+        assert int(cols.sum()) >= 100
+        share, worst = _flips(got_d, ref_d, 1e-5, cols)
+        assert share <= 1e-3 and worst <= 2e-2
+
+
 @pytest.mark.parametrize("delta_mode", ["exact", "lagged"])
 @pytest.mark.parametrize("n_in,num_valid", [(16_384, None), (16_000, 15_900)])
 def test_card_passes_match_cpu(cuda_device, n_in, num_valid, delta_mode):

@@ -249,19 +249,48 @@ def test_an_edited_header_renames_the_libraries(header, tmp_path, monkeypatch):
     assert build.library_path("k1", csrc).name == after["k1"]
 
 
-def test_redesigned_kernels_keep_their_launch_interface():
-    """K2 and pass BD are launched with the argument lists they had before
-    their redesign; the wrappers and every caller rely on them."""
-    vp, i, f = build._VP, build._I, build._F
-    assert build.ARGTYPES["k2"] == (vp, vp, vp, vp, i, i, i, i, f, i, i, i, i, i, vp)
-    assert build.ARGTYPES["pass_bd"] == (
-        vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, f, i, i, i, f, f, f, i, i, i,
-        i, i, i, i, vp)
-    for name in ("k2", "pass_bd"):
-        src = (build.CSRC / f"{name}.cu").read_text()
-        assert f'extern "C" int ngpd_{name}_blocks_per_sm(' in src
-        assert '#include "walk_common.cuh"' in src
-        assert "wgmma" in src  # the header says why the tensor cores are not used
+_VP, _I, _F = build._VP, build._I, build._F
+# The launch arguments each kernel had before its redesign, and the header
+# of the walk it was rebuilt on.
+REDESIGNED = {
+    "k2": ((_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _VP),
+           "walk_common.cuh"),
+    "pass_b": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _VP),
+               "pass_walk.cuh"),
+    "pass_d": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                _I, _I, _I, _VP), "pass_walk.cuh"),
+    "pass_bd": ((_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I,
+                 _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _VP), "pass_walk.cuh"),
+}
+
+
+@pytest.mark.parametrize("name", list(REDESIGNED))
+def test_redesigned_kernels_keep_their_launch_interface(name):
+    """K2 and passes B, D and BD are launched with the argument lists they
+    had before their redesign; the wrappers and every caller rely on them.
+    Each is built on the walk, says why it leaves the tensor cores alone and
+    reports its blocks an SM; pass_d's old walk over all columns is gone."""
+    argtypes, header = REDESIGNED[name]
+    assert build.ARGTYPES[name] == argtypes
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert f'extern "C" int ngpd_{name}_blocks_per_sm(' in src
+    assert f'#include "{header}"' in src
+    assert "wgmma" in src  # the header says why the tensor cores are not used
+    if header != "walk_common.cuh":
+        assert '#include "walk_common.cuh"' in (build.CSRC / header).read_text()
+    assert "step_walk" not in (build.CSRC / "passes_common.cuh").read_text()
+
+
+@pytest.mark.parametrize("body", ["NvtSums", "nvt_column", "step_column", "step_pass",
+                                  "stage_rows_pitched"])
+def test_pass_walk_bodies_are_defined_once(body):
+    """Passes B, D and BD share their accumulations: each is defined in
+    pass_walk.cuh and in no kernel source."""
+    import re
+
+    pattern = re.compile(rf"(struct|void|NvtSums)\s+{body}\b\s*[({{]")
+    where = [p.name for p in sorted(build.CSRC.glob("*.cu*")) if pattern.search(p.read_text())]
+    assert where == ["pass_walk.cuh"]
 
 
 def test_ptxas_report_reads_registers_and_spills(tmp_path):
@@ -283,6 +312,22 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path):
             entry["stack_bytes"]) == (127, 12, 4, 8)
     assert build.template_entry(report, "k2_kernel", True, True, True) == {}
     assert build.ptxas_report(tmp_path / "missing.so") == []
+    from ngpd_tpu_torch import kernel_lab
+
+    assert kernel_lab.ptxas_of("k2", lib)["registers"] == 127
+    # A kernel that is not a template (pass D) and an older pass B that was not one.
+    (tmp_path / "libngpd_pass_d_0.so.log").write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd13pass_d_kernelEPKfS1_S1_S1_PKiPfiiiiiNS_8StepArgsE' for 'sm_90a'\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd13pass_b_kernelEPKfS1_PKiPfS4_iiiiffiiii' for 'sm_90a'\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n")
+    report = build.ptxas_report(tmp_path / "libngpd_pass_d_0.so")
+    assert build.template_entry(report, "pass_d_kernel")["spill_stores"] == 12
+    assert kernel_lab.ptxas_of("pass_d", tmp_path / "libngpd_pass_d_0.so")["registers"] == 80
+    assert kernel_lab.ptxas_of("pass_b", tmp_path / "libngpd_pass_d_0.so")["registers"] == 96
 
 
 def test_kernel_sources_target_sm90a():
@@ -317,3 +362,16 @@ def test_kernel_lab_needs_a_card():
         pytest.skip("a card is present")
     with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
         kernel_lab.main([])
+
+
+def test_kernel_lab_has_a_call_for_every_kernel():
+    from ngpd_tpu_torch import kernel_lab
+
+    assert set(kernel_lab.NAMES) <= set(build.SOURCES)
+    for table in (kernel_lab.CALLS, kernel_lab.ENTRIES, kernel_lab.GEOMETRY):
+        assert set(table) == set(kernel_lab.NAMES)
+    assert {"pass_b", "pass_d", "pass_bd", "k2"} <= set(kernel_lab.NAMES)
+    for name in kernel_lab.NAMES:
+        assert callable(kernel_lab.CALLS[name])
+        kernel, _ = kernel_lab.ENTRIES[name]
+        assert kernel in (build.CSRC / f"{name}.cu").read_text()

@@ -13,7 +13,8 @@ points in the first iteration (``test_right_passes_pass`` asserts it),
 so every step runs on over a hundred. For the window walk of K2 and pass
 BD a stand-in drops one 32-column word of every window, what an
 over-eager word skip or a wrong tail mask would do, and must end
-``check_kernels`` and ``check_pass_bd``.
+``check_kernels`` and ``check_pass_bd``; the same stand-in for pass B or
+pass D must end ``check_passes``.
 """
 
 import functools
@@ -175,18 +176,25 @@ def _k2_dropping_a_word(*args, **kwargs):
         kw._col_valid = original
 
 
-def _pass_bd_dropping_a_word(*args, **kwargs):
-    original = kp._window
+def _dropping_a_word(plain):
+    """The plain pass ``plain`` (a name in kernels/passes.py) on windows
+    whose word DROPPED_WORD reads as masked."""
+    def run(*args, **kwargs):
+        original = kp._window
 
-    def window(*a):
-        wr, valid = original(*a)
-        return wr, _without_word(valid)
+        def window(*a):
+            wr, valid = original(*a)
+            return wr, _without_word(valid)
 
-    kp._window = window
-    try:
-        return kp.pass_bd_plain(*args, **kwargs)
-    finally:
-        kp._window = original
+        kp._window = window
+        try:
+            return getattr(kp, plain)(*args, **kwargs)
+        finally:
+            kp._window = original
+    return run
+
+
+_pass_bd_dropping_a_word = _dropping_a_word("pass_bd_plain")
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,3 +234,14 @@ def test_pass_bd_that_drops_a_word_fails(no_cuda_sync, monkeypatch, strategy):
     monkeypatch.setattr(kp, "pass_bd", _pass_bd_dropping_a_word)
     with pytest.raises(SystemExit):
         cs.check_pass_bd(CFG, st, strategy, gq2, gr2, {})
+
+
+@pytest.mark.parametrize("strategy", [EDGE_CORNER, ALL_DELTA], ids="-".join)
+@pytest.mark.parametrize("wrapper", ["pass_b", "pass_d"])
+def test_pass_that_drops_a_word_fails(no_cuda_sync, monkeypatch, wrapper, strategy):
+    """Passes B and D walk the window as pass BD does: a walk that loses a
+    word ends check_passes."""
+    monkeypatch.setattr(kp, wrapper, _dropping_a_word(f"{wrapper}_plain"))
+    with pytest.raises(SystemExit):
+        cs.check_passes(CFG, _state(strategy), strategy, timed=False,
+                        min_class=cs.MIN_CLASS_POINTS)
