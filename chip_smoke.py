@@ -24,12 +24,16 @@ exit code and no result line:
              tests) on a 16,384-point cloud
   cli        ``python -m ngpd_tpu_torch.apps.cli denoise`` on a 100k-point
              OBJ (the >= 100k route), then ``eval``: the CD must fall
+  k0_wide    K0 past 64 columns a lane (its shared-memory kernel) at the
+             CLI's --window 1024 and 2048 on 100k points (wt_c 2,304 and
+             4,352) against k0_plain; one launch's time and bound each
   pass_kernels  the pass engine's kernels A-D and BD against their plain
              versions at 1M points (feature_k 32, tile 256, window 128),
              each fed the plain output of the pass before (BD reads pass
              A's packs and a lag state with centres from one plain BD
-             pass); kernel, plain and bound times as for ``kernels``, and
-             the registers, spills and blocks an SM of passes B, D and BD
+             pass; pass A also runs on normals turned by ~3 degrees);
+             kernel, plain and bound times as for ``kernels``, and the
+             registers, spills and blocks an SM of passes A-D and BD
   pass_variants the same checks at 65,536 points of tiled cube corners,
              where every class has hundreds of points, for all four
              strategies (pass C off, three delta classes); fails when a
@@ -43,6 +47,10 @@ exit code and no result line:
              BD 20 launches each and no other pass kernel; CD gate
   passes_lagged_reference  its card path against its CPU path on 16,384
              points
+  fused      ``fused_denoise`` (plain torch, the reference's engine off
+             its accelerator) on 65,536 points, groups of 16 tiles: the
+             card against the CPU path after 2 iterations (mask-flip
+             bound), then 20 iterations on the card, wall time and CD gate
   dense      the dense (N, k) pipeline (plain torch, no kernel):
              ``denoise`` on 65,536 points, 2 iterations, the CD must fall;
              the CLI on an OBJ of that cloud without normals (estimated
@@ -73,6 +81,7 @@ from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import (
     denoise_hybrid, denoise_passes, passes_prologue, prologue,
 )
+from ngpd_tpu_torch.core.fused import fused_denoise
 from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
 from ngpd_tpu_torch.io.obj import save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, time_launches
@@ -85,6 +94,10 @@ MAIN_N, MAIN_K, MAIN_ITERS = 1_000_000, 32, 20
 VARIANT_N = 65_536
 CLI_N = 100_000
 DENSE_N = 65_536  # under the CLI's 100k route to the hybrid engine
+# fused_denoise maps its tiles in groups of 16, the reference bench's
+# fused setting (bench.py:246-250): a fourth of the default's launches.
+FUSED_N, FUSED_ITERS, FUSED_GROUP = 65_536, 20, 16
+K0_WIDE_WINDOWS = (1024, 2048)  # the CLI's --window: wt_c 2,304 and 4,352
 FRESH_GATE = 0.35
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"))
@@ -396,6 +409,18 @@ def check_pass_bd(cfg, st, strategy, gq2, gr2, rec: dict) -> torch.Tensor:
     return lag
 
 
+def turned_packs(st, scale: float = 0.05):
+    """The prologue's GQ and GR packs with every normal turned by a seeded
+    random offset of about three degrees. The corner cloud's faces carry
+    exact normals, so every neighbour of a face point votes alike and a
+    pass A that lost columns would still give the right normals there."""
+    gen = torch.Generator().manual_seed(0)
+    noise = torch.randn((3, st.win.n), generator=gen).to(st.gq.device)
+    nrm = torch.nn.functional.normalize(st.gq[5:8] + scale * noise, dim=0)
+    gq, gr = kp.build_packs(st.gq[0:3].contiguous(), nrm)
+    return kp.set_rk(gq, st.gq[8], st.gq[9]), gr
+
+
 def check_passes(cfg, st, strategy, timed: bool,
                  min_class: int = 0) -> tuple[list[dict], dict]:
     """Passes A-D and BD against their plain versions on one prologue
@@ -408,6 +433,10 @@ def check_passes(cfg, st, strategy, timed: bool,
     ref_a, plain_a = time_once(lambda: kp.pass_a_plain(st.gq, st.gr, win, cfg))
     fa = [flip_check(f"PASS_A {strategy} {r}", g, w)
           for r, g, w in (("gq2", got_a[0], ref_a[0]), ("gr2", got_a[1], ref_a[1]))]
+    gq_t, gr_t = turned_packs(st)
+    fa += [flip_check(f"PASS_A {strategy} turned normals {r}", g, w) for r, g, w in zip(
+        ("gq2", "gr2"), kp.pass_a(gq_t, gr_t, win, cfg), kp.pass_a_plain(gq_t, gr_t, win, cfg))]
+    del gq_t, gr_t
     rec["PASS_A"] = {"max_abs_err": max(f["max_abs_err"] for f in fa),
                      "flips": sum(f["flips"]["all"] for f in fa), "plain_ms": plain_a}
     gq2, gr2 = ref_a
@@ -511,11 +540,64 @@ def check_passes(cfg, st, strategy, timed: bool,
                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                     "library_note": "no single PyTorch call computes masked, "
                     "angle-filtered window sums followed by a per-point eigh or 3x3 solve"})
-    for r in out:  # the kernels built on the walk of pass_walk.cuh
+    for r in out:  # every pass kernel is built on the walk of pass_walk.cuh
         name = r["name"].lower()
-        if name in ("pass_b", "pass_d", "pass_bd"):
-            r.update(build_facts(name, *ENTRIES[name], (win.tile, wt)))
+        r.update(build_facts(name, *ENTRIES[name], (win.tile, wt)))
     return out, rec
+
+
+def check_k0_wide(cfg) -> list[dict]:
+    """K0 past 2,048 window columns (k0_wide_kernel) against k0_plain on
+    the CLI's >= 100k route with --window 1024 and 2048: thresholds and
+    counts bit for bit, edge sums to REL_TOL; one launch's time (median of
+    25) and its bound."""
+    noisy, nrm, _ = bench.make_cloud(CLI_N)
+    out = []
+    for window in K0_WIDE_WINDOWS:
+        st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=window, device="cuda")
+        win, pack = st.win, st.pack
+        got = kw.k0(pack, win, cfg.feature_k, cfg.step_k)
+        ref, plain_ms = time_once(lambda: kw.k0_plain(pack, win, cfg.feature_k, cfg.step_k))
+        exact = torch.equal(got[[0, 1, 3, 4, 5, 6, 7]], ref[[0, 1, 3, 4, 5, 6, 7]])
+        err = row_err(got, ref)
+        if not exact or err[1] > REL_TOL:
+            fail(f"K0 at wt_c {win.wt_c} disagrees with k0_plain: exact={exact} err={err}")
+        b_ms, by = bound(4 * win.n * (3 + 8),
+                         win.n * win.wt_c * K0_PAIR_OPS + win.n * K0_QUERY_OPS)
+        out.append({"window": window, "wt_c": win.wt_c, "n": win.n, "max_abs_err": err[0],
+                    "ms": time_launches(lambda: kw.k0(pack, win, cfg.feature_k, cfg.step_k)),
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by})
+        del st, pack, got, ref
+    return out
+
+
+def check_fused(cfg) -> dict:
+    """fused_denoise on the card: against its CPU path after 2 iterations
+    (the mask-flip bound), then FUSED_ITERS iterations timed on the card,
+    gated at the bench's CD ratio."""
+    noisy, nrm, clean = bench.make_cloud(FUSED_N)
+    g_p, _, g_c = fused_denoise(noisy, nrm, cfg, iterations=2, group=FUSED_GROUP,
+                                device="cuda")
+    c_p, _, c_c = fused_denoise(noisy, nrm, cfg, iterations=2, group=FUSED_GROUP,
+                                device="cpu")
+    diff = (g_p.cpu() - c_p).abs().amax(dim=1)
+    same = g_c.cpu() == c_c
+    rec = {"n": FUSED_N, "classes_equal": float(same.float().mean()),
+           "within_2e_3": float((diff[same] <= 2e-3).float().mean()),
+           "max_diff": float(diff.max())}
+    if rec["classes_equal"] < 0.99 or rec["within_2e_3"] < 0.999 or rec["max_diff"] > 2e-2:
+        fail(f"fused: card and CPU paths disagree beyond the mask-flip bound: {rec}")
+    (out, _, _), ms = time_once(
+        lambda: fused_denoise(noisy, nrm, cfg, iterations=FUSED_ITERS, group=FUSED_GROUP,
+                              device="cuda"))
+    ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
+    rec.update(iterations=FUSED_ITERS, group=FUSED_GROUP, seconds=ms / 1e3,
+               point_iterations_per_s=FUSED_N * FUSED_ITERS / (ms / 1e3),
+               finite=bool(torch.isfinite(out).all()), quality_cd_ratio=ratio,
+               quality_cd_noisy=cd_noisy, quality_cd_denoised=cd_out)
+    if not rec["finite"] or not ratio <= bench.GATE_RATIO:
+        fail(f"fused CD ratio {ratio} > {bench.GATE_RATIO}")
+    return rec
 
 
 def run_passes(n: int, iters: int, k: int, delta_mode: str = "exact",
@@ -716,6 +798,9 @@ def main() -> int:
     if not e_out["cd"] < e_in["cd"]:
         fail("CLI denoise did not lower the CD")
 
+    # K0 past 64 columns a lane
+    say("k0_wide", records=check_k0_wide(cli_cfg))
+
     # the four-pass engine's kernels against their plain versions
     pst = passes_prologue(noisy, nrm, cfg, STRATEGIES[0], device="cuda")
     pass_rec, checks = check_passes(cfg, pst, STRATEGIES[0], timed=True)
@@ -754,6 +839,9 @@ def main() -> int:
         fail(f"lagged CD ratio {lagged_rec['quality_cd_ratio']} > {bench.GATE_RATIO}")
     card_against_cpu("passes_lagged_reference", denoise_passes, sn, snrm, small,
                      delta_mode="lagged")
+
+    # the windowed engine the reference runs off its accelerator
+    say("fused", **check_fused(cfg))
 
     # the dense (N, k) pipeline and the rest of the CLI's routes
     say("dense", **check_dense())

@@ -7,9 +7,12 @@ subcommands of ``ngpd_tpu/apps/cli.py``):
 
 ``denoise`` takes the reference's routes: normals are estimated (PVT over
 12 neighbours, oriented) when the cloud has none; ``--until-min`` iterates
-against ``--gt`` until the error stops falling; otherwise the hybrid
-engine runs on ``--fused`` or for clouds of 100k points or more, and the
-dense ``(N, k)`` pipeline below that. ``--device`` defaults to ``cuda``.
+against ``--gt`` until the error stops falling; otherwise ``--fused`` or a
+cloud of 100k points or more goes to the hybrid engine on the card and to
+the windowed ``fused_denoise`` on the CPU, as the reference picks its
+Pallas engine on its accelerator and ``fused_denoise`` elsewhere, and a
+smaller cloud to the dense ``(N, k)`` pipeline. ``--device`` defaults to
+``cuda``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ def _estimated_normals(points, k=12):
 def cmd_denoise(args):
     from ..config import DenoiseConfig
     from ..core.cuda_fused import denoise_hybrid
+    from ..core.fused import fused_denoise
     from ..core.pipeline import denoise, denoise_until_minimum_error
     from ..device import resolve_device
     from ..io.obj import save_obj
@@ -69,11 +73,16 @@ def cmd_denoise(args):
             max_iterations=args.iterations or 64, device=dev,
         )
         print(f"stopped after {int(iters)} iterations, error {float(err):.4e}")
-    elif args.fused or len(cloud) >= HYBRID_MIN_POINTS:
+    elif (args.fused or len(cloud) >= HYBRID_MIN_POINTS) and dev.type == "cuda":
         out, nrm_out, _ = denoise_hybrid(
             pts, nrm, cfg, strategy=strategy,
             iterations=args.iterations or 2, window=args.window,
             lagged_nvt1=args.lagged_nvt1, device=dev,
+        )
+    elif args.fused or len(cloud) >= HYBRID_MIN_POINTS:
+        out, nrm_out, _ = fused_denoise(
+            pts, nrm, cfg, strategy=strategy,
+            iterations=args.iterations or 2, window=args.window, device=dev,
         )
     else:
         out, nrm_out, _ = denoise(

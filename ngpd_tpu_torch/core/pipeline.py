@@ -223,27 +223,34 @@ def denoise_until_minimum_error_windowed(
     device=None,
 ):
     """Until-minimum-error loop at large-cloud scale: each step is one
-    iteration of the hybrid engine (K0, K1 and K2 once each) and the error
-    check loops on the host. ``use_pallas`` keeps the reference's name and
-    must be true or None: its false branch is the windowed XLA engine
-    (``core/fused.py``), which has no port.
+    iteration of a windowed engine and the error check loops on the host.
+    ``use_pallas`` keeps the reference's name: true steps with the hybrid
+    engine (K0, K1 and K2 once each), false with ``fused_denoise`` on
+    thresholds computed once a step (``threshold_refresh=0``), and None
+    picks the hybrid on the card and ``fused_denoise`` on the CPU, as the
+    reference picks its Pallas engine on its accelerator.
 
     Returns (best_points, best_normals, best_error_mean, iterations_done).
     """
-    if use_pallas is not None and not use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False selects the reference's windowed XLA engine "
-            "(core/fused.py), which is not ported; the port always steps "
-            "with the hybrid engine's kernels")
     from .cuda_fused import denoise_hybrid
+    from .fused import fused_denoise
 
     pos, nrm, gt = _on_device(device, points, normals, gt_points)
+    if use_pallas is None:
+        use_pallas = pos.device.type == "cuda"
+
+    def step(p, n):
+        if use_pallas:
+            return denoise_hybrid(p, n, cfg, strategy=strategy, iterations=1, tile=tile,
+                                  window=window, device=p.device)
+        return fused_denoise(p, n, cfg, strategy=strategy, iterations=1, tile=tile,
+                             window=window, threshold_refresh=0, device=p.device)
+
     prev_pos, prev_nrm = pos, nrm
     prev_err = _mean_error(error_fn, gt, pos)
     it = 0
     while it < max_iterations:
-        new_pos, new_nrm, _ = denoise_hybrid(pos, nrm, cfg, strategy=strategy, iterations=1,
-                                             tile=tile, window=window, device=pos.device)
+        new_pos, new_nrm, _ = step(pos, nrm)
         err = _mean_error(error_fn, gt, new_pos)
         if err >= prev_err:
             break

@@ -1,19 +1,20 @@
-"""Builds of K2 and passes B, D and BD side by side on the card: outputs
-and times.
+"""Builds of the kernels on the shared window walk (K2 and passes A-D
+and BD) side by side on the card: outputs and times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
         [--rounds 3] [--n 1000000]
 
-Builds ``k2.cu``, ``pass_b.cu``, ``pass_d.cu`` and ``pass_bd.cu`` of this
-checkout as they are (the ``tree`` build), once more for each
+Builds ``k2.cu``, ``pass_a.cu`` ... ``pass_d.cu`` and ``pass_bd.cu`` of
+this checkout as they are (the ``tree`` build), once more for each
 ``--variant`` with extra nvcc flags (the sources' switches:
 ``-DNGPD_NO_SKIP`` scans every word of K2, ``-DNGPD_NO_KEEP`` makes
 passes B and BD scan their step bits again instead of keeping them,
 ``-DNGPD_NO_ACCUM`` keeps the scans and drops the accumulations,
 ``-DNGPD_NO_WALK`` keeps staging, the per-point math and the output rows
 only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_K2_MIN_BLOCKS=n``,
-``-DNGPD_B_MIN_BLOCKS=n``, ``-DNGPD_D_MIN_BLOCKS=n`` and
+``-DNGPD_A_MIN_BLOCKS=n``, ``-DNGPD_B_MIN_BLOCKS=n``,
+``-DNGPD_C_MIN_BLOCKS=n``, ``-DNGPD_D_MIN_BLOCKS=n`` and
 ``-DNGPD_BD_MIN_BLOCKS=n`` set the launch bounds), and for each ``--against`` from another directory of sources
 with the same launch interface (an older checkout's ``csrc``, unpacked
 with ``git archive``), into ``build/lab/``. ``--kernel`` limits the run to
@@ -52,7 +53,7 @@ from .kernels import build
 from .kernels import passes as kp
 from .kernels import window as kw
 
-NAMES = ("k2", "pass_b", "pass_d", "pass_bd")
+NAMES = ("k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
 LAB_DIR = build.BUILD_DIR.parent / "lab"
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
@@ -121,9 +122,26 @@ def _pass_a_state(n: int, cloud, strategy, cfg):
     return st, *kp.pass_a_plain(st.gq, st.gr, st.win, cfg)
 
 
+def a_call(n: int, cloud, strategy, cfg):
+    noisy, nrm, _ = cloud(n)
+    st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
+    return lambda: kp.pass_a(st.gq, st.gr, st.win, cfg)
+
+
 def b_call(n: int, cloud, strategy, cfg):
     st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
     return lambda: kp.pass_b(gq2, gr2, st.win, cfg, st.needs_delta)
+
+
+def c_call(n: int, cloud, strategy, cfg):
+    """Pass C's call, or None where the strategy has no delta class."""
+    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
+    win, nd = st.win, st.needs_delta
+    if not nd:
+        return None
+    cls, parts = kp.pass_b_plain(gq2, gr2, win, cfg, nd)
+    scal = kp.delta_scal(st.d_thr, parts)
+    return lambda: (kp.pass_c(gq2, gr2, cls, scal, win, nd),)
 
 
 def d_call(n: int, cloud, strategy, cfg):
@@ -151,11 +169,13 @@ def bd_call(n: int, cloud, strategy, cfg):
 # Each kernel's call at the main shapes, its entry function in the ptxas
 # report (the template flags of the variant the main shapes launch) and
 # the arguments of its ``ngpd_<name>_blocks_per_sm`` there.
-CALLS = {"k2": k2_call, "pass_b": b_call, "pass_d": d_call, "pass_bd": bd_call}
-ENTRIES = {"k2": ("k2_kernel", (True, True, False)), "pass_b": ("pass_b_kernel", (True,)),
+CALLS = {"k2": k2_call, "pass_a": a_call, "pass_b": b_call, "pass_c": c_call,
+         "pass_d": d_call, "pass_bd": bd_call}
+ENTRIES = {"k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
+           "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
            "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,))}
-GEOMETRY = {"k2": (256, 512, 1, 1, 0), "pass_b": (256, 512), "pass_d": (256, 512),
-            "pass_bd": (256, 512)}
+GEOMETRY = {"k2": (256, 512, 1, 1, 0), "pass_a": (256, 512), "pass_b": (256, 512),
+            "pass_c": (256, 512), "pass_d": (256, 512), "pass_bd": (256, 512)}
 
 
 def compare(got, want) -> dict:
@@ -230,6 +250,8 @@ def main(argv=None) -> None:
         for strategy in STRATEGIES:
             for kernel in names:
                 call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg)
+                if call is None:  # pass C of a strategy without a delta class
+                    continue
                 with using(builds["tree"]):
                     want = call()
                 for b, libs in builds.items():

@@ -1,17 +1,19 @@
-// The window walk of passes B, D and BD (CUDA C++ for sm_90a): their
+// The window walk of the pass kernels (CUDA C++ for sm_90a): their
 // accumulations over walk_common.cuh's bit words, the staging of the
 // window rows at a pitch of whole words, and the shared-memory budget.
 //
-// A block stages GR rows 0-17 of its window at pitch wp = wt rounded up to
-// 32 (zeros behind), then one thread a query:
+// A block stages GR rows 0-17 of its window (pass A 0-14, pass C 0-3) at
+// pitch wp = wt rounded up to 32 (zeros behind), then one thread a query:
 //   nvt_pass   scans the window chunk by chunk into a feature and a step
 //              bit word per 32 columns and walks the feature bits into the
-//              NVT2 sums (passes B and BD); with KEEP the step words of the
-//              whole window are kept in shared memory, one a (word, thread);
+//              NVT sums (NVT1 of pass A, NVT2 of passes B and BD); with
+//              KEEP the step words of the whole window are kept in shared
+//              memory, one a (word, thread); without it only the feature
+//              threshold is scanned;
 //   walk_step_bits  visits the step bits, kept or scanned again chunk by
 //              chunk against rk_step alone, with any body: pass B's
-//              partials, or step_column's sums of one step kind (step_pass,
-//              passes D and BD).
+//              partials, pass C's max, or step_column's sums of one step
+//              kind (step_pass, passes D and BD).
 // Every sum is taken over a query's passing columns in ascending column
 // order, as a walk over all columns with an early `continue` takes it, so
 // the results equal that walk's bit for bit. The masks must match the
@@ -24,7 +26,7 @@
 
 namespace ngpd {
 
-// The sums of the filtered NVT (nvt_t6 of passes_common.cuh).
+// The sums of the filtered NVT.
 struct NvtSums {
   float kept[6], all[6], n_kept, n_all;
 };
@@ -220,14 +222,14 @@ __device__ __forceinline__ void step_pass_of(int kind, const float* sm, int wp,
 }
 
 // Stage GR rows [0, ROWS) of the window columns [s, s + wt) at pitch wp,
-// zeros in columns [wt, wp). A thread has six rows' loads in flight at a
-// time, 16 bytes each where the rows are 16-byte aligned in device memory.
+// zeros in columns [wt, wp). A thread has up to six rows' loads in flight
+// at a time (the last batch takes the rows left), 16 bytes each where the
+// rows are 16-byte aligned in device memory.
 template <int ROWS>
 __device__ __forceinline__ void stage_rows_pitched(const float* __restrict__ gr,
                                                    int n, int s, int wt, int wp,
                                                    float* sm) {
   constexpr int BATCH = 6;
-  static_assert(ROWS % BATCH == 0, "rows are staged six at a time");
   const bool aligned =
       ((n | s | wt) & 3) == 0 && (reinterpret_cast<size_t>(gr) & 15) == 0;
   if (aligned) {
@@ -237,10 +239,11 @@ __device__ __forceinline__ void stage_rows_pitched(const float* __restrict__ gr,
         float4 v[BATCH];
 #pragma unroll
         for (int r = 0; r < BATCH; ++r)
-          v[r] = *reinterpret_cast<const float4*>(gr + (size_t)(r0 + r) * n + s + 4 * k);
+          if (r0 + r < ROWS)
+            v[r] = *reinterpret_cast<const float4*>(gr + (size_t)(r0 + r) * n + s + 4 * k);
 #pragma unroll
         for (int r = 0; r < BATCH; ++r)
-          *reinterpret_cast<float4*>(sm + (r0 + r) * wp + 4 * k) = v[r];
+          if (r0 + r < ROWS) *reinterpret_cast<float4*>(sm + (r0 + r) * wp + 4 * k) = v[r];
       }
     }
   } else {
@@ -249,9 +252,11 @@ __device__ __forceinline__ void stage_rows_pitched(const float* __restrict__ gr,
       for (int r0 = 0; r0 < ROWS; r0 += BATCH) {
         float v[BATCH];
 #pragma unroll
-        for (int r = 0; r < BATCH; ++r) v[r] = gr[(size_t)(r0 + r) * n + s + j];
+        for (int r = 0; r < BATCH; ++r)
+          if (r0 + r < ROWS) v[r] = gr[(size_t)(r0 + r) * n + s + j];
 #pragma unroll
-        for (int r = 0; r < BATCH; ++r) sm[(r0 + r) * wp + j] = v[r];
+        for (int r = 0; r < BATCH; ++r)
+          if (r0 + r < ROWS) sm[(r0 + r) * wp + j] = v[r];
       }
     }
   }
@@ -262,11 +267,11 @@ __device__ __forceinline__ void stage_rows_pitched(const float* __restrict__ gr,
 
 // ---- Launch ----------------------------------------------------------------
 
-// Shared memory of one block: the D_ROWS window rows, a chunk's bit words
+// Shared memory of one block: `rows` window rows, a chunk's bit words
 // and, with `keep`, the window's step bit words, one a (word, thread).
-__host__ inline size_t walk_smem(int tile, int wt, bool keep) {
+__host__ inline size_t walk_smem(int tile, int wt, bool keep, int rows = D_ROWS) {
   const int wp = round_up32(wt), words = wp >> 5;
-  return sizeof(float) * ((size_t)D_ROWS * wp +
+  return sizeof(float) * ((size_t)rows * wp +
                           (size_t)pass_threads(tile) * (CHUNK_WORDS + (keep ? words : 0)));
 }
 

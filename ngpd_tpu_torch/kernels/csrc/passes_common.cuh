@@ -27,36 +27,12 @@ namespace ngpd {
 enum GqRow { Q_ONE = 3, Q_PP = 4, Q_N = 5, Q_RKF = 8, Q_RKS = 9, GQ_ROWS = 16 };
 enum GrRow { R_PP = 3, R_N = 5, R_PN = 8, R_SYM = 9, R_P = 15, GR_ROWS = 24 };
 
-constexpr float MASKED = 1e30f;
 constexpr float EPS = 1e-12f;
-
-// Stage GR rows [0, rows) of the window columns [s, s + wt) into shared
-// memory, row r at sm[r * wt].
-__device__ __forceinline__ void stage_rows(const float* __restrict__ gr, int n,
-                                           int s, int wt, int rows, float* sm) {
-  for (int k = threadIdx.x; k < rows * wt; k += blockDim.x) {
-    const int r = k / wt, j = k - r * wt;
-    sm[k] = gr[(size_t)r * n + s + j];
-  }
-}
 
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
-
-// max(GQ[0:5] . GR[0:5], 0) for window column j: q.(-2p) + |p|^2 + |q|^2,
-// the reference's 5-row contraction in row order.
-__device__ __forceinline__ float pack_dist(float q0, float q1, float q2,
-                                          float qq, const float* sm, int wt,
-                                          int j) {
-  float d = fmul(q0, sm[j]);
-  d = fadd(d, fmul(q1, sm[wt + j]));
-  d = fadd(d, fmul(q2, sm[2 * wt + j]));
-  d = fadd(d, sm[R_PP * wt + j]);
-  d = fadd(d, qq);
-  return fmaxf(d, 0.0f);
-}
 
 __device__ __forceinline__ float dot(const float a[3], const float b[3]) {
   return fadd(fadd(fmul(a[0], b[0]), fmul(a[1], b[1])), fmul(a[2], b[2]));
@@ -225,37 +201,6 @@ __device__ __forceinline__ float classify(const float w[3], float scale) {
   return cls;
 }
 
-// Filtered NVT over the window columns with d <= rkf: keep those whose
-// normal makes an angle with the offset (|n_j.(p_j - p_i)| / |p_j - p_i|
-// < cos_rho), all of them where none is kept (the zero-weight rescue);
-// t6 = the kept sym6 rows over the kept count (pallas_fused.py:157-172).
-// Reads staged rows 0-3 (distance), 5-7 (n), 8 (p.n) and 9-14 (sym6).
-__device__ __forceinline__ void nvt_t6(const float* sm, int wt, int jmax,
-                                       const float q[3], float qq, float rkf,
-                                       float cos_rho, float t6[6]) {
-  float kept[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float all[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float n_kept = 0.0f, n_all = 0.0f;
-  for (int j = 0; j < jmax; ++j) {
-    const float d = pack_dist(q[0], q[1], q[2], qq, sm, wt, j);
-    if (!(d <= rkf && d < MASKED)) continue;
-    const float nj[3] = {sm[R_N * wt + j], sm[(R_N + 1) * wt + j], sm[(R_N + 2) * wt + j]};
-    const float dotj = fsub(sm[R_PN * wt + j], dot(q, nj));
-    const bool keep = keeps_angle(dotj, d, cos_rho);
-#pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      const float s = sm[(R_SYM + c) * wt + j];
-      all[c] = fadd(all[c], s);
-      if (keep) kept[c] = fadd(kept[c], s);
-    }
-    n_all = fadd(n_all, 1.0f);
-    if (keep) n_kept = fadd(n_kept, 1.0f);
-  }
-  const bool rescue = n_kept == 0.0f;
-  const float wsum = fmaxf(rescue ? n_all : n_kept, 1.0f);
-  for (int c = 0; c < 6; ++c) t6[c] = fdiv(rescue ? all[c] : kept[c], wsum);
-}
-
 // ops/solve3.py::solve3x3_components (rcond 1e-7): x = A^-1 b, or the
 // fallback where A is (near-)singular.
 __device__ __forceinline__ void solve3(const float m[3][3], const float b[3],
@@ -410,17 +355,8 @@ __device__ __forceinline__ float block_reduce(float v, bool take_max, float* red
   return tot;
 }
 
-// Launch shape shared by the passes: one block per tile, up to 256
-// threads (tile is a multiple of 32), `rows` staged window rows.
-template <typename Kernel>
-__host__ inline size_t prepare_launch(Kernel kernel, int rows, int wt) {
-  const size_t smem = sizeof(float) * (size_t)rows * (size_t)wt;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  return smem;
-}
-
+// Threads of a pass block: one a query, up to 256 (tile is a multiple of
+// 32); at tile 512 a thread takes two queries.
 __host__ inline int pass_threads(int tile) { return tile < 256 ? tile : 256; }
 
 }  // namespace ngpd

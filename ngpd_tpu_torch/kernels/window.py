@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 LAUNCHES = {"k0": 0, "k1": 0, "k2": 0}
-K0_MAX_WINDOW = 2048  # 64 distances a lane in K0's registers
+CUDA_ERROR_INVALID_VALUE = 1
 _SEARCH_ITERS = 24
 _MASKED = 1e30
 
@@ -323,15 +323,23 @@ def _check(pack: torch.Tensor, rows: int, win: Windows) -> bool:
     return True
 
 
+class LaunchError(RuntimeError):
+    """A launch that the kernel's launch function or the runtime refused."""
+
+    def __init__(self, name: str, rc: int):
+        super().__init__(f"{name} launch failed with cudaError {rc}")
+        self.rc = rc
+
+
 def launch(name: str, counts: dict, *args) -> None:
     """Launch kernel ``name`` on the current stream and count it in
-    ``counts[name]``; raises if the launch is refused."""
+    ``counts[name]``; raises LaunchError if the launch is refused."""
     from .build import load_library
 
     fn = getattr(load_library(name), f"ngpd_{name}_launch")
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {rc}")
+        raise LaunchError(name, rc)
     counts[name] += 1
 
 
@@ -340,12 +348,16 @@ def k0(pack: torch.Tensor, win: Windows, feature_k: int, step_k: int) -> torch.T
     un-slacked), sum6, cnt6, then zeros. Reads pack rows 0-2."""
     if not _check(pack, 3, win):
         return k0_plain(pack, win, feature_k, step_k)
-    if win.wt_c > K0_MAX_WINDOW:
-        raise ValueError(f"K0 takes windows up to {K0_MAX_WINDOW} columns, "
-                         f"got {win.wt_c}")
     out = torch.empty((8, win.n), dtype=torch.float32, device=pack.device)
-    launch("k0", LAUNCHES, pack.data_ptr(), win.starts.data_ptr(), out.data_ptr(),
-            win.n, win.nv, win.tile, win.wt_c, int(feature_k), int(step_k))
+    try:
+        launch("k0", LAUNCHES, pack.data_ptr(), win.starts.data_ptr(), out.data_ptr(),
+               win.n, win.nv, win.tile, win.wt_c, int(feature_k), int(step_k))
+    except LaunchError as err:
+        if err.rc != CUDA_ERROR_INVALID_VALUE:
+            raise
+        raise ValueError(f"K0 refused a window of {win.wt_c} columns: the window and one "
+                         "warp's row of distances exceed the shared memory a block can "
+                         "use (K0_SMEM_LIMIT in csrc/k0.cu)") from err
     return out
 
 

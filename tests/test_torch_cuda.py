@@ -78,8 +78,10 @@ def test_card_denoise_matches_cpu(cuda_device, lagged):
 
 def _flips(got, ref, tol, cols=None):
     """Share of columns (of ``cols``, or all) whose largest difference
-    exceeds tol, and the largest difference."""
-    diff = (got - ref).abs().amax(dim=0)
+    exceeds tol, and the largest difference. Equal values differ by 0,
+    infinite ones too (a padding row's carried threshold is +inf where its
+    window holds fewer than k valid columns)."""
+    diff = torch.where(got == ref, 0.0, (got - ref).abs()).amax(dim=0)
     diff = diff if cols is None else diff[cols]
     if not diff.numel():
         return 0.0, 0.0
@@ -148,6 +150,22 @@ def test_pass_kernels_match_plain(cuda_device, strategy, tile, window):
 # tile's window), and wt 2,928 (tile 128, window 1,400), too wide for the
 # step bits to stay in shared memory beside it, so the second accumulation
 # scans again.
+def test_k0_refuses_a_window_past_shared_memory(cuda_device):
+    """At wt_c 12,256 (window 6,000) not even one warp's row of distances
+    fits beside the window: the launch function refuses it, the wrapper
+    (K0 runs in the prologue) raises naming the limit, no launch is
+    counted and the device stays usable."""
+    noisy, nrm, _ = make_cloud(16_384)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    before = dict(kw.LAUNCHES)
+    with pytest.raises(ValueError, match="window of 12256 columns.*K0_SMEM_LIMIT"):
+        prologue(noisy, nrm, cfg, STRATEGIES[0], window=6_000, device=cuda_device)
+    assert kw.LAUNCHES == before
+    st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=1_024, device=cuda_device)
+    assert kw.LAUNCHES["k0"] == before["k0"] + 1
+    assert bool(torch.isfinite(st.pack).all())
+
+
 @pytest.mark.parametrize("tile,window,num_valid", [
     (256, 128, 15_900), (128, 512, 15_900), (512, 64, 15_900), (256, 99, 15_900),
     (256, 512, 15_900), (256, 128, 15_621), (128, 1_400, 15_900)])
@@ -195,6 +213,22 @@ def test_pass_bd_matches_plain(cuda_device, strategy, tile, window, num_valid):
         assert float(rel.max()) < 1e-5
 
 
+def test_k0_refuses_a_window_past_shared_memory(cuda_device):
+    """At wt_c 12,256 (window 6,000) not even one warp's row of distances
+    fits beside the window: the launch function refuses it, the wrapper
+    (K0 runs in the prologue) raises naming the limit, no launch is
+    counted and the device stays usable."""
+    noisy, nrm, _ = make_cloud(16_384)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    before = dict(kw.LAUNCHES)
+    with pytest.raises(ValueError, match="window of 12256 columns.*K0_SMEM_LIMIT"):
+        prologue(noisy, nrm, cfg, STRATEGIES[0], window=6_000, device=cuda_device)
+    assert kw.LAUNCHES == before
+    st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=1_024, device=cuda_device)
+    assert kw.LAUNCHES["k0"] == before["k0"] + 1
+    assert bool(torch.isfinite(st.pack).all())
+
+
 @pytest.mark.parametrize("tile,window,num_valid", [
     (256, 128, 15_900), (128, 512, 15_900), (512, 64, 15_900), (256, 99, 15_900),
     (256, 512, 15_900), (256, 128, 15_621), (128, 1_400, 15_900)])
@@ -239,6 +273,77 @@ def test_pass_b_and_d_match_plain(cuda_device, strategy, tile, window, num_valid
         assert int(cols.sum()) >= 100
         share, worst = _flips(got_d, ref_d, 1e-5, cols)
         assert share <= 1e-3 and worst <= 2e-2
+
+
+# The windows past 64 columns a lane, K0's shared-memory path: the CLI's
+# --window 1024 (wt_c 2,304) and --window 2048 (wt_c 4,352) at tile 256.
+@pytest.mark.parametrize("window,num_valid", [(1024, None), (2048, None), (1024, 15_877)])
+def test_k0_wide_windows_match_plain(cuda_device, window, num_valid):
+    """K0 past 2,048 window columns keeps each warp's distances in shared
+    memory: the thresholds and counts are those of k0_plain bit for bit,
+    the edge sums within 1e-5 (their warp sum runs in another order than
+    the plain row sum). The hybrid then runs at that window on the card."""
+    noisy, nrm, _ = make_cloud(16_384)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    st = prologue(noisy, nrm, cfg, STRATEGIES[0], num_valid=num_valid, window=window,
+                  device=cuda_device)
+    assert st.win.wt_c == 256 + 2 * window
+    got = kw.k0(st.pack, st.win, cfg.feature_k, cfg.step_k)
+    ref = kw.k0_plain(st.pack, st.win, cfg.feature_k, cfg.step_k)
+    assert torch.equal(got[[0, 1, 3, 4, 5, 6, 7]], ref[[0, 1, 3, 4, 5, 6, 7]])
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-6)
+    out, _, _ = denoise_hybrid(noisy, nrm, cfg, iterations=1, window=window,
+                               num_valid=num_valid, device=cuda_device)
+    assert bool(torch.isfinite(out).all())
+
+
+def test_k0_refuses_a_window_past_shared_memory(cuda_device):
+    """At wt_c 12,256 (window 6,000) not even one warp's row of distances
+    fits beside the window: the launch function refuses it, the wrapper
+    (K0 runs in the prologue) raises naming the limit, no launch is
+    counted and the device stays usable."""
+    noisy, nrm, _ = make_cloud(16_384)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    before = dict(kw.LAUNCHES)
+    with pytest.raises(ValueError, match="window of 12256 columns.*K0_SMEM_LIMIT"):
+        prologue(noisy, nrm, cfg, STRATEGIES[0], window=6_000, device=cuda_device)
+    assert kw.LAUNCHES == before
+    st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=1_024, device=cuda_device)
+    assert kw.LAUNCHES["k0"] == before["k0"] + 1
+    assert bool(torch.isfinite(st.pack).all())
+
+
+@pytest.mark.parametrize("tile,window,num_valid", [
+    (256, 128, 15_900), (128, 512, 15_900), (512, 64, 15_900), (256, 99, 15_900),
+    (256, 512, 15_900), (256, 128, 15_621), (128, 1_400, 15_900)])
+@pytest.mark.parametrize("strategy", STRATEGIES, ids="-".join)
+def test_pass_a_and_c_match_plain(cuda_device, strategy, tile, window, num_valid):
+    """Passes A and C, rebuilt on the walk, against their plain versions
+    at BD's shapes, pass C fed the plain outputs of passes A and B: pass
+    A's packs within 1e-5 on >= 99.9% of the points and within 2e-2 on
+    all (the eigensolver and the VU filter switch branch on a threshold);
+    pass C's maxima bit for bit (a max is exact and the masks are)."""
+    from ngpd_tpu_torch.bench import make_corner_cloud
+    from ngpd_tpu_torch.core.cuda_fused import passes_prologue
+    from ngpd_tpu_torch.kernels import passes as kp
+
+    noisy, nrm, _ = make_corner_cloud(16_000)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    st = passes_prologue(noisy, nrm, cfg, strategy, num_valid=num_valid,
+                         tile=tile, window=window, device=cuda_device)
+    win, nd = st.win, st.needs_delta
+    ref_a = kp.pass_a_plain(st.gq, st.gr, win, cfg)
+    got_a = kp.pass_a(st.gq, st.gr, win, cfg)
+    for got, ref in zip(got_a, ref_a):
+        share, worst = _flips(got, ref, 1e-5)
+        assert share <= 1e-3 and worst <= 2e-2
+    if not nd:
+        return
+    gq2, gr2 = ref_a
+    cls, parts = kp.pass_b_plain(gq2, gr2, win, cfg, nd)
+    scal = kp.delta_scal(st.d_thr, parts)
+    assert torch.equal(kp.pass_c(gq2, gr2, cls, scal, win, nd),
+                       kp.pass_c_plain(gq2, gr2, cls, scal, win, nd))
 
 
 @pytest.mark.parametrize("delta_mode", ["exact", "lagged"])

@@ -321,9 +321,11 @@ def test_until_minimum_error_matches_reference(max_iterations):
 
 
 def test_until_minimum_error_windowed_matches_reference():
-    """One hybrid iteration a step, against the reference's loop stepping
-    with its hybrid engine in interpret mode; K0, K1 and K2 count once a
-    step on a card and not at all on the CPU."""
+    """One hybrid iteration a step (use_pallas=True), against the
+    reference's loop stepping with its hybrid engine in interpret mode; K0,
+    K1 and K2 count once a step on a card and not at all on the CPU. The
+    use_pallas=False and None routes (fused_denoise on the CPU) are held
+    in tests/test_torch_fused.py."""
     from ngpd_tpu.core.pallas_fused import pallas_denoise_hybrid
     from ngpd_tpu.ops import metrics as jmetrics
     from ngpd_tpu_torch.kernels import window as kw
@@ -343,15 +345,13 @@ def test_until_minimum_error_windowed_matches_reference():
         it += 1
     kw.reset_launch_counts()
     got = tpipe.denoise_until_minimum_error_windowed(
-        noisy, nrm, clean, max_iterations=3, tile=128, window=128, device="cpu")
+        noisy, nrm, clean, max_iterations=3, tile=128, window=128, use_pallas=True,
+        device="cpu")
     assert got[3] == it and it >= 1
     np.testing.assert_allclose(got[2], prev[2], rtol=1e-3)
     diff = np.abs(got[0].numpy() - np.asarray(prev[0])).max(axis=1)
     assert np.mean(diff <= 2e-3) >= 0.999 and diff.max() <= 2e-2
     assert kw.LAUNCHES == {"k0": 0, "k1": 0, "k2": 0}  # CPU tensors: plain versions
-    with pytest.raises(NotImplementedError, match="core/fused.py"):
-        tpipe.denoise_until_minimum_error_windowed(noisy, nrm, clean, use_pallas=False,
-                                                   device="cpu")
 
 
 def test_steps_match_oracle():

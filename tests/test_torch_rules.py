@@ -95,6 +95,37 @@ def test_cpu_wrappers_use_plain_versions():
     assert kw.LAUNCHES == before
 
 
+def test_k0_launches_windows_past_2048_columns(monkeypatch):
+    """K0 takes every window whose shared-memory rows fit: wt_c 2,304 (the
+    CLI's --window 1024 at tile 256) and 4,352 reach the launch. The
+    launch function owns the limit: a window it refuses as an invalid
+    value (not even one warp row fits beside it) raises a ValueError that
+    names the limit; any other refusal passes through."""
+    launched = []
+
+    def launch(name, counts, *args):
+        launched.append(args[6])
+        if args[6] > 4_352:
+            raise kw.LaunchError(name, rcs.pop(0))
+
+    rcs = [kw.CUDA_ERROR_INVALID_VALUE, 2]
+    monkeypatch.setattr(kw, "_check", lambda *a: True)
+    monkeypatch.setattr(kw, "launch", launch)
+    n = 16_384
+    for wt_c in (2_304, 4_352):
+        win = kw.make_windows(n, n, 256, (wt_c - 256) // 2, 1, "cpu")
+        assert win.wt_c == wt_c
+        kw.k0(torch.zeros((8, n)), win, 32, 8)
+    assert launched == [2_304, 4_352]
+    win = kw.make_windows(n, n, 256, 6_000, 1, "cpu")
+    with pytest.raises(ValueError, match="K0_SMEM_LIMIT"):
+        kw.k0(torch.zeros((8, n)), win, 32, 8)
+    with pytest.raises(kw.LaunchError, match="cudaError 2"):
+        kw.k0(torch.zeros((8, n)), win, 32, 8)
+    assert launched == [2_304, 4_352, 12_256, 12_256]
+    assert not hasattr(kw, "K0_MAX_WINDOW")
+
+
 def _small_packs():
     """GQ/GR/cls packs and lag state of a 300-point cloud, tile 128."""
     n = padded_size(300, 128, 64, 1)[0]
@@ -255,7 +286,10 @@ _VP, _I, _F = build._VP, build._I, build._F
 REDESIGNED = {
     "k2": ((_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _VP),
            "walk_common.cuh"),
+    "pass_a": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _F, _VP), "pass_walk.cuh"),
     "pass_b": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _VP),
+               "pass_walk.cuh"),
+    "pass_c": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP),
                "pass_walk.cuh"),
     "pass_d": ((_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                 _I, _I, _I, _VP), "pass_walk.cuh"),
@@ -266,10 +300,11 @@ REDESIGNED = {
 
 @pytest.mark.parametrize("name", list(REDESIGNED))
 def test_redesigned_kernels_keep_their_launch_interface(name):
-    """K2 and passes B, D and BD are launched with the argument lists they
+    """K2 and passes A-D and BD are launched with the argument lists they
     had before their redesign; the wrappers and every caller rely on them.
     Each is built on the walk, says why it leaves the tensor cores alone and
-    reports its blocks an SM; pass_d's old walk over all columns is gone."""
+    reports its blocks an SM; the old walks over all columns are gone from
+    passes_common.cuh."""
     argtypes, header = REDESIGNED[name]
     assert build.ARGTYPES[name] == argtypes
     src = (build.CSRC / f"{name}.cu").read_text()
@@ -278,7 +313,9 @@ def test_redesigned_kernels_keep_their_launch_interface(name):
     assert "wgmma" in src  # the header says why the tensor cores are not used
     if header != "walk_common.cuh":
         assert '#include "walk_common.cuh"' in (build.CSRC / header).read_text()
-    assert "step_walk" not in (build.CSRC / "passes_common.cuh").read_text()
+    common = (build.CSRC / "passes_common.cuh").read_text()
+    for gone in ("step_walk", "nvt_t6", "pack_dist", "prepare_launch", "void stage_rows("):
+        assert gone not in common, gone
 
 
 @pytest.mark.parametrize("body", ["NvtSums", "nvt_column", "step_column", "step_pass",

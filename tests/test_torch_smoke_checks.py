@@ -13,8 +13,8 @@ points in the first iteration (``test_right_passes_pass`` asserts it),
 so every step runs on over a hundred. For the window walk of K2 and pass
 BD a stand-in drops one 32-column word of every window, what an
 over-eager word skip or a wrong tail mask would do, and must end
-``check_kernels`` and ``check_pass_bd``; the same stand-in for pass B or
-pass D must end ``check_passes``.
+``check_kernels`` and ``check_pass_bd``; the same stand-in for any of
+passes A-D must end ``check_passes``.
 """
 
 import functools
@@ -236,11 +236,16 @@ def test_pass_bd_that_drops_a_word_fails(no_cuda_sync, monkeypatch, strategy):
         cs.check_pass_bd(CFG, st, strategy, gq2, gr2, {})
 
 
-@pytest.mark.parametrize("strategy", [EDGE_CORNER, ALL_DELTA], ids="-".join)
-@pytest.mark.parametrize("wrapper", ["pass_b", "pass_d"])
+# Pass C runs only for a strategy with a delta class.
+WALKED = [(w, s) for w in ("pass_a", "pass_b", "pass_d") for s in (EDGE_CORNER, ALL_DELTA)]
+WALKED += [("pass_c", CORNER_FEATURE), ("pass_c", ALL_DELTA)]
+
+
+@pytest.mark.parametrize("wrapper,strategy", WALKED,
+                         ids=[f"{w}-{'-'.join(s)}" for w, s in WALKED])
 def test_pass_that_drops_a_word_fails(no_cuda_sync, monkeypatch, wrapper, strategy):
-    """Passes B and D walk the window as pass BD does: a walk that loses a
-    word ends check_passes."""
+    """Passes A-D walk the window as pass BD does: a walk that loses a
+    word ends check_passes (pass A's on the turned normals)."""
     monkeypatch.setattr(kp, wrapper, _dropping_a_word(f"{wrapper}_plain"))
     with pytest.raises(SystemExit):
         cs.check_passes(CFG, _state(strategy), strategy, timed=False,
