@@ -14,8 +14,11 @@ exit code and no result line:
              other strategy variants at 65,536 points, and at the CLI's
              shape (100k points, window 512, feature_k 16); kernel time
              (median of CUDA-event-timed launches), plain time, library
-             time, bound; for K2 its registers, spills and blocks an SM
-             and the share of a warp's 32-column words that it skips
+             time, bound; for K0, K1 and K2 their registers, spills and
+             blocks an SM; for K0 its candidates' mean and largest count
+             and the share of queries that took the counting search (from
+             ``k0_model`` on the same tensors, held equal to the kernel);
+             for K2 the share of a warp's 32-column words that it skips
   main       the main path: ``ngpd_tpu_torch.bench.run``, 1M points, k 32,
              20 iterations, lagged_nvt1; CD gate and launch counts
   fresh_k1   65,536 points, 4 iterations, lagged_nvt1 off: K1 launches 4x
@@ -26,7 +29,8 @@ exit code and no result line:
              OBJ (the >= 100k route), then ``eval``: the CD must fall
   k0_wide    K0 past 64 columns a lane (its shared-memory kernel) at the
              CLI's --window 1024 and 2048 on 100k points (wt_c 2,304 and
-             4,352) against k0_plain; one launch's time and bound each
+             4,352) against k0_plain; one launch's time and bound each, its
+             candidates and counting-search share, registers and spills
   pass_kernels  the pass engine's kernels A-D and BD against their plain
              versions at 1M points (feature_k 32, tile 256, window 128),
              each fed the plain output of the pass before (BD reads pass
@@ -84,7 +88,7 @@ from ngpd_tpu_torch.core.cuda_fused import (
 from ngpd_tpu_torch.core.fused import fused_denoise
 from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
 from ngpd_tpu_torch.io.obj import save_obj
-from ngpd_tpu_torch.kernel_lab import ENTRIES, time_launches
+from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -161,9 +165,8 @@ DIST_OPS = 9  # 3 mul, 4 add, 1 max and the -2p scale, amortised
 # max, three selections at one comparison a column (Floyd-Rivest takes
 # about wt_c + k comparisons, and k << wt_c) and the sum6 pass (compare,
 # sqrt, add); and per query, 3 x 24 scalar bisection steps (add,
-# multiply, compare, select) against the selected values. K0 itself
-# pays 72 compare-and-count steps a pair; that is its design, not the
-# function's cost.
+# multiply, compare, select) against the selected values. K0 selects
+# them so (csrc/k0.cu); the bound counts the function, not the design.
 K0_PAIR_OPS = DIST_OPS + 1 + 3 * 1 + 3
 K0_QUERY_OPS = 3 * 24 * 4
 NVT_FEAT_OPS = 6 + 7 + 6 + 5 + 7  # sym6, plain sums, n.(p_j-p_i), angle, kept sums
@@ -256,6 +259,20 @@ def pair_counts(pack: torch.Tensor, win) -> tuple[int, int]:
     return int(feat.sum()), int(step.sum())
 
 
+def k0_selection(pack, win, feature_k: int, step_k: int, got: torch.Tensor) -> dict:
+    """K0's selection as ``k0_model`` computes it on the kernel's inputs:
+    the candidates' mean and largest count and the share of queries that
+    took the counting search. The model's rows 0, 1 and 3 must equal the
+    kernel's, so the figures are those of the kernel's own path."""
+    model, sel = kw.k0_model(pack, win, feature_k, step_k)
+    if not torch.equal(model[[0, 1, 3]], got[[0, 1, 3]]):
+        fail(f"k0_model disagrees with K0 at wt_c {win.wt_c}")
+    return {"candidates_mean": float(sel.candidates.double().mean()),
+            "candidates_max": int(sel.candidates.max()),
+            "counting_search_share": float(sel.slow.double().mean()),
+            "capacity": kw.K0_CAP}
+
+
 def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
     """K0, K1, K2 against their plain versions on one prologue state."""
     win, pack = st.win, st.pack
@@ -269,7 +286,8 @@ def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
     e0 = row_err(got0, ref0)
     if not exact or e0[1] > REL_TOL:
         fail(f"K0 disagrees with k0_plain: exact={exact} err={e0}")
-    rec.append({"name": "K0", "max_abs_err": e0[0], "plain_ms": plain0})
+    rec.append({"name": "K0", "max_abs_err": e0[0], "plain_ms": plain0,
+                **k0_selection(pack, win, cfg.feature_k, cfg.step_k, got0)})
 
     got1 = kw.k1(pack, win, cfg.angle)
     ref1, plain1 = time_once(lambda: kw.k1_plain(pack, win, cos_rho))
@@ -292,6 +310,8 @@ def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
     n, wt_c = win.n, win.wt_c
     rec[0]["ms"] = time_launches(lambda: kw.k0(pack, win, cfg.feature_k, cfg.step_k))
     rec[1]["ms"] = time_launches(lambda: kw.k1(pack, win, cfg.angle))
+    rec[0].update(build_facts("k0", *entry_of("k0", wt_c), (win.tile, wt_c)))
+    rec[1].update(build_facts("k1", "k1_kernel", (), (win.tile, wt_c)))
     rec[2]["ms"] = time_launches(
         lambda: kw.k2(pack2, st.scal, win, cfg.angle, strategy, nd))
     variant = tuple(s in strategy for s in ("flat", "edge", "new"))
@@ -566,7 +586,10 @@ def check_k0_wide(cfg) -> list[dict]:
                          win.n * win.wt_c * K0_PAIR_OPS + win.n * K0_QUERY_OPS)
         out.append({"window": window, "wt_c": win.wt_c, "n": win.n, "max_abs_err": err[0],
                     "ms": time_launches(lambda: kw.k0(pack, win, cfg.feature_k, cfg.step_k)),
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by})
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                    **k0_selection(pack, win, cfg.feature_k, cfg.step_k, got),
+                    **build_facts("k0", *entry_of("k0", win.wt_c),
+                                  (win.tile, win.wt_c))})
         del st, pack, got, ref
     return out
 
@@ -759,7 +782,8 @@ def main() -> int:
     st = prologue(cn, cnrm, cli_cfg, STRATEGIES[0], window=512, device="cuda")
     errs = check_kernels(cli_cfg, st, STRATEGIES[0], timed=False)
     say("kernel_variants", shape=CLI_N, strategy=STRATEGIES[0], window=512,
-        wt_c=st.win.wt_c, max_abs_err={r["name"]: r["max_abs_err"] for r in errs})
+        wt_c=st.win.wt_c, max_abs_err={r["name"]: r["max_abs_err"] for r in errs},
+        k0_selection={k: v for k, v in errs[0].items() if k.startswith(("cand", "count"))})
     del st
 
     # main path

@@ -124,7 +124,9 @@ def denoise_hybrid(
 
     Returns ``(positions (N, 3), normals (N, 3), classes (N,) int32)`` on
     ``device`` (default ``"cuda"``). ``threshold_method`` is kept for
-    signature parity and unused: K0 always runs the counting search.
+    signature parity and unused: K0 always computes the counting search's
+    result (it selects the k-th smallest distances and replays the
+    bisection against them).
     Nothing is copied to the host between iterations.
     """
     iters = cfg.iterations if iterations is None else iterations

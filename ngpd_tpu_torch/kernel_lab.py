@@ -1,18 +1,19 @@
-"""Builds of the kernels on the shared window walk (K2 and passes A-D
-and BD) side by side on the card: outputs and times.
+"""Builds of the kernels (K0, K1, K2 and passes A-D and BD) side by side
+on the card: outputs and times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
-        [--rounds 3] [--n 1000000]
+        [--rounds 3] [--n 1000000] [--window 128] [--feature-k 32]
 
-Builds ``k2.cu``, ``pass_a.cu`` ... ``pass_d.cu`` and ``pass_bd.cu`` of
-this checkout as they are (the ``tree`` build), once more for each
-``--variant`` with extra nvcc flags (the sources' switches:
-``-DNGPD_NO_SKIP`` scans every word of K2, ``-DNGPD_NO_KEEP`` makes
+Builds ``k0.cu``, ``k1.cu``, ``k2.cu``, ``pass_a.cu`` ... ``pass_d.cu`` and
+``pass_bd.cu`` of this checkout as they are (the ``tree`` build), once
+more for each ``--variant`` with extra nvcc flags (the sources' switches:
+``-DNGPD_NO_SKIP`` scans every word of K1 and K2, ``-DNGPD_NO_KEEP`` makes
 passes B and BD scan their step bits again instead of keeping them,
 ``-DNGPD_NO_ACCUM`` keeps the scans and drops the accumulations,
 ``-DNGPD_NO_WALK`` keeps staging, the per-point math and the output rows
-only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_K2_MIN_BLOCKS=n``,
+only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_K1_MIN_BLOCKS=n``,
+``-DNGPD_K2_MIN_BLOCKS=n``,
 ``-DNGPD_A_MIN_BLOCKS=n``, ``-DNGPD_B_MIN_BLOCKS=n``,
 ``-DNGPD_C_MIN_BLOCKS=n``, ``-DNGPD_D_MIN_BLOCKS=n`` and
 ``-DNGPD_BD_MIN_BLOCKS=n`` set the launch bounds), and for each ``--against`` from another directory of sources
@@ -21,7 +22,9 @@ with ``git archive``), into ``build/lab/``. ``--kernel`` limits the run to
 the kernels named (default: all of ``NAMES``).
 
 At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
-tile 256, window 128, default strategy) it prints one JSON line a build
+tile 256, window 128, default strategy; ``--window`` and ``--feature-k``
+change the window and feature_k, e.g. the CLI's 512 and 16, or K0's
+shared-memory kernel at 1024 and 2048) it prints one JSON line a build
 and kernel: ptxas registers and spills, blocks an SM, whether every output
 equals the tree build's bit for bit (rows that differ and the largest
 difference otherwise), and the launch time, median of 25 CUDA-event-timed
@@ -53,7 +56,7 @@ from .kernels import build
 from .kernels import passes as kp
 from .kernels import window as kw
 
-NAMES = ("k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
+NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
 LAB_DIR = build.BUILD_DIR.parent / "lab"
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
@@ -104,9 +107,24 @@ def time_launches(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def k2_call(n: int, cloud, strategy, cfg):
+def _hybrid_state(n: int, cloud, strategy, cfg, window: int):
+    """The hybrid engine's prologue state on the card."""
     noisy, nrm, _ = cloud(n)
-    st = prologue(noisy, nrm, cfg, strategy, device="cuda")
+    return prologue(noisy, nrm, cfg, strategy, window=window, device="cuda")
+
+
+def k0_call(n: int, cloud, strategy, cfg, window: int = 128):
+    st = _hybrid_state(n, cloud, strategy, cfg, window)
+    return lambda: (kw.k0(st.pack, st.win, cfg.feature_k, cfg.step_k),)
+
+
+def k1_call(n: int, cloud, strategy, cfg, window: int = 128):
+    st = _hybrid_state(n, cloud, strategy, cfg, window)
+    return lambda: (kw.k1(st.pack, st.win, cfg.angle),)
+
+
+def k2_call(n: int, cloud, strategy, cfg, window: int = 128):
+    st = _hybrid_state(n, cloud, strategy, cfg, window)
     pack2 = hs.vu_stage(kw.k1(st.pack, st.win, cfg.angle), st.pack, cfg)
     scal = st.scal.clone()
     scal[1:4, 0] = st.d_thr * torch.tensor([1.0, 2.0, 4.0], device=scal.device)
@@ -114,28 +132,28 @@ def k2_call(n: int, cloud, strategy, cfg):
     return lambda: (kw.k2(pack2, scal, st.win, cfg.angle, strategy, nd),)
 
 
-def _pass_a_state(n: int, cloud, strategy, cfg):
+def _pass_a_state(n: int, cloud, strategy, cfg, window: int):
     """The pass engine's prologue state on the card and the plain pass A's
     packs."""
     noisy, nrm, _ = cloud(n)
-    st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
+    st = passes_prologue(noisy, nrm, cfg, strategy, window=window, device="cuda")
     return st, *kp.pass_a_plain(st.gq, st.gr, st.win, cfg)
 
 
-def a_call(n: int, cloud, strategy, cfg):
+def a_call(n: int, cloud, strategy, cfg, window: int = 128):
     noisy, nrm, _ = cloud(n)
-    st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
+    st = passes_prologue(noisy, nrm, cfg, strategy, window=window, device="cuda")
     return lambda: kp.pass_a(st.gq, st.gr, st.win, cfg)
 
 
-def b_call(n: int, cloud, strategy, cfg):
-    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
+def b_call(n: int, cloud, strategy, cfg, window: int = 128):
+    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg, window)
     return lambda: kp.pass_b(gq2, gr2, st.win, cfg, st.needs_delta)
 
 
-def c_call(n: int, cloud, strategy, cfg):
+def c_call(n: int, cloud, strategy, cfg, window: int = 128):
     """Pass C's call, or None where the strategy has no delta class."""
-    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
+    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg, window)
     win, nd = st.win, st.needs_delta
     if not nd:
         return None
@@ -144,8 +162,8 @@ def c_call(n: int, cloud, strategy, cfg):
     return lambda: (kp.pass_c(gq2, gr2, cls, scal, win, nd),)
 
 
-def d_call(n: int, cloud, strategy, cfg):
-    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg)
+def d_call(n: int, cloud, strategy, cfg, window: int = 128):
+    st, gq2, gr2 = _pass_a_state(n, cloud, strategy, cfg, window)
     win, nd = st.win, st.needs_delta
     cls, parts = kp.pass_b_plain(gq2, gr2, win, cfg, nd)
     scal = kp.delta_scal(st.d_thr, parts)
@@ -154,9 +172,9 @@ def d_call(n: int, cloud, strategy, cfg):
     return lambda: (kp.pass_d(gq2, gr2, cls, scal, win, cfg, strategy, nd),)
 
 
-def bd_call(n: int, cloud, strategy, cfg):
+def bd_call(n: int, cloud, strategy, cfg, window: int = 128):
     noisy, nrm, _ = cloud(n)
-    st = passes_prologue(noisy, nrm, cfg, strategy, device="cuda")
+    st = passes_prologue(noisy, nrm, cfg, strategy, window=window, device="cuda")
     win, nd = st.win, st.needs_delta
     gq2, gr2 = kp.pass_a(st.gq, st.gr, win, cfg)
     first = kp.initial_lag_scal(st.gq[0:3], win.nv, len(nd), st.d_thr)
@@ -167,15 +185,27 @@ def bd_call(n: int, cloud, strategy, cfg):
 
 
 # Each kernel's call at the main shapes, its entry function in the ptxas
-# report (the template flags of the variant the main shapes launch) and
-# the arguments of its ``ngpd_<name>_blocks_per_sm`` there.
-CALLS = {"k2": k2_call, "pass_a": a_call, "pass_b": b_call, "pass_c": c_call,
-         "pass_d": d_call, "pass_bd": bd_call}
-ENTRIES = {"k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
+# report (the template arguments of the variant the main shapes launch;
+# K0's follow the window, ``entry_of``) and the arguments of its
+# ``ngpd_<name>_blocks_per_sm`` after the tile and the window columns.
+CALLS = {"k0": k0_call, "k1": k1_call, "k2": k2_call, "pass_a": a_call, "pass_b": b_call,
+         "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call}
+ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
+           "k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
            "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
            "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,))}
-GEOMETRY = {"k2": (256, 512, 1, 1, 0), "pass_a": (256, 512), "pass_b": (256, 512),
-            "pass_c": (256, 512), "pass_d": (256, 512), "pass_bd": (256, 512)}
+GEOMETRY = {"k0": (), "k1": (), "k2": (1, 1, 0), "pass_a": (), "pass_b": (), "pass_c": (),
+            "pass_d": (), "pass_bd": ()}
+
+
+def entry_of(kernel: str, wt_c: int = 512) -> tuple:
+    """The entry function and template arguments ``kernel`` launches at
+    ``wt_c`` window columns: K0's register kernel takes its columns a lane,
+    past 2,048 columns its shared-memory kernel runs."""
+    if kernel != "k0":
+        return ENTRIES[kernel]
+    lanes = kw.k0_lanes(wt_c)
+    return ("k0_kernel", (lanes,)) if lanes <= 64 else ("k0_wide_kernel", ())
 
 
 def compare(got, want) -> dict:
@@ -191,18 +221,18 @@ def compare(got, want) -> dict:
     return {"equal": not rows, "differing_rows": rows, "max_abs_diff": worst}
 
 
-def ptxas_of(kernel: str, library: Path) -> dict:
+def ptxas_of(kernel: str, library: Path, wt_c: int = 512) -> dict:
     report = build.ptxas_report(library)
-    name, flags = ENTRIES[kernel]
+    name, flags = entry_of(kernel, wt_c)
     # Older sources may build the kernel without its template flags.
     entry = build.template_entry(report, name, *flags) or next(
         (r for r in report if name in r["function"]), {})
     return {k: v for k, v in entry.items() if k != "function"}
 
 
-def blocks_per_sm(kernel: str, lib) -> int | None:
+def blocks_per_sm(kernel: str, lib, tile: int = 256, wt_c: int = 512) -> int | None:
     fn = getattr(lib, f"ngpd_{kernel}_blocks_per_sm", None)
-    return None if fn is None else fn(*GEOMETRY[kernel])
+    return None if fn is None else fn(tile, wt_c, *GEOMETRY[kernel])
 
 
 def main(argv=None) -> None:
@@ -213,6 +243,8 @@ def main(argv=None) -> None:
     ap.add_argument("--corner", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--window", type=int, default=128)
+    ap.add_argument("--feature-k", type=int, default=32)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_lab needs an NVIDIA GPU")
@@ -224,10 +256,11 @@ def main(argv=None) -> None:
         variants[name] = [f for f in flags.split(",") if f]
     names = tuple(args.kernel) or NAMES
     builds = load_builds(variants, dict(a.split("=", 1) for a in args.against), names)
-    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    cfg = DenoiseConfig(feature_k=args.feature_k, step_k=8)
+    wt_c = 256 + 2 * args.window  # tile 256, sub 8: the hybrid's window columns
 
     for kernel in names:
-        call = CALLS[kernel](args.n, bench.make_cloud, STRATEGIES[0], cfg)
+        call = CALLS[kernel](args.n, bench.make_cloud, STRATEGIES[0], cfg, args.window)
         with using(builds["tree"]):
             want = call()
         outs = {}
@@ -241,15 +274,20 @@ def main(argv=None) -> None:
                     times[b].append(time_launches(call))
         for b, libs in builds.items():
             print(json.dumps({"kernel": kernel, "build": b, "flags": variants.get(b, []),
-                              "n": args.n, **ptxas_of(kernel, libs[kernel][1]),
-                              "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0]),
+                              "n": args.n, "window": args.window,
+                              "feature_k": args.feature_k,
+                              **ptxas_of(kernel, libs[kernel][1], wt_c),
+                              "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0], 256, wt_c),
                               **outs[b], "ms_min": min(times[b]),
                               "ms_median": statistics.median(times[b])}), flush=True)
 
     if args.corner:
         for strategy in STRATEGIES:
             for kernel in names:
-                call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg)
+                if kernel in ("k0", "k1") and strategy != STRATEGIES[0]:
+                    continue  # the strategy does not reach K0's or K1's inputs
+                call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg,
+                                     args.window)
                 if call is None:  # pass C of a strategy without a delta class
                     continue
                 with using(builds["tree"]):

@@ -138,11 +138,12 @@ def ptxas_report(library: Path) -> list[dict]:
     return out
 
 
-def template_entry(report: list[dict], kernel: str, *flags: bool) -> dict:
-    """The record of ``kernel<flags...>`` (bool template arguments; none
-    for a kernel that is not a template) in a ``ptxas_report``; empty if it
-    is not there."""
-    tag = kernel + ("I" + "".join(f"Lb{int(f)}E" for f in flags) if flags else "") + "E"
+def template_entry(report: list[dict], kernel: str, *flags: bool | int) -> dict:
+    """The record of ``kernel<flags...>`` (bool or int template arguments;
+    none for a kernel that is not a template) in a ``ptxas_report``; empty
+    if it is not there."""
+    args = "".join(f"Lb{int(f)}E" if isinstance(f, bool) else f"Li{f}E" for f in flags)
+    tag = kernel + (f"I{args}" if flags else "") + "E"
     return next((r for r in report if tag in r["function"]), {})
 
 

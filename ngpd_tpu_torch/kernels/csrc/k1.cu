@@ -10,64 +10,112 @@
 // What bounds it on the H100: operations. Every (query, column) pair
 // needs its distance and threshold test; the ~feature_k columns that
 // pass add the angle test and twelve sums. Traffic is 64 bytes a point.
+// The masks must match the plain version bit for bit, so the distances
+// run on the float32 pipes and there is no wgmma here (walk_common.cuh).
 //
-// Design: one block per query tile stages the window's p, n, |p|^2 and
-// p.n (8 rows) in shared memory; one thread per query walks the window
-// columns, so the 32 threads of a warp read the same column at once (a
-// shared-memory broadcast). The filtered and the plain sums are both
-// kept in registers in the same pass and one is picked at the end.
-#include "window_common.cuh"
+// Design: K2's walk over its feature bits (walk_common.cuh). One block per
+// query tile stages the slim window (-2p, |p|^2, n, p.n: stage_slim) at a
+// pitch of whole words and reduces each word's bounding box, one thread
+// per query. In chunks of 16 words of 32 columns a warp skips the words
+// whose box cannot reach any of its queries (K2's word skip); each lane
+// scans the others' distances against mask_threshold(rk_feat) branch-free
+// into bit words in shared memory, then visits its own set bits from the
+// lowest up in one flat loop (walk_chunk) with K2's column body
+// (nvt_slim_column). The sums are taken over the passing columns in
+// ascending column order, as a walk over all columns with an early
+// `continue` takes them, so the output is that walk's bit for bit.
+//
+// Measured at 1M points, 512 columns, feature_k 32 (kernel_lab.py, NVIDIA
+// H100 80GB HBM3 at 700 W): 0.40-0.42 ms a launch where one thread walking
+// every column with an early `continue` took 0.85-0.88 ms in the same
+// calls; the word skip gives 4% (0.41 without it), and 22% at the CLI's
+// 1,280 columns (0.60 against 0.78 ms). ptxas: 72 registers, no spill,
+// three blocks of 256 threads an SM (NGPD_K1_MIN_BLOCKS; two or four were
+// no faster).
+#include "walk_common.cuh"
+
+#ifndef NGPD_K1_MIN_BLOCKS
+#define NGPD_K1_MIN_BLOCKS 3
+#endif
 
 namespace ngpd {
 
-__global__ void k1_kernel(const float* __restrict__ pack,
-                          const int* __restrict__ starts,
-                          float* __restrict__ out, int n, int nv, int tile,
-                          int wt_c, float cos_rho) {
-  extern __shared__ float sm[];  // W_ROWS rows of wt_c
+// -DNGPD_NO_SKIP (a timing aid) scans every word.
+#ifndef NGPD_NO_SKIP
+constexpr int K1_BOX_WORDS = BOX_FLOATS;
+#else
+constexpr int K1_BOX_WORDS = 0;
+#endif
+
+__global__ void __launch_bounds__(256, NGPD_K1_MIN_BLOCKS)
+k1_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
+          float* __restrict__ out, int n, int nv, int tile, int wt_c, int wp,
+          float cos_rho) {
+  // K_ROWS rows of wp, BOX_FLOATS a word, then one chunk's feature bit
+  // words, one a (word, thread).
+  extern __shared__ __align__(16) float sm[];
+  float* boxes = sm + K_ROWS * wp;
+  unsigned* fbits = reinterpret_cast<unsigned*>(boxes + K1_BOX_WORDS * (wp >> 5)) + threadIdx.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-  stage_window<W_ROWS>(pack, n, s, wt_c, sm);
+  stage_slim(pack, n, s, wt_c, wp, sm);
   __syncthreads();
+#ifndef NGPD_NO_SKIP
+  reduce_word_boxes(sm, wp, boxes);
+  __syncthreads();
+#endif
 
   const int jmax = min(wt_c, nv - s);  // columns past nv are masked
+  const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float q0 = pack[i], q1 = pack[n + i], q2 = pack[2 * n + i];
-    const float rkf = pack[6 * n + i];
     const float p2q = sq_norm3(q0, q1, q2);
-    float kept[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float all[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float n_kept = 0.0f, n_all = 0.0f;
-    for (int j = 0; j < jmax; ++j) {
-      const float d =
-          sq_dist(q0, q1, q2, p2q, sm[W_PX * wt_c + j], sm[W_PY * wt_c + j],
-                  sm[W_PZ * wt_c + j], sm[W_PP * wt_c + j]);
-      if (!(d <= rkf && d < 1e30f)) continue;
-      const float n0 = sm[W_NX * wt_c + j], n1 = sm[W_NY * wt_c + j],
-                  n2 = sm[W_NZ * wt_c + j];
-      const float sym[6] = {__fmul_rn(n0, n0), __fmul_rn(n0, n1),
-                            __fmul_rn(n0, n2), __fmul_rn(n1, n1),
-                            __fmul_rn(n1, n2), __fmul_rn(n2, n2)};
-#pragma unroll
-      for (int c = 0; c < 6; ++c) all[c] = __fadd_rn(all[c], sym[c]);
-      n_all = __fadd_rn(n_all, 1.0f);
-      const float dotj =
-          __fsub_rn(sm[W_PN * wt_c + j], dot3(q0, q1, q2, n0, n1, n2));
-      if (keeps_angle(dotj, d, cos_rho)) {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) kept[c] = __fadd_rn(kept[c], sym[c]);
-        n_kept = __fadd_rn(n_kept, 1.0f);
+    const float thr = mask_threshold(pack[6 * n + i]);
+#ifndef NGPD_NO_SKIP
+    const WarpBox wb = warp_box(q0, q1, q2, p2q, thr);
+#endif
+    NvtSums nvt{};  // every sum 0
+    for (int w0 = 0; w0 < nwords; w0 += CHUNK_WORDS) {
+      unsigned nz = 0u;
+      const int cw = min(CHUNK_WORDS, nwords - w0);
+      for (int wl = 0; wl < cw; ++wl) {
+        const int j0 = (w0 + wl) << 5;
+#ifndef NGPD_NO_SKIP
+        if (word_skippable(wb, boxes + (w0 + wl) * BOX_FLOATS)) continue;
+#endif
+        const unsigned bits =
+            scan_word(sm, wp, j0, q0, q1, q2, p2q, thr) & word_valid(jmax - j0);
+        if (bits) {
+          fbits[wl * blockDim.x] = bits;
+          nz |= 1u << wl;
+        }
       }
+      walk_chunk(fbits, blockDim.x, nz, w0 << 5, [&](int j) {
+        nvt_slim_column(sm, wp, j, q0, q1, q2, p2q, cos_rho, nvt);
+      });
     }
-    const bool rescue = n_kept == 0.0f;
-    const float wsum = fmaxf(rescue ? n_all : n_kept, 1.0f);
+    float t6[6];
+    nvt_mean(nvt, t6);
 #pragma unroll
-    for (int c = 0; c < 6; ++c)
-      out[c * n + i] = __fdiv_rn(rescue ? all[c] : kept[c], wsum);
+    for (int c = 0; c < 6; ++c) out[c * n + i] = t6[c];
     out[6 * n + i] = 0.0f;
     out[7 * n + i] = 0.0f;
   }
+}
+
+static int k1_threads(int tile) { return tile < 256 ? tile : 256; }
+
+static size_t k1_smem(int tile, int wt_c) {
+  const int wp = round_up32(wt_c);
+  return sizeof(float) * ((size_t)K_ROWS * wp + (size_t)K1_BOX_WORDS * (wp >> 5) +
+                          (size_t)CHUNK_WORDS * k1_threads(tile));
+}
+
+// Shared memory above 48 KB is allowed once a window size.
+static void k1_allow(size_t smem) {
+  static size_t allowed = 0;
+  allow_smem(k1_kernel, smem, allowed);
 }
 
 }  // namespace ngpd
@@ -78,13 +126,21 @@ extern "C" int ngpd_k1_launch(const void* pack, const void* starts, void* out,
                               int n, int nv, int tile, int wt_c, float cos_rho,
                               void* stream) {
   using namespace ngpd;
-  const size_t smem = sizeof(float) * W_ROWS * (size_t)wt_c;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(k1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  const int threads = tile < 256 ? tile : 256;
-  k1_kernel<<<n / tile, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = k1_smem(tile, wt_c);
+  k1_allow(smem);
+  k1_kernel<<<n / tile, k1_threads(tile), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pack), static_cast<const int*>(starts),
-      static_cast<float*>(out), n, nv, tile, wt_c, cos_rho);
+      static_cast<float*>(out), n, nv, tile, wt_c, round_up32(wt_c), cos_rho);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel that one SM holds at this geometry, as the runtime
+// counts them from its registers and shared memory.
+extern "C" int ngpd_k1_blocks_per_sm(int tile, int wt_c) {
+  using namespace ngpd;
+  int blocks = 0;
+  k1_allow(k1_smem(tile, wt_c));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k1_kernel, k1_threads(tile),
+                                                k1_smem(tile, wt_c));
+  return blocks;
 }

@@ -24,14 +24,15 @@
 // is not bit-equal either, so wgmma has no place here.
 //
 // Design: one block per query tile with the window's -2p, |p|^2, n and
-// p.n staged in shared memory and one thread per query. The walk is
-// walk_common.cuh's, in chunks of 16 words of 32 columns. Scan: per word a
-// warp first asks whether the word's bounding box can reach any of its
-// queries and skips it if not; else each lane computes the word's 32
-// distances branch-free and keeps a feature and a step bit word in shared
-// memory. Accumulate: each lane visits its own feature bits of the chunk
-// (NVT2 sums, the angle filter on a recomputed distance), then its own
-// step bits (s6 ... maxd), each in one flat loop from the lowest bit up.
+// p.n staged in shared memory (stage_slim, as K1 stages it) and one thread
+// per query. The walk is walk_common.cuh's, in chunks of 16 words of 32
+// columns. Scan: per word a warp first asks whether the word's bounding
+// box can reach any of its queries and skips it if not; else each lane
+// computes the word's 32 distances branch-free and keeps a feature and a
+// step bit word in shared memory. Accumulate: each lane visits its own
+// feature bits of the chunk (NVT2 sums, the angle filter on a recomputed
+// distance: nvt_slim_column, K1's column body), then its own step bits
+// (s6 ... maxd), each in one flat loop from the lowest bit up.
 // Every sum belongs to one of the two loops and is taken in ascending
 // column order, as a walk over all columns takes it, so the output equals
 // that walk's bit for bit. All accumulators stay in registers; the lagged
@@ -57,33 +58,6 @@
 
 namespace ngpd {
 
-// Staged rows, each wp floats: the first four are the scan's.
-enum K2Row { K_M2P = 0, K_PP = 3, K_N = 4, K_PN = 7, K_ROWS = 8 };
-
-// Stage the window columns [s, s + wt_c) of the slim pack: -2p, |p|^2, n,
-// p.n; zeros in columns [wt_c, wp).
-__device__ __forceinline__ void stage_k2(const float* __restrict__ pack, int n,
-                                         int s, int wt_c, int wp, float* sm) {
-  for (int j = threadIdx.x; j < wp; j += blockDim.x) {
-    float p[3] = {0.f, 0.f, 0.f}, nj[3] = {0.f, 0.f, 0.f};
-    if (j < wt_c) {
-      const int c = s + j;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        p[k] = pack[k * n + c];
-        nj[k] = pack[(3 + k) * n + c];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      sm[(K_M2P + k) * wp + j] = -2.0f * p[k];
-      sm[(K_N + k) * wp + j] = nj[k];
-    }
-    sm[K_PP * wp + j] = sq_norm3(p[0], p[1], p[2]);
-    sm[K_PN * wp + j] = dot3(p[0], p[1], p[2], nj[0], nj[1], nj[2]);
-  }
-}
-
 template <bool FLAT, bool EDGE, bool NEW>
 __global__ void __launch_bounds__(256, NGPD_K2_MIN_BLOCKS)
 k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
@@ -100,7 +74,7 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
   const int blk = blockIdx.x;
   const int s = starts[blk];
 #ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the output rows alone
-  stage_k2(pack, n, s, wt_c, wp, sm);
+  stage_slim(pack, n, s, wt_c, wp, sm);
 #endif
   if (threadIdx.x < 3) {
     const int ci = threadIdx.x;
@@ -147,7 +121,7 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
     const WarpBox wb = warp_box(q0, q1, q2, p2q, fmaxf(thr_f, thr_s));
 #endif
 
-    float kept[6] = {0.f}, all[6] = {0.f}, n_kept = 0.0f, n_all = 0.0f;
+    NvtSums nvt{};  // every sum 0
     float s6[6] = {0.f}, bnv[3] = {0.f}, sv[3] = {0.f}, deg = 0.0f;
     float q18[18] = {0.f};  // dead unless EDGE
     float fl_num = 0.0f, fl_den = 0.0f;
@@ -190,22 +164,7 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
 
       // The feature bits: NVT2 with the angle filter.
       walk_chunk(fbits, blockDim.x, nz_f, w0 << 5, [&](int j) {
-        const float d = col_dist(sm, wp, j, q0, q1, q2, p2q);
-        const float n0 = sm[K_N * wp + j], n1 = sm[(K_N + 1) * wp + j],
-                    n2 = sm[(K_N + 2) * wp + j];
-        const float sym[6] = {__fmul_rn(n0, n0), __fmul_rn(n0, n1),
-                              __fmul_rn(n0, n2), __fmul_rn(n1, n1),
-                              __fmul_rn(n1, n2), __fmul_rn(n2, n2)};
-        const float dotj =
-            __fsub_rn(sm[K_PN * wp + j], dot3(q0, q1, q2, n0, n1, n2));
-#pragma unroll
-        for (int c = 0; c < 6; ++c) all[c] = __fadd_rn(all[c], sym[c]);
-        n_all = __fadd_rn(n_all, 1.0f);
-        if (keeps_angle(dotj, d, cos_rho)) {
-#pragma unroll
-          for (int c = 0; c < 6; ++c) kept[c] = __fadd_rn(kept[c], sym[c]);
-          n_kept = __fadd_rn(n_kept, 1.0f);
-        }
+        nvt_slim_column(sm, wp, j, q0, q1, q2, p2q, cos_rho, nvt);
       });
 
       // The step bits: the update stage's sums.
@@ -279,11 +238,10 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
 
     // Write the rows in _k2_layout order.
     int row = 0;
-    const bool rescue = n_kept == 0.0f;
-    const float wsum = fmaxf(rescue ? n_all : n_kept, 1.0f);
+    float t6[6];
+    nvt_mean(nvt, t6);
 #pragma unroll
-    for (int c = 0; c < 6; ++c)
-      out[(row++) * n + i] = __fdiv_rn(rescue ? all[c] : kept[c], wsum);
+    for (int c = 0; c < 6; ++c) out[(row++) * n + i] = t6[c];
 #pragma unroll
     for (int c = 0; c < 6; ++c) out[(row++) * n + i] = s6[c];
 #pragma unroll

@@ -6,7 +6,8 @@
 // pitch wp = wt rounded up to 32 (zeros behind), then one thread a query:
 //   nvt_pass   scans the window chunk by chunk into a feature and a step
 //              bit word per 32 columns and walks the feature bits into the
-//              NVT sums (NVT1 of pass A, NVT2 of passes B and BD); with
+//              NVT sums (NVT1 of pass A, NVT2 of passes B and BD; their
+//              NvtSums and nvt_mean are walk_common.cuh's); with
 //              KEEP the step words of the whole window are kept in shared
 //              memory, one a (word, thread); without it only the feature
 //              threshold is scanned;
@@ -25,11 +26,6 @@
 #include "walk_common.cuh"
 
 namespace ngpd {
-
-// The sums of the filtered NVT.
-struct NvtSums {
-  float kept[6], all[6], n_kept, n_all;
-};
 
 // One passing column of the NVT2 accumulation.
 __device__ __forceinline__ void nvt_column(const float* sm, int wp, int j,
@@ -88,14 +84,6 @@ __device__ __forceinline__ NvtSums nvt_pass(const float* sm, int wp, int nwords,
 #endif
   }
   return nvt;
-}
-
-// t6 of the filtered NVT: the kept sums over the kept count, all of them
-// where none is kept (the zero-weight rescue).
-__device__ __forceinline__ void nvt_mean(const NvtSums& nvt, float t6[6]) {
-  const bool rescue = nvt.n_kept == 0.0f;
-  const float wsum = fmaxf(rescue ? nvt.n_all : nvt.n_kept, 1.0f);
-  for (int c = 0; c < 6; ++c) t6[c] = fdiv(rescue ? nvt.all[c] : nvt.kept[c], wsum);
 }
 
 // Visit one query's step bits chunk by chunk, body(j) on each from the

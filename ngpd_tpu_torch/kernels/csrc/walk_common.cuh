@@ -1,4 +1,4 @@
-// The window walk of K2 and passes B, D and BD: a branch-free mask scan
+// The window walk of K1, K2 and passes A-D and BD: a branch-free mask scan
 // over words of 32 columns, then a walk over the set bits only (CUDA C++
 // for sm_90a).
 //
@@ -155,6 +155,72 @@ __device__ __forceinline__ unsigned scan_word(const float* sm, int wp, int j0,
     }
   }
   return bits;
+}
+
+// ---- The slim pack's window and its filtered NVT (K1 and K2) --------------
+
+// Staged rows of the slim pack [p, n, rk_feat, rk_step], each wp floats:
+// the first four are the scan's.
+enum SlimRow { K_M2P = 0, K_PP = 3, K_N = 4, K_PN = 7, K_ROWS = 8 };
+
+// Stage the window columns [s, s + wt_c) of a slim pack: -2p, |p|^2, n,
+// p.n; zeros in columns [wt_c, wp).
+__device__ __forceinline__ void stage_slim(const float* __restrict__ pack, int n,
+                                           int s, int wt_c, int wp, float* sm) {
+  for (int j = threadIdx.x; j < wp; j += blockDim.x) {
+    float p[3] = {0.f, 0.f, 0.f}, nj[3] = {0.f, 0.f, 0.f};
+    if (j < wt_c) {
+      const int c = s + j;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p[k] = pack[k * n + c];
+        nj[k] = pack[(3 + k) * n + c];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sm[(K_M2P + k) * wp + j] = -2.0f * p[k];
+      sm[(K_N + k) * wp + j] = nj[k];
+    }
+    sm[K_PP * wp + j] = sq_norm3(p[0], p[1], p[2]);
+    sm[K_PN * wp + j] = dot3(p[0], p[1], p[2], nj[0], nj[1], nj[2]);
+  }
+}
+
+// The sums of the filtered NVT.
+struct NvtSums {
+  float kept[6], all[6], n_kept, n_all;
+};
+
+// One passing column j of the filtered NVT over a slim window: sym6 of
+// n_j into every sum, into the kept sums where the angle filter keeps it.
+__device__ __forceinline__ void nvt_slim_column(const float* sm, int wp, int j,
+                                                float q0, float q1, float q2,
+                                                float qq, float cos_rho, NvtSums& a) {
+  const float d = col_dist(sm, wp, j, q0, q1, q2, qq);
+  const float n0 = sm[K_N * wp + j], n1 = sm[(K_N + 1) * wp + j],
+              n2 = sm[(K_N + 2) * wp + j];
+  const float sym[6] = {__fmul_rn(n0, n0), __fmul_rn(n0, n1),
+                        __fmul_rn(n0, n2), __fmul_rn(n1, n1),
+                        __fmul_rn(n1, n2), __fmul_rn(n2, n2)};
+  const float dotj = __fsub_rn(sm[K_PN * wp + j], dot3(q0, q1, q2, n0, n1, n2));
+#pragma unroll
+  for (int c = 0; c < 6; ++c) a.all[c] = __fadd_rn(a.all[c], sym[c]);
+  a.n_all = __fadd_rn(a.n_all, 1.0f);
+  if (keeps_angle(dotj, d, cos_rho)) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) a.kept[c] = __fadd_rn(a.kept[c], sym[c]);
+    a.n_kept = __fadd_rn(a.n_kept, 1.0f);
+  }
+}
+
+// t6 of the filtered NVT: the kept sums over the kept count, all of them
+// where none is kept (the zero-weight rescue).
+__device__ __forceinline__ void nvt_mean(const NvtSums& nvt, float t6[6]) {
+  const bool rescue = nvt.n_kept == 0.0f;
+  const float wsum = fmaxf(rescue ? nvt.n_all : nvt.n_kept, 1.0f);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) t6[c] = __fdiv_rn(rescue ? nvt.all[c] : nvt.kept[c], wsum);
 }
 
 // ---- Skipping words that cannot pass --------------------------------------

@@ -21,38 +21,20 @@
 
 namespace ngpd {
 
-// Shared-memory window rows, each wt_c floats.
-enum WinRow { W_PX = 0, W_PY, W_PZ, W_NX, W_NY, W_NZ, W_PP, W_PN, W_ROWS };
-
-// Stage ROWS window rows of pack columns [s, s + wt_c) into shared
-// memory. ROWS == 4 stages p and |p|^2 only (|p|^2 then sits at row 3);
-// ROWS == 8 stages all of WinRow.
-template <int ROWS>
+// Stage pack columns [s, s + wt_c) into four shared-memory rows of wt_c
+// floats: p0, p1, p2 and |p|^2 (K0's window).
 __device__ __forceinline__ void stage_window(const float* __restrict__ pack,
                                              int n, int s, int wt_c,
                                              float* sm) {
   for (int j = threadIdx.x; j < wt_c; j += blockDim.x) {
     const int c = s + j;
     const float p0 = pack[c], p1 = pack[n + c], p2 = pack[2 * n + c];
-    const float p2w =
+    sm[j] = p0;
+    sm[wt_c + j] = p1;
+    sm[2 * wt_c + j] = p2;
+    sm[3 * wt_c + j] =
         __fadd_rn(__fadd_rn(__fmul_rn(p0, p0), __fmul_rn(p1, p1)),
                   __fmul_rn(p2, p2));
-    sm[W_PX * wt_c + j] = p0;
-    sm[W_PY * wt_c + j] = p1;
-    sm[W_PZ * wt_c + j] = p2;
-    if (ROWS == 4) {
-      sm[3 * wt_c + j] = p2w;
-    } else {
-      const float n0 = pack[3 * n + c], n1 = pack[4 * n + c],
-                  n2 = pack[5 * n + c];
-      sm[W_NX * wt_c + j] = n0;
-      sm[W_NY * wt_c + j] = n1;
-      sm[W_NZ * wt_c + j] = n2;
-      sm[W_PP * wt_c + j] = p2w;
-      sm[W_PN * wt_c + j] =
-          __fadd_rn(__fadd_rn(__fmul_rn(p0, n0), __fmul_rn(p1, n1)),
-                    __fmul_rn(p2, n2));
-    }
   }
 }
 

@@ -146,6 +146,132 @@ def k0_plain(pack: torch.Tensor, win: Windows, feature_k: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K0's selection (csrc/k0.cu), plain copy
+# ---------------------------------------------------------------------------
+
+K0_CAP = 128  # candidate words a warp (K0_CAP in csrc/k0.cu)
+K0_MAX_R = 4  # the largest r a lane keeps in registers (K0_MAX_R)
+_PAD_KEY = 0xFFFFFFFF  # above every distance's bit pattern
+
+
+def k0_lanes(wt_c: int) -> int:
+    """Columns a lane of K0 holds at this window: the register kernel's
+    CPL (4, 8, 16, 32 or 64), or wt_c / 32 rounded up past 2,048 columns
+    (the shared-memory kernel)."""
+    cpl = -(-wt_c // 32)
+    return next((c for c in (4, 8, 16, 32, 64) if cpl <= c), cpl)
+
+
+class K0Selection(NamedTuple):
+    rk: torch.Tensor  # (3, Q) the searches' results for feature_k, step_k, 6
+    bound: torch.Tensor  # (Q,) T, the candidates' bound (a distance of the row)
+    candidates: torch.Tensor  # (Q,) int64 count(d <= T)
+    slow: torch.Tensor  # (Q,) bool: the query takes the counting search
+
+
+def _order_keys(d: torch.Tensor) -> torch.Tensor:
+    """The kernel's sort keys: a distance's float32 bit pattern as an
+    unsigned number, which orders +0 ... +inf as the floats and NaN above."""
+    return d.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _replay(v: torch.Tensor, dmax: torch.Tensor) -> torch.Tensor:
+    """The counting search's result where d_(k) = v: the same midpoints,
+    hi = mid exactly where count(d <= mid) >= k, that is where v <= mid."""
+    lo = torch.zeros_like(dmax)
+    hi = dmax
+    for _ in range(_SEARCH_ITERS):
+        mid = 0.5 * (lo + hi)
+        ge = v <= mid
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid)
+    return hi
+
+
+def k0_select_rows(d: torch.Tensor, dmax: torch.Tensor, feature_k: int, step_k: int,
+                   cap: int = K0_CAP) -> K0Selection:
+    """K0's selection on rows of distances in the kernel's lane layout: ``d``
+    (Q, 32 cpl), column j of lane j % 32 (columns that do not exist hold
+    +inf, those past nv ``dmax``), ``dmax`` (Q,). With K = max(feature_k,
+    step_k, 6) and r = ceil(K / 16): each lane's r-th smallest key, T the
+    ceil(K / r)-th smallest of those, the candidates d <= T, the capacity
+    test, then each search replayed against the k-th smallest candidate;
+    the counting search where the kernel takes it. Step for step the
+    kernel's, on the keys the kernel sorts."""
+    q, w = d.shape
+    cpl = w // 32
+    big = max(feature_k, step_k, 6)
+    r = -(-big // 16)
+    selectable = feature_k >= 1 and step_k >= 1 and r <= min(K0_MAX_R, cpl)
+    keys = _order_keys(d)
+    if selectable:
+        rth = keys.view(q, cpl, 32).sort(dim=1).values[:, r - 1, :]
+        t_key = rth.sort(dim=1).values[:, -(-big // r) - 1]
+    else:
+        t_key = torch.full((q,), _PAD_KEY, dtype=torch.int64, device=d.device)
+    cand = keys <= t_key[:, None]
+    count = cand.sum(dim=1)
+    slow = (count > cap) | (not selectable)
+    order = torch.where(cand, keys, _PAD_KEY).argsort(dim=1, stable=True)
+    bound = d.gather(1, (keys == t_key[:, None]).to(torch.uint8).argmax(dim=1, keepdim=True))[:, 0]
+    rk = []
+    for k in (feature_k, step_k, 6):
+        pos = min(max(k, 1), w) - 1  # a slow row's position is not used
+        hi = _replay(d.gather(1, order[:, pos : pos + 1])[:, 0], dmax)
+        if bool(slow.any()):
+            hi[slow] = _kth_by_count(d[slow], k, dmax[slow, None])
+        rk.append(hi)
+    return K0Selection(torch.stack(rk), bound, count, slow)
+
+
+def _block_dists(pack: torch.Tensor, win: Windows, blocks: slice):
+    """The squared window distances of a range of query blocks in the
+    order of _sq_dist, (blocks x tile, wt_c), and their column validity."""
+    t = win.tile
+    p = pack[0:3]
+    starts = win.starts[blocks].long()
+    cols = starts[:, None] + torch.arange(win.wt_c, device=pack.device)[None, :]
+    w = p[:, cols]  # (3, B, W)
+    q = p[:, blocks.start * t : blocks.stop * t].reshape(3, -1, t, 1)  # (3, B, T, 1)
+    p2q = q[0] * q[0] + q[1] * q[1] + q[2] * q[2]
+    p2w = (w[0] * w[0] + w[1] * w[1] + w[2] * w[2])[:, None, :]
+    d = (q[0] * (-2.0 * w[0][:, None, :]) + q[1] * (-2.0 * w[1][:, None, :])
+         + q[2] * (-2.0 * w[2][:, None, :]))
+    d = torch.clamp(d + p2w + p2q, min=0.0)
+    valid = (cols < win.nv)[:, None, :].expand_as(d)
+    return d.reshape(-1, win.wt_c), valid.reshape(-1, win.wt_c)
+
+
+def k0_model(pack: torch.Tensor, win: Windows, feature_k: int, step_k: int,
+             cap: int = K0_CAP) -> tuple[torch.Tensor, K0Selection]:
+    """K0 as the kernel computes it, in plain torch: rows 0-3 of its
+    output (rows 0, 1 and 3 those of k0_plain bit for bit) and the
+    selection of every query (its candidates and whether it took the
+    counting search), some 2^17 distances a query row at a time."""
+    n, t = win.n, win.tile
+    cpl = k0_lanes(win.wt_c)
+    batch = max(1, (1 << 17) // (32 * cpl))
+    out = torch.zeros((8, n), dtype=pack.dtype, device=pack.device)
+    parts = []
+    for b0 in range(0, n // t, batch):
+        blocks = slice(b0, min(b0 + batch, n // t))
+        d, valid = _block_dists(pack, win, blocks)
+        dmax = torch.where(valid, d, 0.0).amax(dim=1, keepdim=True) + 1.0
+        d = torch.where(valid, d, dmax)
+        lanes = torch.full((d.shape[0], 32 * cpl), math.inf, dtype=d.dtype, device=d.device)
+        lanes[:, : win.wt_c] = d
+        sel = k0_select_rows(lanes, dmax[:, 0], feature_k, step_k, cap)
+        rows = slice(blocks.start * t, blocks.stop * t)
+        in6 = (d <= sel.rk[2][:, None]).to(d.dtype)
+        row_valid = (torch.arange(rows.start, rows.stop, device=d.device) < win.nv).to(d.dtype)
+        out[0, rows], out[1, rows] = sel.rk[0], sel.rk[1]
+        out[2, rows] = torch.sum(torch.sqrt(torch.clamp(d, min=0.0)) * in6, dim=1) * row_valid
+        out[3, rows] = torch.sum(in6, dim=1) * row_valid
+        parts.append(sel)
+    return out, K0Selection(*(torch.cat(x, dim=-1) for x in zip(*parts)))
+
+
 def k1_plain(pack: torch.Tensor, win: Windows, cos_rho: float) -> torch.Tensor:
     n, t = win.n, win.tile
     out = torch.zeros((8, n), dtype=pack.dtype, device=pack.device)

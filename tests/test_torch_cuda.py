@@ -150,22 +150,6 @@ def test_pass_kernels_match_plain(cuda_device, strategy, tile, window):
 # tile's window), and wt 2,928 (tile 128, window 1,400), too wide for the
 # step bits to stay in shared memory beside it, so the second accumulation
 # scans again.
-def test_k0_refuses_a_window_past_shared_memory(cuda_device):
-    """At wt_c 12,256 (window 6,000) not even one warp's row of distances
-    fits beside the window: the launch function refuses it, the wrapper
-    (K0 runs in the prologue) raises naming the limit, no launch is
-    counted and the device stays usable."""
-    noisy, nrm, _ = make_cloud(16_384)
-    cfg = DenoiseConfig(feature_k=32, step_k=8)
-    before = dict(kw.LAUNCHES)
-    with pytest.raises(ValueError, match="window of 12256 columns.*K0_SMEM_LIMIT"):
-        prologue(noisy, nrm, cfg, STRATEGIES[0], window=6_000, device=cuda_device)
-    assert kw.LAUNCHES == before
-    st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=1_024, device=cuda_device)
-    assert kw.LAUNCHES["k0"] == before["k0"] + 1
-    assert bool(torch.isfinite(st.pack).all())
-
-
 @pytest.mark.parametrize("tile,window,num_valid", [
     (256, 128, 15_900), (128, 512, 15_900), (512, 64, 15_900), (256, 99, 15_900),
     (256, 512, 15_900), (256, 128, 15_621), (128, 1_400, 15_900)])
@@ -211,22 +195,6 @@ def test_pass_bd_matches_plain(cuda_device, strategy, tile, window, num_valid):
         scale = ref_parts.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
         rel = ((got_parts - ref_parts).abs() / scale)[:, same_tiles]
         assert float(rel.max()) < 1e-5
-
-
-def test_k0_refuses_a_window_past_shared_memory(cuda_device):
-    """At wt_c 12,256 (window 6,000) not even one warp's row of distances
-    fits beside the window: the launch function refuses it, the wrapper
-    (K0 runs in the prologue) raises naming the limit, no launch is
-    counted and the device stays usable."""
-    noisy, nrm, _ = make_cloud(16_384)
-    cfg = DenoiseConfig(feature_k=32, step_k=8)
-    before = dict(kw.LAUNCHES)
-    with pytest.raises(ValueError, match="window of 12256 columns.*K0_SMEM_LIMIT"):
-        prologue(noisy, nrm, cfg, STRATEGIES[0], window=6_000, device=cuda_device)
-    assert kw.LAUNCHES == before
-    st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=1_024, device=cuda_device)
-    assert kw.LAUNCHES["k0"] == before["k0"] + 1
-    assert bool(torch.isfinite(st.pack).all())
 
 
 @pytest.mark.parametrize("tile,window,num_valid", [
@@ -311,6 +279,42 @@ def test_k0_refuses_a_window_past_shared_memory(cuda_device):
     st = prologue(noisy, nrm, cfg, STRATEGIES[0], window=1_024, device=cuda_device)
     assert kw.LAUNCHES["k0"] == before["k0"] + 1
     assert bool(torch.isfinite(st.pack).all())
+
+
+def _duplicated_cloud(n: int):
+    """Half of make_cloud(n), the other half n / 512 of its points 256
+    times each."""
+    pts, nrm, _ = make_cloud(n)
+    half = n // 2
+    copies = slice(half, half + half // 256)
+    return (np.concatenate([pts[:half], np.repeat(pts[copies], 256, axis=0)]),
+            np.concatenate([nrm[:half], np.repeat(nrm[copies], 256, axis=0)]))
+
+
+# K0 selects its order statistics and replays the bisection (csrc/k0.cu):
+# feature_k 6 and 64 (r = 1 and r = 4), a cloud whose copies of a point
+# give hundreds of equal distances (those queries take the counting
+# search), and 15,877 valid points, where fewer valid columns than
+# feature_k reach the last tile.
+@pytest.mark.parametrize("feature_k,cloud,num_valid", [
+    (6, "sphere", None), (64, "sphere", None), (32, "duplicated", None),
+    (32, "sphere", 15_877)])
+def test_k0_selection_matches_plain(cuda_device, feature_k, cloud, num_valid):
+    """Rows 0, 1 and 3 (rk_feat, rk_step, cnt6) of K0 equal k0_plain's bit
+    for bit, and k0_model's, which says which queries were selected."""
+    if cloud == "duplicated":
+        noisy, nrm = _duplicated_cloud(16_384)
+    else:
+        noisy, nrm, _ = make_cloud(16_384)
+    cfg = DenoiseConfig(feature_k=feature_k, step_k=8)
+    st = prologue(noisy, nrm, cfg, STRATEGIES[0], num_valid=num_valid, device=cuda_device)
+    got = kw.k0(st.pack, st.win, feature_k, cfg.step_k)
+    ref = kw.k0_plain(st.pack, st.win, feature_k, cfg.step_k)
+    assert torch.equal(got[[0, 1, 3]], ref[[0, 1, 3]])
+    model, sel = kw.k0_model(st.pack, st.win, feature_k, cfg.step_k)
+    assert torch.equal(model[[0, 1, 3]], got[[0, 1, 3]])
+    if cloud == "duplicated":
+        assert 0.1 < float(sel.slow.float().mean()) < 0.9
 
 
 @pytest.mark.parametrize("tile,window,num_valid", [

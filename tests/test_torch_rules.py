@@ -282,8 +282,11 @@ def test_an_edited_header_renames_the_libraries(header, tmp_path, monkeypatch):
 
 _VP, _I, _F = build._VP, build._I, build._F
 # The launch arguments each kernel had before its redesign, and the header
-# of the walk it was rebuilt on.
+# it was rebuilt on: the walk for all but K0, which selects its order
+# statistics over the window kernels' shared pieces.
 REDESIGNED = {
+    "k0": ((_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP), "window_common.cuh"),
+    "k1": ((_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP), "walk_common.cuh"),
     "k2": ((_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _VP),
            "walk_common.cuh"),
     "pass_a": ((_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _F, _VP), "pass_walk.cuh"),
@@ -300,34 +303,44 @@ REDESIGNED = {
 
 @pytest.mark.parametrize("name", list(REDESIGNED))
 def test_redesigned_kernels_keep_their_launch_interface(name):
-    """K2 and passes A-D and BD are launched with the argument lists they
-    had before their redesign; the wrappers and every caller rely on them.
-    Each is built on the walk, says why it leaves the tensor cores alone and
-    reports its blocks an SM; the old walks over all columns are gone from
-    passes_common.cuh."""
+    """K0, K1, K2 and passes A-D and BD are launched with the argument
+    lists they had before their redesign; the wrappers and every caller
+    rely on them. Each includes the header it was rebuilt on (the passes'
+    pass_walk.cuh on walk_common.cuh), says why it leaves the tensor cores
+    alone and reports its blocks an SM; the old walks over all columns are
+    gone from passes_common.cuh."""
     argtypes, header = REDESIGNED[name]
     assert build.ARGTYPES[name] == argtypes
     src = (build.CSRC / f"{name}.cu").read_text()
     assert f'extern "C" int ngpd_{name}_blocks_per_sm(' in src
     assert f'#include "{header}"' in src
     assert "wgmma" in src  # the header says why the tensor cores are not used
-    if header != "walk_common.cuh":
+    if header == "pass_walk.cuh":
         assert '#include "walk_common.cuh"' in (build.CSRC / header).read_text()
     common = (build.CSRC / "passes_common.cuh").read_text()
     for gone in ("step_walk", "nvt_t6", "pack_dist", "prepare_launch", "void stage_rows("):
         assert gone not in common, gone
 
 
-@pytest.mark.parametrize("body", ["NvtSums", "nvt_column", "step_column", "step_pass",
-                                  "stage_rows_pitched"])
-def test_pass_walk_bodies_are_defined_once(body):
-    """Passes B, D and BD share their accumulations: each is defined in
-    pass_walk.cuh and in no kernel source."""
+ONE_DEFINITION = [("NvtSums", "walk_common.cuh"), ("nvt_column", "pass_walk.cuh"),
+                  ("step_column", "pass_walk.cuh"), ("step_pass", "pass_walk.cuh"),
+                  ("stage_rows_pitched", "pass_walk.cuh"), ("SlimRow", "walk_common.cuh"),
+                  ("stage_slim", "walk_common.cuh"), ("nvt_slim_column", "walk_common.cuh"),
+                  ("nvt_mean", "walk_common.cuh")]
+
+
+@pytest.mark.parametrize("body,header", ONE_DEFINITION, ids=[b for b, _ in ONE_DEFINITION])
+def test_pass_walk_bodies_are_defined_once(body, header):
+    """Passes B, D and BD share their accumulations, defined in
+    pass_walk.cuh; K1 and K2 share the slim window's staging and the NVT
+    column body, and every NVT walk the sums and their mean, defined in
+    walk_common.cuh. Each is defined in its header and in no kernel
+    source."""
     import re
 
-    pattern = re.compile(rf"(struct|void|NvtSums)\s+{body}\b\s*[({{]")
+    pattern = re.compile(rf"(struct|enum|void|NvtSums)\s+{body}\b\s*[({{]")
     where = [p.name for p in sorted(build.CSRC.glob("*.cu*")) if pattern.search(p.read_text())]
-    assert where == ["pass_walk.cuh"]
+    assert where == [header]
 
 
 def test_ptxas_report_reads_registers_and_spills(tmp_path):
@@ -407,8 +420,40 @@ def test_kernel_lab_has_a_call_for_every_kernel():
     assert set(kernel_lab.NAMES) <= set(build.SOURCES)
     for table in (kernel_lab.CALLS, kernel_lab.ENTRIES, kernel_lab.GEOMETRY):
         assert set(table) == set(kernel_lab.NAMES)
-    assert {"pass_b", "pass_d", "pass_bd", "k2"} <= set(kernel_lab.NAMES)
+    assert {"k0", "k1", "pass_b", "pass_d", "pass_bd", "k2"} <= set(kernel_lab.NAMES)
     for name in kernel_lab.NAMES:
         assert callable(kernel_lab.CALLS[name])
         kernel, _ = kernel_lab.ENTRIES[name]
         assert kernel in (build.CSRC / f"{name}.cu").read_text()
+    # K0's entry follows the window: its columns a lane, or the shared-memory kernel.
+    assert kernel_lab.entry_of("k0", 512) == ("k0_kernel", (16,))
+    assert kernel_lab.entry_of("k0", 1280) == ("k0_kernel", (64,))
+    assert kernel_lab.entry_of("k0", 2304) == ("k0_wide_kernel", ())
+    assert kernel_lab.entry_of("k2", 2304) == kernel_lab.ENTRIES["k2"]
+
+
+def test_template_entry_reads_int_template_arguments(tmp_path):
+    """K0's register kernel is a template on its columns a lane."""
+    lib = tmp_path / "libngpd_k0_0.so"
+    (tmp_path / "libngpd_k0_0.so.log").write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd9k0_kernelILi16EEEvPKfPKiPfiiiiii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 72 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd9k0_kernelILi64EEEvPKfPKiPfiiiiii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN4ngpd14k0_wide_kernelEPKfPKiPfiiiiii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n")
+    report = build.ptxas_report(lib)
+    assert build.template_entry(report, "k0_kernel", 16)["registers"] == 72
+    assert build.template_entry(report, "k0_kernel", 64)["registers"] == 128
+    assert build.template_entry(report, "k0_kernel", 8) == {}
+    assert build.template_entry(report, "k0_wide_kernel")["registers"] == 40
+    from ngpd_tpu_torch import kernel_lab
+
+    assert kernel_lab.ptxas_of("k0", lib, 1280)["registers"] == 128
+    assert kernel_lab.ptxas_of("k0", lib, 4352)["registers"] == 40

@@ -10,11 +10,13 @@ dropped, the lagged delta read from the wrong slot, a padding row moved)
 and expects the check to end the run. The cloud is
 ``make_corner_cloud(16_384)``, where every class has over a hundred
 points in the first iteration (``test_right_passes_pass`` asserts it),
-so every step runs on over a hundred. For the window walk of K2 and pass
+so every step runs on over a hundred. For the window walk of K1, K2 and pass
 BD a stand-in drops one 32-column word of every window, what an
 over-eager word skip or a wrong tail mask would do, and must end
 ``check_kernels`` and ``check_pass_bd``; the same stand-in for any of
-passes A-D must end ``check_passes``.
+passes A-D must end ``check_passes``. A K0 whose rk_feat is one
+bisection step off (23 steps), what a replay that lost a step would
+give, must end ``check_kernels`` too.
 """
 
 import functools
@@ -211,6 +213,40 @@ def test_right_window_kernels_pass(no_cuda_sync):
 
 def test_k2_that_drops_a_word_fails(no_cuda_sync, monkeypatch):
     monkeypatch.setattr(kw, "k2", _k2_dropping_a_word)
+    with pytest.raises(SystemExit):
+        cs.check_kernels(CFG, _hybrid_state(), DEFAULT, timed=False)
+
+
+def _k1_dropping_a_word(pack, win, angle):
+    """The plain K1 on windows whose word DROPPED_WORD reads as masked."""
+    original = kw._col_valid
+    kw._col_valid = lambda *a: _without_word(original(*a))
+    try:
+        return kw.k1_plain(pack, win, kw.cos_f32(angle))
+    finally:
+        kw._col_valid = original
+
+
+def _k0_rk_feat_a_step_off(pack, win, feature_k, step_k):
+    """The plain K0 with rk_feat after 23 bisection steps instead of 24."""
+    out = kw.k0_plain(pack, win, feature_k, step_k)
+    steps = kw._SEARCH_ITERS
+    kw._SEARCH_ITERS = steps - 1
+    try:
+        out[0] = kw.k0_plain(pack, win, feature_k, step_k)[0]
+    finally:
+        kw._SEARCH_ITERS = steps
+    return out
+
+
+WINDOW_MUTANTS = {"k1-dropped-word": ("k1", _k1_dropping_a_word),
+                  "k0-rk-feat-a-step-off": ("k0", _k0_rk_feat_a_step_off)}
+
+
+@pytest.mark.parametrize("mutant", list(WINDOW_MUTANTS))
+def test_wrong_window_kernel_fails(no_cuda_sync, monkeypatch, mutant):
+    wrapper, wrong = WINDOW_MUTANTS[mutant]
+    monkeypatch.setattr(kw, wrapper, wrong)
     with pytest.raises(SystemExit):
         cs.check_kernels(CFG, _hybrid_state(), DEFAULT, timed=False)
 
