@@ -56,11 +56,25 @@ exit code and no result line:
              card against the CPU path after 2 iterations (mask-flip
              bound), then 20 iterations on the card, wall time and CD gate
   dense      the dense (N, k) pipeline (plain torch, no kernel):
-             ``denoise`` on 65,536 points, 2 iterations, the CD must fall;
+             ``denoise`` on 32,768 points, 2 iterations, the CD must fall;
              the CLI on an OBJ of that cloud without normals (estimated
              normals, dense route) and with ``--until-min --gt``; three
              steps of ``denoise_until_minimum_error_windowed`` at 100k
              points, K0/K1/K2 launched once a step
+  mesh       the mesh cascade (plain torch, no kernel): ``bench.run_mesh``,
+             icosphere subdivision 6 (81,920 faces), noise 0.3, two passes
+             of the full-width DGCNN with the committed checkpoints, batch
+             2048; faces/s, the Ea gate (ratio <= 0.35), no kernel
+             launched; then one pass's stages, each synchronized (the
+             host's adjacency build, centroid kNN, patch extraction, DGCNN
+             forward, guided filter), and the peak of allocated device memory
+  mesh_reference  the cascade's card path against its CPU path on an
+             icosphere of subdivision 3 (1,280 faces), two passes; then the
+             card path with TF32 on, a wrong stand-in the rule must refuse
+  mesh_cli   ``python -m ngpd_tpu_torch.apps.cli denoise-mesh`` on an OBJ
+             of a noisy ``cad_suite`` box with both checkpoints, ``--gcns 2
+             --pass2 4:0.12:2 --gt``, then with ``--auto``: Ea must fall
+             both times; prints the recipe it picked
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
@@ -80,24 +94,34 @@ import numpy as np
 import torch
 
 from ngpd_tpu_torch import bench
-from ngpd_tpu_torch.config import DenoiseConfig
+from ngpd_tpu_torch.config import DenoiseConfig, GNFConfig
 from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import (
     denoise_hybrid, denoise_passes, passes_prologue, prologue,
 )
 from ngpd_tpu_torch.core.fused import fused_denoise
+from ngpd_tpu_torch.core.noise import draw_noise
 from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
-from ngpd_tpu_torch.io.obj import save_obj
+from ngpd_tpu_torch.io.obj import load_obj, save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
+from ngpd_tpu_torch.learn.weights import load_dgcnn_state_dict
+from ngpd_tpu_torch.meshproc import gcn_denoiser as gcn
+from ngpd_tpu_torch.meshproc.filtering import guided_normal_filter
+from ngpd_tpu_torch.meshproc.metrics import mean_angular_error
+from ngpd_tpu_torch.meshproc.patches import extract_mesh_patches, unrotate_predictions
+from ngpd_tpu_torch.meshproc.synthetic import box
+from ngpd_tpu_torch.meshproc.trimesh import add_mesh_noise
+from ngpd_tpu_torch.models.dgcnn import EDGE_CHANNELS, dgcnn_from_state_dict
+from ngpd_tpu_torch.ops import metrics
 
 ROOT = Path(__file__).resolve().parent
 MAIN_N, MAIN_K, MAIN_ITERS = 1_000_000, 32, 20
 VARIANT_N = 65_536
 CLI_N = 100_000
-DENSE_N = 65_536  # under the CLI's 100k route to the hybrid engine
+DENSE_N = 32_768  # under the CLI's 100k route to the hybrid engine
 # fused_denoise maps its tiles in groups of 16, the reference bench's
 # fused setting (bench.py:246-250): a fourth of the default's launches.
 FUSED_N, FUSED_ITERS, FUSED_GROUP = 65_536, 20, 16
@@ -124,10 +148,18 @@ REL_TOL = 1e-5
 # corner points) may show no flip at all.
 PASS_TOL, FLIP_SHARE, FLIP_MAX = 1e-5, 1e-3, 2e-2
 MIN_CLASS_POINTS = 100  # pass_variants: points each class must have
+# The mesh cascade: the reference bench's workload (bench.py:143-173) and
+# a small mesh whose CPU run stays within seconds (~0.5 GFLOP a face).
+MESH_SUBDIV, MESH_REF_SUBDIV = 6, 3
+
+
+T_START = time.perf_counter()
 
 
 def say(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's wall time when it ended."""
+    print(json.dumps({"phase": phase, **fields,
+                      "ended_at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -570,7 +602,8 @@ def check_k0_wide(cfg) -> list[dict]:
     """K0 past 2,048 window columns (k0_wide_kernel) against k0_plain on
     the CLI's >= 100k route with --window 1024 and 2048: thresholds and
     counts bit for bit, edge sums to REL_TOL; one launch's time (median of
-    25) and its bound."""
+    25), its bound and the time of torch.topk on the same window-distance
+    block (the library yardstick of K0's row)."""
     noisy, nrm, _ = bench.make_cloud(CLI_N)
     out = []
     for window in K0_WIDE_WINDOWS:
@@ -584,9 +617,18 @@ def check_k0_wide(cfg) -> list[dict]:
             fail(f"K0 at wt_c {win.wt_c} disagrees with k0_plain: exact={exact} err={err}")
         b_ms, by = bound(4 * win.n * (3 + 8),
                          win.n * win.wt_c * K0_PAIR_OPS + win.n * K0_QUERY_OPS)
+        # The K0 row's library yardstick at this width: torch.topk of the
+        # (n, wt_c) window-distance block.
+        blk = torch.empty((win.n, win.wt_c), dtype=torch.float32, device=pack.device)
+        for rows, d, _ in window_dists(pack, win):
+            blk[rows] = d
+        library_ms = time_launches(
+            lambda: torch.topk(blk, cfg.feature_k, dim=1, largest=False), reps=10)
+        del blk
         out.append({"window": window, "wt_c": win.wt_c, "n": win.n, "max_abs_err": err[0],
                     "ms": time_launches(lambda: kw.k0(pack, win, cfg.feature_k, cfg.step_k)),
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                    "library_ms": library_ms,
                     **k0_selection(pack, win, cfg.feature_k, cfg.step_k, got),
                     **build_facts("k0", *entry_of("k0", win.wt_c),
                                   (win.tile, win.wt_c))})
@@ -678,6 +720,13 @@ def run_cli(tmp: str, *args: str) -> tuple[str, float]:
     return r.stdout, time.perf_counter() - t0
 
 
+def obj_cd(gt_path: str, path: str) -> float:
+    """What the CLI's ``eval`` reports as ``cd`` (the ``cli`` phase runs
+    that command once), here without a process start."""
+    gt = load_obj(gt_path).points.to("cuda")
+    return float(torch.mean(metrics.chamfer_distance(load_obj(path).points.to("cuda"), gt)))
+
+
 def check_dense() -> dict:
     """The dense (N, k) pipeline on the card: ``denoise``, the CLI's
     estimated-normals and until-min routes, and the windowed until-min
@@ -700,18 +749,17 @@ def check_dense() -> dict:
         save_obj(f"{tmp}/noisy.obj", noisy, nrm)
         save_obj(f"{tmp}/clean.obj", clean)
 
-        def cd_of(path):
-            return json.loads(run_cli(tmp, "eval", f"{tmp}/clean.obj", path)[0])["cd"]
+        def cd_of(name):
+            return obj_cd(f"{tmp}/clean.obj", f"{tmp}/{name}.obj")
 
-        cd_in = cd_of(f"{tmp}/noisy.obj")
+        cd_in = cd_of("noisy")
         _, est_s = run_cli(tmp, "denoise", f"{tmp}/bare.obj", "-o", f"{tmp}/est.obj")
         said, until_s = run_cli(tmp, "denoise", f"{tmp}/noisy.obj", "-o", f"{tmp}/until.obj",
                                 "--until-min", "--gt", f"{tmp}/clean.obj", "--iterations", "3")
         rec["cli_estimated_normals"] = {"seconds": est_s, "cd_noisy": cd_in,
-                                        "cd_denoised": cd_of(f"{tmp}/est.obj")}
+                                        "cd_denoised": cd_of("est")}
         rec["cli_until_min"] = {"seconds": until_s, "cd_noisy": cd_in,
-                                "cd_denoised": cd_of(f"{tmp}/until.obj"),
-                                "said": said.splitlines()[0]}
+                                "cd_denoised": cd_of("until"), "said": said.splitlines()[0]}
     for key in ("cli_estimated_normals", "cli_until_min"):
         if not rec[key]["cd_denoised"] < cd_in:
             fail(f"{key} did not lower the CD: {rec[key]}")
@@ -731,6 +779,135 @@ def check_dense() -> dict:
         fail(f"windowed until-min: {rec['windowed_until_min']}")
     if not torch.isfinite(w_pos).all():
         fail("windowed until-min returned non-finite positions")
+    return rec
+
+
+def dgcnn_flop_per_patch(p: int = 64, k: int = 8, emb: int = 1024) -> int:
+    """Multiply-adds x 2 of one patch through the DGCNN's dense layers."""
+    dims = (17,) + EDGE_CHANNELS
+    convs = sum(2 * p * k * 2 * cin * cout for cin, cout in zip(dims, dims[1:]))
+    return convs + 2 * p * sum(EDGE_CHANNELS) * emb + 2 * (2 * emb * 512 + 512 * 256
+                                                           + 256 * 64 + 64 * 3)
+
+
+def check_mesh() -> dict:
+    """The mesh cascade at full size on the card (bench.run_mesh), with no
+    kernel launched; then one pass's stages timed one by one and the peak
+    of allocated device memory."""
+    kw.reset_launch_counts()
+    kp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rec = bench.run_mesh(MESH_SUBDIV, "cuda")
+    rec["kernel_launches"] = {**kw.LAUNCHES, **kp.LAUNCHES}
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    if rec["quality_gate"] != "pass" or not rec["finite"]:
+        fail(f"mesh cascade: {rec}")
+    if any(rec["kernel_launches"].values()):
+        fail(f"the mesh cascade launched a window or pass kernel: {rec['kernel_launches']}")
+
+    _, noisy = bench.mesh_workload(MESH_SUBDIV)
+    noisy = noisy.to("cuda")
+    model = dgcnn_from_state_dict(load_dgcnn_state_dict(bench.ASSETS / "dgcnn_mesh.npz"))
+    model = model.to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # Built on the host in numpy once a pass's mesh, shared by patches and filter.
+    _, adj_ms = time_once(lambda: (noisy.face_face_adjacency(), noisy.vertex_face_adjacency()))
+    pre, knn_ms = time_once(lambda: gcn.centroid_knn(noisy, 64))
+    patches, patch_ms = time_once(lambda: extract_mesh_patches(noisy, pre_nbh=pre,
+                                                               device="cuda"))
+    pred, dgcnn_ms = time_once(lambda: gcn.run_dgcnn(model, patches.inputs, bench.MESH_BATCH))
+    guidance = unrotate_predictions(pred / pred.norm(dim=1, keepdim=True).clamp(min=1e-12),
+                                    patches.rotations)
+    _, gnf_ms = time_once(lambda: guided_normal_filter(noisy, guidance, GNFConfig(),
+                                                       pre_nbh=pre, device="cuda"))
+    nf = noisy.num_faces
+    flop = nf * dgcnn_flop_per_patch()
+    rec["stages_one_pass_ms"] = {"adjacency": adj_ms, "centroid_knn": knn_ms,
+                                 "patches": patch_ms, "dgcnn": dgcnn_ms, "gnf": gnf_ms}
+    rec["stage_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["dgcnn_flop_one_pass"] = flop
+    rec["dgcnn_tflop_per_s"] = flop / (dgcnn_ms / 1e3) / 1e12
+    return rec
+
+
+def tf32_cascade(noisy):
+    """The card cascade with TF32 on in every float32 product, which the
+    port's entry points turn off (``exact_float32``)."""
+    import ngpd_tpu_torch.meshproc.patches as patches_mod
+
+    def allow_tf32():
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    saved = gcn.exact_float32, patches_mod.exact_float32
+    gcn.exact_float32 = patches_mod.exact_float32 = allow_tf32
+    try:
+        return bench.mesh_cascade("cuda")(noisy).to("cpu")
+    finally:
+        gcn.exact_float32, patches_mod.exact_float32 = saved
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def check_mesh_reference() -> dict:
+    """The cascade's card path against its CPU path (held against ngpd_tpu
+    by the tests) on a small icosphere, two passes: Ea within
+    bench.MESH_EA_TOL, the vertices within the cascade's own spread under a
+    one-ulp change of its input (``bench.within_spread``), read on the card
+    where a run takes a second, not on the CPU. The card path with TF32 on
+    must fail one of the two."""
+    clean, noisy = bench.mesh_workload(MESH_REF_SUBDIV)
+    on_card = bench.mesh_cascade("cuda")
+    g = on_card(noisy).to("cpu")
+    c = bench.mesh_cascade("cpu")(noisy)
+    spreads = [on_card(noisy.with_vertices(torch.as_tensor(bench.nudged(noisy.v, s)))).v.cpu()
+               for s in bench.SPREAD_SEEDS]
+    ea_cpu = float(mean_angular_error(c, clean))
+
+    def judge(run):
+        rec = {"ea": float(mean_angular_error(run, clean)),
+               "finite": bool(torch.isfinite(run.v).all()),
+               **bench.within_spread(run.v, c.v, spreads, base=g.v)}
+        rec["agrees"] = (rec["ok"] and rec["finite"]
+                         and abs(rec["ea"] - ea_cpu) <= bench.MESH_EA_TOL)
+        return rec
+
+    rec = {"faces": clean.num_faces, "ea_noisy": float(mean_angular_error(noisy, clean)),
+           "ea_cpu": ea_cpu, "card": judge(g), "card_tf32": judge(tf32_cascade(noisy))}
+    if not rec["card"]["agrees"]:
+        fail(f"mesh_reference: card and CPU cascades disagree: {rec}")
+    if rec["card_tf32"]["agrees"]:
+        fail(f"mesh_reference: the rule passed the card cascade with TF32 on: {rec}")
+    return rec
+
+
+def check_mesh_cli() -> dict:
+    """``denoise-mesh`` on an OBJ of a noisy box: the two-pass cascade with
+    both checkpoints and the gentle second pass, then ``--auto``."""
+    clean = box(n=10)
+    noisy = add_mesh_noise(clean, draw_noise(clean.num_vertices,
+                                             torch.Generator().manual_seed(0)), 0.45)
+    ckpt = [f"--ckpt={bench.ASSETS / 'dgcnn_mesh.npz'}",
+            f"--ckpt2={bench.ASSETS / 'dgcnn_mesh_2.npz'}"]
+
+    def ea(said, when):
+        line = next(ln for ln in said.splitlines() if ln.startswith(f"Ea {when}:"))
+        return float(line.split()[2])
+
+    rec = {"faces": clean.num_faces}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_obj(f"{tmp}/noisy.obj", noisy.v.numpy(), faces=noisy.f.numpy())
+        save_obj(f"{tmp}/clean.obj", clean.v.numpy(), faces=clean.f.numpy())
+        for name, extra in (("cascade", ["--gcns", "2", "--pass2", "4:0.12:2"]),
+                            ("auto", ["--auto"])):
+            said, secs = run_cli(tmp, "denoise-mesh", f"{tmp}/noisy.obj", "-o",
+                                 f"{tmp}/{name}.obj", "--gt", f"{tmp}/clean.obj",
+                                 *ckpt, *extra)
+            rec[name] = {"seconds": secs, "ea_before": ea(said, "before"),
+                         "ea_after": ea(said, "after")}
+            if name == "auto":
+                rec[name]["recipe"] = next(ln for ln in said.splitlines()
+                                           if ln.startswith("auto recipe:"))
+            if not rec[name]["ea_after"] < rec[name]["ea_before"]:
+                fail(f"denoise-mesh {name} did not lower Ea: {rec[name]}")
     return rec
 
 
@@ -816,10 +993,10 @@ def main() -> int:
         save_obj(f"{tmp}/noisy.obj", cn, cnrm)
         save_obj(f"{tmp}/clean.obj", cclean)
         _, dn_s = run_cli(tmp, "denoise", f"{tmp}/noisy.obj", "-o", f"{tmp}/out.obj")
-        e_in, e_out = (json.loads(run_cli(tmp, "eval", f"{tmp}/clean.obj", path)[0])
-                       for path in (f"{tmp}/noisy.obj", f"{tmp}/out.obj"))
-    say("cli", n=CLI_N, denoise_seconds=dn_s, cd_noisy=e_in["cd"], cd_denoised=e_out["cd"])
-    if not e_out["cd"] < e_in["cd"]:
+        cd_in = obj_cd(f"{tmp}/clean.obj", f"{tmp}/noisy.obj")
+        e_out = json.loads(run_cli(tmp, "eval", f"{tmp}/clean.obj", f"{tmp}/out.obj")[0])
+    say("cli", n=CLI_N, denoise_seconds=dn_s, cd_noisy=cd_in, cd_denoised=e_out["cd"])
+    if not e_out["cd"] < cd_in:
         fail("CLI denoise did not lower the CD")
 
     # K0 past 64 columns a lane
@@ -869,6 +1046,11 @@ def main() -> int:
 
     # the dense (N, k) pipeline and the rest of the CLI's routes
     say("dense", **check_dense())
+
+    # the mesh cascade (plain torch, no kernel)
+    say("mesh", **check_mesh())
+    say("mesh_reference", **check_mesh_reference())
+    say("mesh_cli", **check_mesh_cli())
 
     kernels = []
     sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),

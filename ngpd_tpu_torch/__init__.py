@@ -8,7 +8,10 @@ the pass engine (``core.cuda_fused.denoise_passes``) with passes A-D
 C++ (``kernels/``); the dense ``(N, k)`` pipeline in plain torch
 (``core.pipeline.denoise`` and the until-minimum-error loops, kNN,
 voting, the six steps, normal estimation); the IO, the metrics, the
-``denoise``/``eval`` CLI and the throughput bench.
+``denoise``/``eval`` CLI and the throughput bench; the mesh cascade in
+plain torch (``meshproc``, ``models.dgcnn``, ``learn.weights``: the guided
+normal filter, the DGCNN patch network, the two-pass ``gcn_denoise_mesh``,
+the recipe router, the ``denoise-mesh`` CLI and ``bench --mesh``).
 """
 
 from .config import DenoiseConfig

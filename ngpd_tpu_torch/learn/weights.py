@@ -1,0 +1,129 @@
+"""DGCNN weights for the port: the repo's flat ``.npz`` archives of Flax
+variables and the reference's torch checkpoints, as a state dict of
+``ngpd_tpu_torch.models.dgcnn.DGCNN``.
+
+``load_dgcnn_npz`` is a copy of ``ngpd_tpu/learn/weights.py``'s (keys
+``params/...`` and ``batch_stats/...`` joined by ``/``); ``state_dict_from_variables``
+follows ``torch_state_dict_from_variables`` of
+``ngpd_tpu/learn/torch_interop.py``:
+
+========================  ===========================================
+torch parameter           Flax variable
+========================  ===========================================
+conv{i}.0.weight          params/conv{i}/Dense_0/kernel   (i = 1..6,
+  (C_out, C_in, 1, 1)       transposed from (C_in, C_out))
+bn{i}.weight / .bias      params/conv{i}/BatchNorm_0/{scale,bias}
+bn{i}.running_mean/var    batch_stats/conv{i}/BatchNorm_0/{mean,var}
+conv7.0.weight (E,1024,1) params/conv7/kernel (1024, E)
+bn7.*                     params/bn7 + batch_stats/bn7
+linear1.weight (512,2E)   params/linear1/kernel (2E, 512)   [no bias]
+bn8/9/10.*                params/bn8/9/10 + batch_stats
+linear2/3/4.weight+bias   params/linear{2,3,4}/{kernel,bias}
+========================  ===========================================
+
+with the ``conv{i}.1`` aliases of the shared BatchNorms and
+``num_batches_tracked``, so a strict ``load_state_dict`` takes it.
+``load_dgcnn_state_dict`` reads either kind of file.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Mapping, Union
+
+import numpy as np
+import torch
+
+_NUM_EDGE_CONVS = 6
+
+
+def unflatten_variables(flat: Mapping) -> dict:
+    out: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(value)
+    return out
+
+
+def load_dgcnn_npz(path: Union[str, Path]) -> dict:
+    """npz archive -> {"params", "batch_stats"} of numpy arrays."""
+    with np.load(str(path)) as data:
+        flat = {k: data[k] for k in data.files}
+    tree = unflatten_variables(flat)
+    if "batch_stats" not in tree:
+        tree["batch_stats"] = {}
+    return tree
+
+
+def _bn_out(sd: dict, torch_name: str, bn_p: Mapping, bn_s: Mapping) -> None:
+    sd[f"{torch_name}.weight"] = bn_p["scale"]
+    sd[f"{torch_name}.bias"] = bn_p["bias"]
+    sd[f"{torch_name}.running_mean"] = bn_s["mean"]
+    sd[f"{torch_name}.running_var"] = bn_s["var"]
+    sd[f"{torch_name}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def state_dict_from_variables(variables: Mapping) -> dict:
+    """Flax DGCNN variables (numpy) -> the port's state dict (tensors)."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    sd: dict = {}
+    for i in range(1, _NUM_EDGE_CONVS + 1):
+        sd[f"conv{i}.0.weight"] = params[f"conv{i}"]["Dense_0"]["kernel"].T[:, :, None, None]
+        bn_p = params[f"conv{i}"]["BatchNorm_0"]
+        bn_s = stats[f"conv{i}"]["BatchNorm_0"]
+        _bn_out(sd, f"bn{i}", bn_p, bn_s)
+        _bn_out(sd, f"conv{i}.1", bn_p, bn_s)
+    sd["conv7.0.weight"] = params["conv7"]["kernel"].T[:, :, None]
+    _bn_out(sd, "bn7", params["bn7"], stats["bn7"])
+    _bn_out(sd, "conv7.1", params["bn7"], stats["bn7"])
+    sd["linear1.weight"] = params["linear1"]["kernel"].T
+    _bn_out(sd, "bn8", params["bn8"], stats["bn8"])
+    for li in (2, 3, 4):
+        sd[f"linear{li}.weight"] = params[f"linear{li}"]["kernel"].T
+        sd[f"linear{li}.bias"] = params[f"linear{li}"]["bias"]
+        if li < 4:
+            _bn_out(sd, f"bn{li + 7}", params[f"bn{li + 7}"], stats[f"bn{li + 7}"])
+    return {k: torch.as_tensor(np.ascontiguousarray(
+                v, np.int64 if k.endswith("num_batches_tracked") else np.float32))
+            for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path: Union[str, Path]) -> dict:
+    """A reference checkpoint file -> a plain state dict on the CPU: a
+    ``.t7`` pickled state dict or a TorchScript ``.pt`` module."""
+    path = str(path)
+    try:
+        # Safe loader first: tensors only, no pickled code execution.
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        try:
+            # TorchScript archives are zip containers the safe loader
+            # rejects; jit.load reads only the graph and the tensors.
+            sd = torch.jit.load(path, map_location="cpu").state_dict()
+        except Exception:
+            # Full unpickling executes code embedded in the file, so it is
+            # opt-in only.
+            if not os.environ.get("NGPD_UNSAFE_TORCH_LOAD"):
+                raise RuntimeError(
+                    f"{path} is neither a weights-only checkpoint nor a "
+                    "TorchScript archive. Loading it requires full "
+                    "unpickling, which executes arbitrary code from the "
+                    "file; set NGPD_UNSAFE_TORCH_LOAD=1 only if you "
+                    "trust its origin.")
+            sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):  # a full module was pickled
+        sd = sd.state_dict()
+    return dict(sd)
+
+
+def load_dgcnn_state_dict(path: Union[str, Path]) -> dict:
+    """A checkpoint of either lineage -> the port's state dict: ``.npz``
+    (Flax variables) or ``.t7`` / ``.pt`` (torch)."""
+    if str(path).endswith(".npz"):
+        return state_dict_from_variables(load_dgcnn_npz(path))
+    return load_torch_checkpoint(path)

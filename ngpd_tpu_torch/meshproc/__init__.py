@@ -1,0 +1,2 @@
+"""The mesh cascade: mesh container, synthetic shapes, metrics, bucketing,
+guided normal filtering, patches, the GCN denoiser, the recipe router."""

@@ -13,7 +13,10 @@ ten kernels with the most device time. ``--passes`` profiles the
 pass engine (``denoise_passes``, exact delta) on the same cloud instead,
 grouped by pass A-D and torch (prologue, packs, delta state, sort);
 ``--lagged`` its lagged-delta mode (pass A, the fused pass BD, torch).
-Needs a card.
+``--mesh`` profiles the two-pass mesh cascade of ``bench.run_mesh`` (plain
+torch, no kernel of the port; 81,920 faces), grouped by
+what torch's kernels do (matrix products, top-k and sorts, gathers and
+scatters, reductions, the rest). Needs a card.
 """
 
 from __future__ import annotations
@@ -32,23 +35,46 @@ def _group(name: str) -> str:
     return "torch"
 
 
+# Kernel-name fragments of torch's CUDA kernels, first match wins.
+_MESH_GROUPS = (("matmul", ("gemm", "cutlass", "cublas", "xmma")),
+                ("topk_sort", ("topk", "sort", "radix", "bitonic")),
+                ("gather_scatter", ("index", "gather", "scatter")),
+                ("reduce", ("reduce",)))
+
+
+def _mesh_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in _MESH_GROUPS:
+        if any(key in low for key in keys):
+            return group
+    return "elementwise_other"
+
+
 def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
-    """``engine``: "hybrid", "passes" (exact delta) or "passes_lagged"."""
+    """``engine``: "hybrid", "passes" (exact delta), "passes_lagged" or
+    "mesh" (the bench's cascade; n, iters and k unused)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from .bench import make_cloud
+    from .bench import make_cloud, mesh_cascade, mesh_workload
     from .config import DenoiseConfig
     from .core.cuda_fused import denoise_hybrid, denoise_passes
     from .device import resolve_device
 
     dev = resolve_device("cuda")
-    noisy, nrm, _ = make_cloud(n)
-    pts = torch.as_tensor(noisy, device=dev)
-    nr = torch.as_tensor(nrm, device=dev)
-    cfg = DenoiseConfig(feature_k=k, step_k=8)
+    if engine == "mesh":
+        cascade = mesh_cascade(dev)
+        mesh = mesh_workload()[1].to(dev)
+        n = mesh.num_faces
+    else:
+        noisy, nrm, _ = make_cloud(n)
+        pts = torch.as_tensor(noisy, device=dev)
+        nr = torch.as_tensor(nrm, device=dev)
+        cfg = DenoiseConfig(feature_k=k, step_k=8)
 
     def once():
-        if engine != "hybrid":
+        if engine == "mesh":
+            cascade(mesh)
+        elif engine != "hybrid":
             denoise_passes(pts, nr, cfg, iterations=iters, device=dev,
                            delta_mode="lagged" if engine == "passes_lagged" else "exact")
         else:
@@ -67,7 +93,8 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
             continue
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
-        g = groups.setdefault(_group(e.name), {"ms": 0.0, "kernels": 0})
+        g = groups.setdefault((_mesh_group if engine == "mesh" else _group)(e.name),
+                              {"ms": 0.0, "kernels": 0})
         g["ms"] += (t - s) / 1e3
         g["kernels"] += 1
         per_name[e.name] = per_name.get(e.name, 0.0) + (t - s) / 1e3
@@ -102,6 +129,8 @@ def main(argv=None):
                        help="profile the pass engine (exact delta) instead of the hybrid")
     which.add_argument("--lagged", action="store_const", dest="engine",
                        const="passes_lagged", help="profile the pass engine in lagged-delta mode")
+    which.add_argument("--mesh", action="store_const", dest="engine", const="mesh",
+                       help="profile the two-pass mesh cascade (bench.run_mesh's workload)")
     args = ap.parse_args(argv)
     print(json.dumps(profile_run(args.n, args.iters, args.k, args.engine or "hybrid")))
 

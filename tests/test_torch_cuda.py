@@ -409,3 +409,24 @@ def test_card_dense_denoise_matches_cpu(cuda_device):
     assert float(same.float().mean()) >= 0.999
     diff = (g.cpu() - c).abs().amax(dim=1)
     assert float((diff[same] <= 1e-5).float().mean()) >= 0.999 and float(diff.max()) <= 2e-2
+
+
+def test_card_mesh_cascade_matches_cpu(cuda_device):
+    """The two-pass mesh cascade (plain torch) on an icosphere(3), card
+    against CPU: Ea within 0.01 degrees, the vertices within the
+    cascade's own spread under a one-ulp change of its input, read on the
+    card."""
+    from ngpd_tpu_torch import bench
+    from ngpd_tpu_torch.meshproc.metrics import mean_angular_error
+
+    clean, noisy = bench.mesh_workload(3)
+    on_card = bench.mesh_cascade(cuda_device)
+    g = on_card(noisy).to("cpu")
+    c = bench.mesh_cascade("cpu")(noisy)
+    spreads = [on_card(noisy.with_vertices(torch.as_tensor(bench.nudged(noisy.v, s)))).v.cpu()
+               for s in bench.SPREAD_SEEDS]
+    rec = bench.within_spread(g.v, c.v, spreads, base=g.v)
+    assert rec["ok"] and torch.isfinite(g.v).all(), rec
+    ea_g, ea_c = (float(mean_angular_error(m, clean)) for m in (g, c))
+    assert abs(ea_g - ea_c) <= bench.MESH_EA_TOL and ea_g < float(
+        mean_angular_error(noisy, clean)) / 2

@@ -46,6 +46,48 @@ def test_default_device_is_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_denoise_mesh_without_a_card_raises(tmp_path):
+    """``denoise-mesh`` defaults to the card and does not carry on on the
+    CPU without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    from ngpd_tpu_torch.apps import cli
+    from ngpd_tpu_torch.io.obj import save_obj
+    from ngpd_tpu_torch.meshproc.synthetic import icosphere
+
+    mesh = icosphere(subdiv=1)
+    save_obj(tmp_path / "in.obj", mesh.v.numpy(), faces=mesh.f.numpy())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["denoise-mesh", str(tmp_path / "in.obj"), "-o", str(tmp_path / "out.obj")])
+    assert not (tmp_path / "out.obj").exists()
+
+
+def _mesh_entry_points():
+    from ngpd_tpu_torch import bench
+    from ngpd_tpu_torch.meshproc import autorecipe, filtering, gcn_denoiser, patches
+    from ngpd_tpu_torch.meshproc.synthetic import icosphere
+    from ngpd_tpu_torch.models.dgcnn import DGCNN
+
+    mesh = icosphere(subdiv=1)
+    normals = mesh.face_data()[0]
+    return {"gcn_denoise_mesh": lambda: gcn_denoiser.gcn_denoise_mesh(mesh, DGCNN()),
+            "predict_face_normals": lambda: gcn_denoiser.predict_face_normals(mesh, DGCNN()),
+            "extract_mesh_patches": lambda: patches.extract_mesh_patches(mesh),
+            "guided_normal_filter": lambda: filtering.guided_normal_filter(mesh, normals),
+            "pick_recipe": lambda: autorecipe.pick_recipe(mesh),
+            "run_mesh": lambda: bench.run_mesh(subdiv=1)}
+
+
+@pytest.mark.parametrize("name", ["gcn_denoise_mesh", "predict_face_normals",
+                                  "extract_mesh_patches", "guided_normal_filter",
+                                  "pick_recipe", "run_mesh"])
+def test_mesh_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _mesh_entry_points()[name]()
+
+
 def _small_pack():
     n = padded_size(300, 128, 64, 1)[0]
     pack = torch.rand((8, n))
