@@ -74,7 +74,26 @@ exit code and no result line:
   mesh_cli   ``python -m ngpd_tpu_torch.apps.cli denoise-mesh`` on an OBJ
              of a noisy ``cad_suite`` box with both checkpoints, ``--gcns 2
              --pass2 4:0.12:2 --gt``, then with ``--auto``: Ea must fall
-             both times; prints the recipe it picked
+             both times; prints the recipe it picked; the cascade's run also
+             writes ``--html`` (the viewer, with error-map colours)
+  point_normals  the learned point track (plain torch, no kernel):
+             ``predict_cloud_normals`` on the noisy ``make_cloud(100_000)``
+             with normals estimated, the full-width Patch2Normal (seeded),
+             batch 1,024; points/s (best of 2 after a warm-up), each stage
+             synchronized (normal estimation, ``md_selection``'s two kNN,
+             the patch build, the model forward, the un-rotation), the
+             model's TFLOP/s and peak allocated memory; unit normals and no
+             window or pass kernel launched
+  point_normals_reference  card against CPU on 1,024 points (768 held
+             once and 256 twice, each copy with its own noisy normal), the
+             full-width model with its BatchNorm statistics refreshed by one
+             train-mode step: the model on identical patch inputs within
+             POINT_MODEL_TOL, with TF32 on beyond it; the normals within the
+             path's own spread read on the card (``bench.within_spread``)
+  point_cli  ``add-noise`` on a clean 20,000-point OBJ cloud with
+             ``--save-noise``, ``--load-noise`` reproducing it bit for bit,
+             ``add-noise`` on the ``cad_suite`` box, ``predict-normals`` on
+             the noisy cloud with an ``.npz`` of the seeded model
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
@@ -94,20 +113,24 @@ import numpy as np
 import torch
 
 from ngpd_tpu_torch import bench
-from ngpd_tpu_torch.config import DenoiseConfig, GNFConfig
+from ngpd_tpu_torch.config import DenoiseConfig, GNFConfig, ModelConfig
 from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import (
     denoise_hybrid, denoise_passes, passes_prologue, prologue,
 )
 from ngpd_tpu_torch.core.fused import fused_denoise
+from ngpd_tpu_torch.core import patches as point_patches
 from ngpd_tpu_torch.core.noise import draw_noise
 from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
-from ngpd_tpu_torch.io.obj import load_obj, save_obj
+from ngpd_tpu_torch.io.obj import load_obj, read_obj, save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
-from ngpd_tpu_torch.learn.weights import load_dgcnn_state_dict
+from ngpd_tpu_torch.core.normals import estimated_normals
+from ngpd_tpu_torch.learn.predict import predict_cloud_normals, unrotate
+from ngpd_tpu_torch.learn.weights import (load_dgcnn_state_dict, save_variables_npz,
+                                          variables_from_patch2normal_state_dict)
 from ngpd_tpu_torch.meshproc import gcn_denoiser as gcn
 from ngpd_tpu_torch.meshproc.filtering import guided_normal_filter
 from ngpd_tpu_torch.meshproc.metrics import mean_angular_error
@@ -115,6 +138,7 @@ from ngpd_tpu_torch.meshproc.patches import extract_mesh_patches, unrotate_predi
 from ngpd_tpu_torch.meshproc.synthetic import box
 from ngpd_tpu_torch.meshproc.trimesh import add_mesh_noise
 from ngpd_tpu_torch.models.dgcnn import EDGE_CHANNELS, dgcnn_from_state_dict
+from ngpd_tpu_torch.models.patch2normal import init_patch2normal
 from ngpd_tpu_torch.ops import metrics
 
 ROOT = Path(__file__).resolve().parent
@@ -151,6 +175,18 @@ MIN_CLASS_POINTS = 100  # pass_variants: points each class must have
 # The mesh cascade: the reference bench's workload (bench.py:143-173) and
 # a small mesh whose CPU run stays within seconds (~0.5 GFLOP a face).
 MESH_SUBDIV, MESH_REF_SUBDIV = 6, 3
+# The learned point track: the CLI cell's cloud, the reference's batch
+# (learn/predict.py); the card-against-CPU cloud, its points held twice, and
+# the patches whose train-mode step refreshes the BatchNorm statistics.
+POINT_N, POINT_BATCH = 100_000, 1024
+POINT_REF_UNIQUE, POINT_REF_TWICE, POINT_BN_PATCHES = 768, 256, 64
+POINT_CLI_N = 20_000
+# Raw model outputs on identical patch inputs, card against CPU: the bound
+# the CPU tests hold the port's model to against ngpd_tpu (2e-4 absolute).
+POINT_MODEL_TOL = 2e-4
+# The card-against-CPU model: full width, dropout off in the train-mode
+# step that refreshes the BatchNorm statistics (its draws would differ).
+POINT_REF_CFG = ModelConfig(dropout_rate=0.0)
 
 
 T_START = time.perf_counter()
@@ -896,7 +932,8 @@ def check_mesh_cli() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         save_obj(f"{tmp}/noisy.obj", noisy.v.numpy(), faces=noisy.f.numpy())
         save_obj(f"{tmp}/clean.obj", clean.v.numpy(), faces=clean.f.numpy())
-        for name, extra in (("cascade", ["--gcns", "2", "--pass2", "4:0.12:2"]),
+        for name, extra in (("cascade", ["--gcns", "2", "--pass2", "4:0.12:2", "--error-map",
+                                          "--html", f"{tmp}/cascade.html"]),
                             ("auto", ["--auto"])):
             said, secs = run_cli(tmp, "denoise-mesh", f"{tmp}/noisy.obj", "-o",
                                  f"{tmp}/{name}.obj", "--gt", f"{tmp}/clean.obj",
@@ -908,6 +945,212 @@ def check_mesh_cli() -> dict:
                                            if ln.startswith("auto recipe:"))
             if not rec[name]["ea_after"] < rec[name]["ea_before"]:
                 fail(f"denoise-mesh {name} did not lower Ea: {rec[name]}")
+        html = Path(f"{tmp}/cascade.html").read_bytes()
+        rec["html_bytes"] = len(html)
+        if not (html.startswith(b"<!DOCTYPE html>") and b"cascade.obj" in html):
+            fail("denoise-mesh --html did not write the viewer")
+    return rec
+
+
+def patch2normal_flop_per_patch(cfg: ModelConfig = ModelConfig()) -> int:
+    """Multiply-adds x 2 of one patch through Patch2Normal's dense layers:
+    the six EdgeConvs on P x K edges of width 2F, the prepool layer on P
+    nodes, the postpool layers and the head on one vector."""
+    p, k, h = cfg.patch_size, cfg.patch_k, cfg.hidden
+    convs = cfg.num_edgeconv
+    dims = (cfg.input_size,) + h[:convs]
+    flop = sum(2 * p * k * 2 * cin * cout for cin, cout in zip(dims, dims[1:]))
+    flop += 2 * p * sum(h[:convs]) * h[convs]
+    widths = (2 * h[convs],) + h[convs + 1:] + (cfg.output_size,)
+    return flop + sum(2 * a * b for a, b in zip(widths, widths[1:]))
+
+
+def check_point_normals() -> dict:
+    """``predict_cloud_normals`` at 100,000 points on the card: points/s,
+    each stage synchronized, the model's TFLOP/s, peak memory; unit normals
+    and no window or pass kernel launched."""
+    noisy, _, _ = bench.make_cloud(POINT_N)
+    pts = torch.as_tensor(noisy).to("cuda")
+    model = init_patch2normal(seed=0).to("cuda")
+    # One run stage by stage, each synchronized (the warm-up), then the
+    # whole path best of 2.
+    kw.reset_launch_counts()
+    kp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    nrm, est_ms = time_once(lambda: estimated_normals(pts))
+    sel, sel_ms = time_once(lambda: point_patches.md_selection(pts))
+    patches, patch_ms = time_once(lambda: point_patches.extract_patches(
+        pts, nrm, device="cuda", selection=sel))
+
+    def forward():
+        return torch.cat([model.predict(patches.x[s:s + POINT_BATCH],
+                                        patches.nbr_idx[s:s + POINT_BATCH],
+                                        patches.nbr_mask[s:s + POINT_BATCH],
+                                        patches.node_mask[s:s + POINT_BATCH])
+                          for s in range(0, POINT_N, POINT_BATCH)])
+
+    pred, fwd_ms = time_once(forward)
+    _, unrot_ms = time_once(lambda: unrotate(pred, patches.r_inv))
+    del patches, pred
+    runs = [time_once(lambda: predict_cloud_normals(model, pts, batch_size=POINT_BATCH,
+                                                    device="cuda")) for _ in range(2)]
+    out, best = runs[-1][0], min(ms for _, ms in runs)
+    rec = {"n": POINT_N, "seconds": best / 1e3, "points_per_s": POINT_N / (best / 1e3),
+           "kernel_launches": {**kw.LAUNCHES, **kp.LAUNCHES},
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    norm_err = float((out.norm(dim=1) - 1.0).abs().max())
+    rec["finite"], rec["unit_norm_max_err"] = bool(torch.isfinite(out).all()), norm_err
+    if tuple(out.shape) != (POINT_N, 3) or not rec["finite"] or norm_err > 1e-5:
+        fail(f"point_normals: normals {tuple(out.shape)}, finite {rec['finite']}, "
+             f"|norm - 1| {norm_err}")
+    if any(rec["kernel_launches"].values()):
+        fail(f"point_normals launched a window or pass kernel: {rec['kernel_launches']}")
+    flop = POINT_N * patch2normal_flop_per_patch()
+    rec["stages_ms"] = {"normal_estimation": est_ms, "md_selection_knn": sel_ms,
+                        "patch_build": patch_ms, "model_forward": fwd_ms,
+                        "unrotation": unrot_ms}
+    rec["model_flop"] = flop
+    rec["model_tflop_per_s"] = flop / (fwd_ms / 1e3) / 1e12
+    return rec
+
+
+def merged_scan(n_unique: int, n_twice: int, seed: int = 0):
+    """A noisy CAD-roof cloud whose first ``n_twice`` points are held twice
+    (a scan merged from two passes), each copy with its own noisy normal:
+    the copies tie in every intra-patch distance with other features, so
+    the intra-patch kNN's tie rule shows. Returns (positions of the unique
+    points, normals of all, a function from unique positions to the
+    cloud)."""
+    u, un, _ = bench.make_cloud(n_unique, seed=seed)
+    twice = np.arange(n_twice)
+    nrm = np.concatenate([un, un[twice]]) + np.random.default_rng(seed + 1).normal(
+        scale=0.1, size=(n_unique + n_twice, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    return u, nrm, lambda pos: np.concatenate([pos, pos[twice]]).astype(np.float32)
+
+
+def refreshed_model(points, normals, device):
+    """The seeded POINT_REF_CFG model with its BatchNorm statistics given
+    one train-mode step on the cloud's first POINT_BN_PATCHES patches, in
+    eval mode on ``device``."""
+    model = init_patch2normal(POINT_REF_CFG, seed=0).to(device)
+    b = point_patches.extract_patches(points, normals, device=device)
+    model.train()
+    with torch.no_grad():
+        model(b.x[:POINT_BN_PATCHES], b.nbr_idx[:POINT_BN_PATCHES],
+              b.nbr_mask[:POINT_BN_PATCHES], b.node_mask[:POINT_BN_PATCHES])
+    return model.eval()
+
+
+def point_run(points, normals, device):
+    """The learned point path with a refreshed model, normals on the CPU."""
+    model = refreshed_model(points, normals, device)
+    return predict_cloud_normals(model, points, normals, batch_size=POINT_BATCH,
+                                 device=device).cpu()
+
+
+def judge_point_model(got, want) -> dict:
+    """Raw outputs of the model on identical patch inputs."""
+    err = float((torch.as_tensor(got).cpu() - torch.as_tensor(want).cpu()).abs().max())
+    return {"max_abs_err": err, "ok": err <= POINT_MODEL_TOL}
+
+
+def judge_point_normals(got, want, spreads, base) -> dict:
+    """Normals held to the path's own spread (``bench.within_spread`` with
+    the point normals' factors), finite and of unit length."""
+    got = torch.as_tensor(got)
+    rec = bench.within_spread(got.numpy(), torch.as_tensor(want).numpy(),
+                              [torch.as_tensor(s).numpy() for s in spreads],
+                              base=torch.as_tensor(base).numpy(),
+                              median=bench.NORMAL_SPREAD_MEDIAN,
+                              largest=bench.NORMAL_SPREAD_MAX)
+    rec["unit_norm_max_err"] = float((got.norm(dim=1) - 1.0).abs().max())
+    rec["ok"] = bool(rec["ok"] and torch.isfinite(got).all()
+                     and rec["unit_norm_max_err"] <= 1e-5)
+    return rec
+
+
+def check_point_normals_reference() -> dict:
+    """The learned point path on the card against the CPU path (held
+    against ngpd_tpu by the tests) on POINT_REF_UNIQUE + POINT_REF_TWICE
+    points at full width: the model on identical patch inputs within
+    POINT_MODEL_TOL, and with TF32 on beyond it; the normals within the
+    path's spread under one-ulp nudges of the positions, read on the card."""
+    u, nrm, cloud = merged_scan(POINT_REF_UNIQUE, POINT_REF_TWICE)
+    pts, normals = torch.as_tensor(cloud(u)), torch.as_tensor(nrm)
+    cpu_model = refreshed_model(pts, normals, "cpu")
+    b = point_patches.extract_patches(pts, normals, device="cpu")
+    args = (b.x, b.nbr_idx, b.nbr_mask, b.node_mask)
+    with torch.no_grad():
+        want = cpu_model(*args)
+        card_model = cpu_model.to("cuda")
+        on_card = [a.to("cuda") for a in args]
+        got = card_model(*on_card).cpu()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = card_model(*on_card).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"n": len(pts), "model": judge_point_model(got, want),
+           "model_tf32": judge_point_model(got_tf32, want)}
+    base = point_run(pts, normals, "cuda")
+    spreads = [point_run(torch.as_tensor(cloud(bench.nudged(u, s))), normals, "cuda")
+               for s in bench.SPREAD_SEEDS]
+    rec["normals"] = judge_point_normals(base, point_run(pts, normals, "cpu"), spreads, base)
+    if not rec["model"]["ok"] or not rec["normals"]["ok"]:
+        fail(f"point_normals_reference: card and CPU paths disagree: {rec}")
+    if rec["model_tf32"]["ok"]:
+        fail(f"point_normals_reference: the bound passed the model with TF32 on: {rec}")
+    return rec
+
+
+def check_point_cli() -> dict:
+    """``add-noise`` (a cloud with --save-noise, --load-noise, the box mesh)
+    and ``predict-normals`` with an ``.npz`` of the seeded model, each in a
+    process of its own on the card."""
+    _, normals, clean = bench.make_cloud(POINT_CLI_N)
+    rec = {"n": POINT_CLI_N}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_obj(f"{tmp}/clean.obj", clean, normals)
+        _, rec["add_noise_seconds"] = run_cli(tmp, "add-noise", f"{tmp}/clean.obj", "-o",
+                                              f"{tmp}/noisy.obj", "--save-noise", f"{tmp}/kept")
+        kept = sorted(Path(f"{tmp}/kept").iterdir())
+        _, rec["load_noise_seconds"] = run_cli(tmp, "add-noise", f"{tmp}/clean.obj", "-o",
+                                               f"{tmp}/again.obj", "--load-noise", str(kept[0]))
+        noisy, again = read_obj(f"{tmp}/noisy.obj").v, read_obj(f"{tmp}/again.obj").v
+        moved = np.abs(noisy - clean).max(axis=1)
+        rec["kept"] = [p.name for p in kept]
+        rec["load_noise_equal"] = bool(np.array_equal(noisy, again))
+        rec["moved_median"] = float(np.median(moved))
+        if not rec["load_noise_equal"] or rec["kept"] != ["0_0_0.3_0.npz"]:
+            fail(f"add-noise --load-noise did not reproduce the saved positions: {rec}")
+        if not np.isfinite(noisy).all() or not rec["moved_median"] > 0:
+            fail(f"add-noise left the cloud as it was: {rec}")
+
+        mesh = box(n=10)
+        save_obj(f"{tmp}/box.obj", mesh.v.numpy(), faces=mesh.f.numpy())
+        _, rec["add_noise_mesh_seconds"] = run_cli(tmp, "add-noise", f"{tmp}/box.obj", "-o",
+                                                   f"{tmp}/box_noisy.obj", "--level", "0.45")
+        box_noisy = read_obj(f"{tmp}/box_noisy.obj")
+        rec["mesh_moved_max"] = float(np.abs(box_noisy.v - mesh.v.numpy()).max())
+        if not (np.array_equal(box_noisy.fv, mesh.f.numpy()) and np.isfinite(box_noisy.v).all()
+                and rec["mesh_moved_max"] > 0):
+            fail(f"add-noise on the box mesh: {rec}")
+
+        model = init_patch2normal(seed=0)
+        save_variables_npz(f"{tmp}/p2n.npz",
+                           variables_from_patch2normal_state_dict(model.state_dict()))
+        _, rec["predict_normals_seconds"] = run_cli(tmp, "predict-normals", f"{tmp}/noisy.obj",
+                                                    "-o", f"{tmp}/n.xyz", "--ckpt",
+                                                    f"{tmp}/p2n.npz")
+        said = np.loadtxt(f"{tmp}/n.xyz", dtype=np.float32)
+        want = predict_cloud_normals(model, torch.as_tensor(noisy), device="cuda").cpu().numpy()
+        rec["predict_normals_max_diff"] = float(np.abs(said[:, 3:] - want).max())
+        rec["predict_normals_unit_err"] = float(np.abs(np.linalg.norm(said[:, 3:], axis=1)
+                                                       - 1.0).max())
+        if (said.shape != (POINT_CLI_N, 6) or rec["predict_normals_max_diff"] > 1e-5
+                or rec["predict_normals_unit_err"] > 1e-5):
+            fail(f"predict-normals: {rec}")
     return rec
 
 
@@ -1051,6 +1294,11 @@ def main() -> int:
     say("mesh", **check_mesh())
     say("mesh_reference", **check_mesh_reference())
     say("mesh_cli", **check_mesh_cli())
+
+    # the learned point track (plain torch, no kernel)
+    say("point_normals", **check_point_normals())
+    say("point_normals_reference", **check_point_normals_reference())
+    say("point_cli", **check_point_cli())
 
     kernels = []
     sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),

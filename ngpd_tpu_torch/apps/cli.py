@@ -1,11 +1,15 @@
-"""Command-line interface of the port (the ``denoise``, ``eval`` and
-``denoise-mesh`` subcommands of ``ngpd_tpu/apps/cli.py``):
+"""Command-line interface of the port: the subcommands of
+``ngpd_tpu/apps/cli.py`` but the two that train (``make-dataset``, ``train``):
 
   python -m ngpd_tpu_torch.apps.cli denoise noisy.obj -o out.obj
   python -m ngpd_tpu_torch.apps.cli denoise noisy.obj --gt clean.obj --until-min
   python -m ngpd_tpu_torch.apps.cli eval clean.obj out.obj
+  python -m ngpd_tpu_torch.apps.cli predict-normals noisy.obj -o n.xyz [--ckpt weights.npz]
+  python -m ngpd_tpu_torch.apps.cli add-noise clean.obj -o noisy.obj --level 0.3 \
+      [--save-noise DIR | --load-noise FILE.npz]
   python -m ngpd_tpu_torch.apps.cli denoise-mesh noisy.obj -o out.obj \
-      --ckpt assets/dgcnn_mesh.npz --ckpt2 assets/dgcnn_mesh_2.npz --gcns 2 [--gt clean.obj]
+      --ckpt assets/dgcnn_mesh.npz --ckpt2 assets/dgcnn_mesh_2.npz --gcns 2 \
+      [--gt clean.obj [--error-map]] [--html view.html]
 
 ``denoise`` takes the reference's routes: normals are estimated (PVT over
 12 neighbours, oriented) when the cloud has none; ``--until-min`` iterates
@@ -13,10 +17,18 @@ against ``--gt`` until the error stops falling; otherwise ``--fused`` or a
 cloud of 100k points or more goes to the hybrid engine on the card and to
 the windowed ``fused_denoise`` on the CPU, as the reference picks its
 Pallas engine on its accelerator and ``fused_denoise`` elsewhere, and a
-smaller cloud to the dense ``(N, k)`` pipeline. ``denoise-mesh`` runs the
-GCN cascade with ``--ckpt`` (``.npz``, ``.t7`` or ``.pt`` weights) and the
-guided filter alone without it, guided by the ``--gt`` normals or the
-mesh's own. ``--device`` defaults to ``cuda``.
+smaller cloud to the dense ``(N, k)`` pipeline. ``predict-normals`` runs
+the Patch2Normal model on one MD patch per point (normals estimated first)
+with the weights of a flat ``.npz`` archive of Flax variables
+(``save_variables_npz``), or a seeded initialisation without ``--ckpt``;
+it writes the points and the predicted normals as ``.xyz``. ``add-noise``
+corrupts a mesh (an OBJ with faces) or a cloud, its draws from a
+``torch.Generator`` seeded with ``--seed`` on the device (other numbers
+than the reference's ``jax.random``), and can save the noisy positions or
+re-apply saved ones. ``denoise-mesh`` runs the GCN cascade with ``--ckpt``
+(``.npz``, ``.t7`` or ``.pt`` weights) and the guided filter alone without
+it, guided by the ``--gt`` normals or the mesh's own; ``--html`` also
+writes a standalone viewer. ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -47,11 +59,9 @@ def _load_cloud(path):
 
 
 def _estimated_normals(points, k=12):
-    from ..core.normals import orient_normals, pvt_normals
-    from ..ops.knn import knn
+    from ..core.normals import estimated_normals
 
-    nbh, _ = knn(points, k, exclude_self=True)
-    return orient_normals(points, pvt_normals(points, nbh), nbh)
+    return estimated_normals(points, k)
 
 
 def cmd_denoise(args):
@@ -188,6 +198,116 @@ def cmd_denoise_mesh(args):
             colors = mesh_metrics.error_map_colors(out, gt_mesh)
     save_obj(args.output, out.v.cpu().numpy(), colors=colors, faces=out.f.cpu().numpy())
     print(f"wrote {args.output}")
+    if args.html:
+        from .htmlviewer import export_html
+
+        export_html(args.html, out.v.cpu().numpy(), faces=out.f.cpu().numpy(),
+                    colors=colors, title=Path(args.output).name)
+        print(f"wrote {args.html}")
+
+
+def _patch2normal(ckpt):
+    """The model of ``--ckpt`` (a flat ``.npz`` of Flax variables), or the
+    seeded initialisation without one."""
+    from ..learn.weights import load_dgcnn_npz, patch2normal_state_dict_from_variables
+    from ..models.patch2normal import Patch2NormalModel, init_patch2normal
+
+    if ckpt is None:
+        return init_patch2normal(seed=0)
+    if not str(ckpt).endswith(".npz"):
+        raise SystemExit(
+            f"--ckpt {ckpt}: the port reads a flat .npz archive of Flax variables; "
+            "convert an orbax checkpoint with ngpd_tpu.learn.weights.save_variables_npz"
+            "({'params': state.params, 'batch_stats': state.batch_stats})")
+    model = Patch2NormalModel()
+    model.load_state_dict(patch2normal_state_dict_from_variables(load_dgcnn_npz(ckpt)),
+                          strict=True)
+    return model.eval()
+
+
+def cmd_predict_normals(args):
+    from ..device import resolve_device
+    from ..io.xyz import save_xyz
+    from ..learn.predict import predict_cloud_normals
+
+    dev = resolve_device(args.device)
+    cloud = _load_cloud(args.input)
+    model = _patch2normal(args.ckpt)
+    normals = predict_cloud_normals(model, cloud.points, device=dev)
+    save_xyz(args.output, cloud.valid_points(), normals.cpu().numpy())
+    print(f"wrote {args.output}")
+
+
+def _save_cloud(path, points, normals=None):
+    suffix = str(path)
+    if suffix.endswith(".ply"):
+        from ..io.ply import save_ply
+
+        save_ply(path, points, normals)
+    elif suffix.endswith((".xyz", ".clean_xyz")):
+        from ..io.xyz import save_xyz
+
+        save_xyz(path, points, normals)
+    else:
+        from ..io.obj import save_obj
+
+        save_obj(path, points, normals)
+
+
+def cmd_add_noise(args):
+    """Corrupt a mesh or a cloud (the app's noise buttons): stdev = level x
+    the mean edge length, along the normals or in a random direction,
+    Gaussian or impulsive; ``--save-noise`` keeps the noisy positions,
+    ``--load-noise`` re-applies kept ones instead of drawing."""
+    from ..core import noise as noise_mod
+    from ..device import resolve_device
+    from ..io.obj import read_obj, save_obj
+
+    dev = resolve_device(args.device)
+    noise_type = {"gaussian": noise_mod.GAUSSIAN, "impulse": noise_mod.IMPULSIVE}[args.type]
+    direction = {"normal": noise_mod.ALONG_NORMAL,
+                 "random": noise_mod.RANDOM_DIRECTION}[args.direction]
+    faces = None
+    if args.input.endswith(".obj"):
+        data = read_obj(args.input)
+        if data.fv is not None and data.fv.shape[0] > 0:
+            faces = np.asarray(data.fv)
+    if args.load_noise:
+        noisy = noise_mod.load_noise(args.load_noise, device=dev).cpu().numpy()
+        if faces is not None:
+            save_obj(args.output, noisy, faces=faces)
+        else:
+            _save_cloud(args.output, noisy)
+        print(f"wrote {args.output} (positions from {args.load_noise})")
+        return
+
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    if faces is not None:
+        from ..meshproc.trimesh import TriMesh, add_mesh_noise
+
+        mesh = TriMesh.from_numpy(data.v, faces, device=dev)
+        draws = noise_mod.draw_noise(mesh.num_vertices, gen)
+        noisy = add_mesh_noise(mesh, draws, args.level, noise_type=noise_type,
+                               direction=direction).v
+        save_obj(args.output, noisy.cpu().numpy(), faces=faces)
+    else:
+        from ..ops import metrics
+        from ..ops.knn import knn
+
+        cloud = _load_cloud(args.input)
+        pts = cloud.points.to(dev)
+        nrm = cloud.normals.to(dev) if cloud.has_normals() else _estimated_normals(pts)
+        nbh, _ = knn(pts, 12, exclude_self=True)
+        mel = metrics.average_edge_length(pts, nbh)
+        gauss, perm = noise_mod.draw_noise(pts.shape[0], gen)
+        noisy = noise_mod.apply_noise(pts, nrm, gauss, perm, args.level, mel,
+                                      noise_type=noise_type, direction=direction)
+        _save_cloud(args.output, noisy.cpu().numpy(), nrm.cpu().numpy())
+    print(f"wrote {args.output}")
+    if args.save_noise:
+        name = noise_mod.save_noise(args.save_noise, noisy, args.level,
+                                    noise_type=noise_type, direction=direction)
+        print(f"saved noise realization {args.save_noise}/{name}")
 
 
 def main(argv=None):
@@ -216,6 +336,30 @@ def main(argv=None):
     e.add_argument("input")
     e.add_argument("--device", default="cuda")
     e.set_defaults(fn=cmd_eval)
+
+    pr = sub.add_parser("predict-normals", help="learned normal regression")
+    pr.add_argument("input")
+    pr.add_argument("-o", "--output", required=True)
+    pr.add_argument("--ckpt", default=None,
+                    help="Patch2Normal weights: a flat .npz of Flax variables "
+                         "(save_variables_npz); a seeded initialisation without it")
+    pr.add_argument("--device", default="cuda")
+    pr.set_defaults(fn=cmd_predict_normals)
+
+    an = sub.add_parser("add-noise", help="corrupt a mesh/cloud (the app's noise buttons)")
+    an.add_argument("input")
+    an.add_argument("-o", "--output", required=True)
+    an.add_argument("--level", type=float, default=0.3,
+                    help="stdev = level x mean edge length")
+    an.add_argument("--type", choices=["gaussian", "impulse"], default="gaussian")
+    an.add_argument("--direction", choices=["normal", "random"], default="normal")
+    an.add_argument("--seed", type=int, default=0)
+    an.add_argument("--save-noise", default=None, metavar="DIR",
+                    help="persist the noisy positions")
+    an.add_argument("--load-noise", default=None, metavar="FILE",
+                    help="re-apply a persisted realization instead of drawing")
+    an.add_argument("--device", default="cuda")
+    an.set_defaults(fn=cmd_add_noise)
 
     dm = sub.add_parser("denoise-mesh", help="GCN + guided normal filtering")
     dm.add_argument("input")
@@ -251,6 +395,9 @@ def main(argv=None):
     dm.add_argument("--guidance-smooth-sigma", type=float, default=0.5,
                     help="range bandwidth of --guidance-smooth")
     dm.add_argument("--error-map", action="store_true")
+    dm.add_argument("--html", default=None, metavar="FILE",
+                    help="also write a standalone orbit-viewer .html (error-map "
+                         "colours when --error-map is on)")
     dm.add_argument("--device", default="cuda")
     dm.set_defaults(fn=cmd_denoise_mesh)
 

@@ -221,17 +221,26 @@ SPREAD_SEEDS = (9, 10)  # the nudges a cascade's own spread is measured on
 # SPREAD_MAX refuses a vertex moved 3 times as far as any nudge moved one
 # (correct runs read at most 1.12), which the median does not see.
 SPREAD_MEDIAN, SPREAD_MAX = 1.6, 3.0
+# The same rule for the learned point normals (``predict_cloud_normals``),
+# its factors read on that path in tests/test_torch_point_spread.py (a
+# narrow Patch2Normal on a noisy sphere whose points are partly held twice:
+# the port and the reference's own nudges 11-13 read median ratios of
+# 0.85-1.04 and largest ones of 0.08-1.32; TF32 emulated 10.9, an unbiased
+# BatchNorm variance 5.6, the intra-patch kNN's ties taken from the higher
+# index 3,831 on the median).
+NORMAL_SPREAD_MEDIAN, NORMAL_SPREAD_MAX = 2.0, 3.0
 
 
-def within_spread(got, want, spreads, base=None) -> dict:
+def within_spread(got, want, spreads, base=None, median: float = SPREAD_MEDIAN,
+                  largest: float = SPREAD_MAX) -> dict:
     """Vertices of a cascade run ``got`` against ``want``, held to the
     cascade's own spread under a one-ulp change of its input: ``spreads``
     are its runs on ``nudged`` inputs, one for each of SPREAD_SEEDS, and
     ``base`` its run on the input itself (``want`` unless given). A
-    vertex's move is its largest coordinate difference; the median move of
-    ``got`` from ``want`` may be at most SPREAD_MEDIAN times the largest
-    median of the spreads' moves from ``base``, its largest move at most
-    SPREAD_MAX times theirs. Returns the figures (the share within
+    vertex's (or normal's) move is its largest coordinate difference; the
+    median move of ``got`` from ``want`` may be at most ``median`` times
+    the largest median of the spreads' moves from ``base``, its largest
+    move at most ``largest`` times theirs. Returns the figures (the share within
     MESH_V_TOL too) and ``ok``."""
     def moves(v, ref):
         return np.abs(np.asarray(v) - np.asarray(ref)).max(axis=1)
@@ -244,7 +253,7 @@ def within_spread(got, want, spreads, base=None) -> dict:
            "spread_max": max(float(x.max()) for x in s)}
     rec["median_ratio"] = rec["median"] / max(rec["spread_median"], 1e-30)
     rec["max_ratio"] = rec["max_diff"] / max(rec["spread_max"], 1e-30)
-    rec["ok"] = rec["median_ratio"] <= SPREAD_MEDIAN and rec["max_ratio"] <= SPREAD_MAX
+    rec["ok"] = rec["median_ratio"] <= median and rec["max_ratio"] <= largest
     return rec
 
 

@@ -59,3 +59,33 @@ def apply_noise(
         rank[perm.to(points.device)] = torch.arange(n, device=points.device)
         offset = torch.where((rank < keep_count)[:, None], offset, 0.0)
     return points + offset
+
+
+def save_noise(noise_dir, points, noise_level, noise_type=GAUSSIAN,
+               direction=ALONG_NORMAL) -> str:
+    """Persist noisy positions: one .npz per realisation in ``noise_dir``,
+    named ``{type}_{direction}_{level}_{id}.npz`` with the id the count of
+    entries already there. Returns the file name."""
+    from pathlib import Path
+
+    d = Path(noise_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    noise_id = len(list(d.iterdir()))
+    name = f"{noise_type}_{direction}_{noise_level}_{noise_id}.npz"
+    if torch.is_tensor(points):
+        points = points.detach().cpu().numpy()
+    np.savez_compressed(d / name, v=np.asarray(points))
+    return name
+
+
+def load_noise(file_path, device=None) -> torch.Tensor:
+    """Persisted noisy positions, as a tensor on ``device``."""
+    from pathlib import Path
+
+    from ..device import resolve_device
+
+    p = Path(file_path)
+    assert p.suffix == ".npz" and p.is_file(), p
+    with np.load(p) as data:
+        v = data["v"]
+    return torch.as_tensor(v).to(resolve_device(device))

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.eigh3 import eigh3x3
+from ..ops.knn import knn
 from ..ops.neighbors import Neighborhood, outer3
 
 # cos(7/12 * pi): flip when alignment falls below this.
@@ -82,6 +83,13 @@ def orient_normals(points: torch.Tensor, normals: torch.Tensor, nbh: Neighborhoo
         if not bool(torch.any(frontier)):
             break
     return normals * sign[:, None]
+
+
+def estimated_normals(points: torch.Tensor, k: int = 12) -> torch.Tensor:
+    """PVT normals over the k nearest other points, oriented: what the
+    CLI and ``predict_cloud_normals`` use when a cloud has no normals."""
+    nbh, _ = knn(points, k, exclude_self=True)
+    return orient_normals(points, pvt_normals(points, nbh), nbh)
 
 
 def orient_normals_mst(

@@ -24,6 +24,16 @@ linear2/3/4.weight+bias   params/linear{2,3,4}/{kernel,bias}
 with the ``conv{i}.1`` aliases of the shared BatchNorms and
 ``num_batches_tracked``, so a strict ``load_state_dict`` takes it.
 ``load_dgcnn_state_dict`` reads either kind of file.
+
+Patch2Normal (``models/patch2normal.py``) carries the Flax module names, so
+its Flax tree maps onto the port's state dict path by path, ``/`` becoming
+``.``: ``params/<path>/kernel`` (in, out) is ``<path>.weight`` (out, in),
+``params/<path>/bias`` is ``<path>.bias``, a BatchNorm's
+``params/<path>/scale`` is ``<path>.weight`` and ``batch_stats/<path>/{mean,var}``
+are ``<path>.running_{mean,var}``
+(``patch2normal_state_dict_from_variables`` and its inverse
+``variables_from_patch2normal_state_dict``). ``save_variables_npz`` writes
+the flat archive that ``ngpd_tpu/learn/weights.py`` reads.
 """
 
 from __future__ import annotations
@@ -38,6 +48,22 @@ import torch
 _NUM_EDGE_CONVS = 6
 
 
+def flatten_variables(variables: Mapping) -> dict:
+    """Nested variables -> flat {path: array} with '/'-joined keys."""
+    flat: dict = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    walk(variables, "")
+    return flat
+
+
 def unflatten_variables(flat: Mapping) -> dict:
     out: dict = {}
     for key, value in flat.items():
@@ -47,6 +73,11 @@ def unflatten_variables(flat: Mapping) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(value)
     return out
+
+
+def save_variables_npz(path: Union[str, Path], variables: Mapping) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(str(path), **flatten_variables(variables))
 
 
 def load_dgcnn_npz(path: Union[str, Path]) -> dict:
@@ -127,3 +158,39 @@ def load_dgcnn_state_dict(path: Union[str, Path]) -> dict:
     if str(path).endswith(".npz"):
         return state_dict_from_variables(load_dgcnn_npz(path))
     return load_torch_checkpoint(path)
+
+
+_P2N_PARAM = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_P2N_STAT = {"mean": "running_mean", "var": "running_var"}
+
+
+def patch2normal_state_dict_from_variables(variables: Mapping) -> dict:
+    """Flax Patch2Normal variables (numpy) -> the port's state dict."""
+    sd: dict = {}
+    for key, value in flatten_variables(variables["params"]).items():
+        path, leaf = key.rsplit("/", 1)
+        v = np.asarray(value, np.float32)
+        sd[f"{path.replace('/', '.')}.{_P2N_PARAM[leaf]}"] = v.T if leaf == "kernel" else v
+    for key, value in flatten_variables(variables.get("batch_stats", {})).items():
+        path, leaf = key.rsplit("/", 1)
+        sd[f"{path.replace('/', '.')}.{_P2N_STAT[leaf]}"] = np.asarray(value, np.float32)
+    return {k: torch.as_tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def variables_from_patch2normal_state_dict(state_dict: Mapping) -> dict:
+    """The port's Patch2Normal state dict -> Flax variables (numpy), the
+    inverse of ``patch2normal_state_dict_from_variables``."""
+    stat_of = {v: k for k, v in _P2N_STAT.items()}
+    flat: dict = {}
+    for key, value in state_dict.items():
+        path, attr = key.rsplit(".", 1)
+        v = value.detach().cpu().numpy().astype(np.float32)
+        path = path.replace(".", "/")
+        if attr in stat_of:
+            flat[f"batch_stats/{path}/{stat_of[attr]}"] = v
+        elif attr == "weight":
+            flat[f"params/{path}/" + ("kernel" if v.ndim == 2 else "scale")] = (
+                v.T if v.ndim == 2 else v)
+        else:
+            flat[f"params/{path}/{attr}"] = v
+    return unflatten_variables(flat)

@@ -16,7 +16,10 @@ grouped by pass A-D and torch (prologue, packs, delta state, sort);
 ``--mesh`` profiles the two-pass mesh cascade of ``bench.run_mesh`` (plain
 torch, no kernel of the port; 81,920 faces), grouped by
 what torch's kernels do (matrix products, top-k and sorts, gathers and
-scatters, reductions, the rest). Needs a card.
+scatters, reductions, the rest). ``--point`` profiles the learned point
+track, ``predict_cloud_normals`` with the seeded full-width Patch2Normal on
+``make_cloud(--n)`` (100,000 points unless given) with normals estimated,
+grouped as ``--mesh`` is. Needs a card.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import json
 import time
 
 import torch
+
+
+ENGINES = ("hybrid", "passes", "passes_lagged")  # the engines with kernels of the port
 
 
 def _group(name: str) -> str:
@@ -51,14 +57,17 @@ def _mesh_group(name: str) -> str:
 
 
 def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
-    """``engine``: "hybrid", "passes" (exact delta), "passes_lagged" or
-    "mesh" (the bench's cascade; n, iters and k unused)."""
+    """``engine``: "hybrid", "passes" (exact delta), "passes_lagged",
+    "mesh" (the bench's cascade; n, iters and k unused) or "point"
+    (``predict_cloud_normals`` on n points; iters and k unused)."""
     from torch.profiler import ProfilerActivity, profile
 
     from .bench import make_cloud, mesh_cascade, mesh_workload
     from .config import DenoiseConfig
     from .core.cuda_fused import denoise_hybrid, denoise_passes
     from .device import resolve_device
+    from .learn.predict import predict_cloud_normals
+    from .models.patch2normal import init_patch2normal
 
     dev = resolve_device("cuda")
     if engine == "mesh":
@@ -71,9 +80,13 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
         nr = torch.as_tensor(nrm, device=dev)
         cfg = DenoiseConfig(feature_k=k, step_k=8)
 
+    model = init_patch2normal(seed=0).to(dev) if engine == "point" else None
+
     def once():
         if engine == "mesh":
             cascade(mesh)
+        elif engine == "point":
+            predict_cloud_normals(model, pts, device=dev)
         elif engine != "hybrid":
             denoise_passes(pts, nr, cfg, iterations=iters, device=dev,
                            delta_mode="lagged" if engine == "passes_lagged" else "exact")
@@ -93,7 +106,7 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
             continue
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
-        g = groups.setdefault((_mesh_group if engine == "mesh" else _group)(e.name),
+        g = groups.setdefault((_group if engine in ENGINES else _mesh_group)(e.name),
                               {"ms": 0.0, "kernels": 0})
         g["ms"] += (t - s) / 1e3
         g["kernels"] += 1
@@ -121,7 +134,8 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.profile_hybrid")
-    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--n", type=int, default=None,
+                    help="points (1,000,000; 100,000 with --point)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--k", type=int, default=32)
     which = ap.add_mutually_exclusive_group()
@@ -131,8 +145,11 @@ def main(argv=None):
                        const="passes_lagged", help="profile the pass engine in lagged-delta mode")
     which.add_argument("--mesh", action="store_const", dest="engine", const="mesh",
                        help="profile the two-pass mesh cascade (bench.run_mesh's workload)")
+    which.add_argument("--point", action="store_const", dest="engine", const="point",
+                       help="profile predict_cloud_normals (the learned point track)")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_run(args.n, args.iters, args.k, args.engine or "hybrid")))
+    n = args.n or (100_000 if args.engine == "point" else 1_000_000)
+    print(json.dumps(profile_run(n, args.iters, args.k, args.engine or "hybrid")))
 
 
 if __name__ == "__main__":

@@ -430,3 +430,46 @@ def test_card_mesh_cascade_matches_cpu(cuda_device):
     ea_g, ea_c = (float(mean_angular_error(m, clean)) for m in (g, c))
     assert abs(ea_g - ea_c) <= bench.MESH_EA_TOL and ea_g < float(
         mean_angular_error(noisy, clean)) / 2
+
+
+def test_card_patch2normal_forward_matches_cpu(cuda_device):
+    """The full-width Patch2Normal (seeded) on identical patch inputs, card
+    against CPU: raw outputs within 2e-4, the bound the CPU tests hold the
+    model to against ngpd_tpu."""
+    from ngpd_tpu_torch.core.patches import extract_patches
+    from ngpd_tpu_torch.learn.predict import estimated_normals
+    from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+
+    noisy, _, _ = make_cloud(2048)
+    pts = torch.as_tensor(noisy)
+    b = extract_patches(pts, estimated_normals(pts), device="cpu")
+    args = (b.x, b.nbr_idx, b.nbr_mask, b.node_mask)
+    model = init_patch2normal(seed=0)
+    with torch.no_grad():
+        want = model(*args)
+        got = model.to(cuda_device)(*(a.to(cuda_device) for a in args)).cpu()
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_card_point_normals_match_cpu(cuda_device):
+    """``predict_cloud_normals`` with estimated normals on 1,024 points,
+    card against CPU, within the path's own spread under one-ulp nudges of
+    the positions, read on the card."""
+    from ngpd_tpu_torch import bench
+    from ngpd_tpu_torch.learn.predict import predict_cloud_normals
+    from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+
+    noisy, _, _ = make_cloud(1024)
+    model = init_patch2normal(seed=0)
+
+    def run(pts, device):
+        return predict_cloud_normals(model, torch.as_tensor(pts), device=device).cpu()
+
+    g = run(noisy, cuda_device)
+    c = run(noisy, "cpu")
+    spreads = [run(bench.nudged(noisy, s), cuda_device) for s in bench.SPREAD_SEEDS]
+    rec = bench.within_spread(g.numpy(), c.numpy(), [s.numpy() for s in spreads],
+                              base=g.numpy(), median=bench.NORMAL_SPREAD_MEDIAN,
+                              largest=bench.NORMAL_SPREAD_MAX)
+    assert rec["ok"] and torch.isfinite(g).all(), rec
+    assert float((g.norm(dim=1) - 1).abs().max()) <= 1e-5

@@ -1,0 +1,195 @@
+"""``predict_cloud_normals`` of the port against ngpd_tpu's on the CPU,
+held to the reference's own spread, and the readings behind the rule's
+factors (``bench.NORMAL_SPREAD_MEDIAN``, ``bench.NORMAL_SPREAD_MAX``).
+
+The normals cannot be held to a fixed bound: each follows its patch frame,
+the eigenvectors of an MD voting tensor whose two small eigenvalues lie
+close on a smooth surface (tests/test_torch_point_patches.py), so the
+reference itself, given its input moved by one ulp, turns some of its
+normals by up to 0.08. A run is held to the reference's moves under two
+such nudges (seeds 9 and 10): its median normal move to at most
+``NORMAL_SPREAD_MEDIAN`` times theirs, its largest to at most
+``NORMAL_SPREAD_MAX`` times (``bench.within_spread``).
+
+The workload: a narrow Patch2Normal (dropout 0) with the reference's
+``init_model`` weights carried across, whose BatchNorm statistics then
+take one train-mode step on the cloud's first 64 patches, each package on
+its own patches (so a wrong variance shows); a noisy sphere of 240 points
+of which 120 are held twice, each copy with its own noisy normal (a scan
+merged from two passes). The copies tie in every intra-patch distance, with
+different features, so the tie rule matters; a nudge moves the measured
+positions, both copies alike, so the nudged runs keep the ties.
+
+Readings (``-s`` prints them): the port and the reference's own nudges
+11-13 read median ratios of 0.85-1.04 and largest ratios of 0.08-1.32;
+three wrong stand-ins read, on the median, 10.9 (TF32 in every float32
+product, emulated: both operands rounded to 10 mantissa bits), 5.6 (an
+unbiased BatchNorm variance in the train-mode step) and 3,831 (the
+intra-patch kNN keeping the higher index among ties). The factors sit
+between the largest correct and the smallest wrong median ratio (1.04,
+5.6), and at 3 on the largest move.
+"""
+
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ngpd_tpu.config import ModelConfig as JModelConfig
+from ngpd_tpu.config import PatchConfig as JPatchConfig
+from ngpd_tpu.config import TrainConfig as JTrainConfig
+from ngpd_tpu.core import patches as jpatches
+from ngpd_tpu.learn.predict import predict_cloud_normals as jpredict
+from ngpd_tpu.learn.train import init_model
+from ngpd_tpu_torch.bench import (NORMAL_SPREAD_MAX, NORMAL_SPREAD_MEDIAN, SPREAD_SEEDS,
+                                  nudged, within_spread)
+from ngpd_tpu_torch.config import ModelConfig, PatchConfig
+from ngpd_tpu_torch.core import patches as tpatches
+from ngpd_tpu_torch.learn.predict import predict_cloud_normals as tpredict
+from ngpd_tpu_torch.learn.weights import patch2normal_state_dict_from_variables
+from ngpd_tpu_torch.models import edgeconv as tedge
+from ngpd_tpu_torch.models.patch2normal import Patch2NormalModel
+
+from fixtures import sphere_cloud
+
+torch.set_num_threads(2)
+
+NARROW = dict(hidden=(16, 16, 32, 32, 32, 32, 64, 32, 16), patch_size=32, patch_k=8,
+              dropout_rate=0.0)
+PATCH = dict(num_nodes=32, patch_k=8)
+NUM_UNIQUE, NUM_TWICE = 240, 120
+BN_PATCHES, BATCH = 64, 128
+NATURAL_SEEDS = (11, 12, 13)
+
+
+def _workload():
+    u, un = sphere_cloud(NUM_UNIQUE, seed=6)
+    u = (u + np.random.default_rng(7).normal(scale=0.01, size=u.shape)).astype(np.float32)
+    twice = np.arange(NUM_TWICE)
+    nrm = np.concatenate([un, un[twice]]) + np.random.default_rng(8).normal(
+        scale=0.1, size=(NUM_UNIQUE + NUM_TWICE, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    return u, nrm, lambda pos: np.concatenate([pos, pos[twice]]).astype(np.float32)
+
+
+def _args(b, n):
+    return b.x[:n], b.nbr_idx[:n], b.nbr_mask[:n], b.node_mask[:n]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    u, nrm, cloud = _workload()
+    model, state, _ = init_model(JModelConfig(**NARROW), JTrainConfig(), jax.random.PRNGKey(0))
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+
+    def run(seed=None):
+        pts = jnp.asarray(cloud(u if seed is None else nudged(u, seed)))
+        b = jpatches.extract_patches(pts, jnp.asarray(nrm), cfg=JPatchConfig(**PATCH))
+        _, upd = model.apply(variables, *_args(b, BN_PATCHES), train=True,
+                             mutable=["batch_stats"])
+        return np.asarray(jpredict(model, state.replace(batch_stats=upd["batch_stats"]), pts,
+                                   jnp.asarray(nrm), patch_cfg=JPatchConfig(**PATCH),
+                                   batch_size=BATCH))
+
+    return SimpleNamespace(u=u, nrm=nrm, cloud=cloud, variables=variables, out=run(),
+                           spreads=[run(s) for s in SPREAD_SEEDS],
+                           natural={s: run(s) for s in NATURAL_SEEDS})
+
+
+def _port(ref):
+    """The port's whole path on the reference's input."""
+    model = Patch2NormalModel(ModelConfig(**NARROW))
+    model.load_state_dict(patch2normal_state_dict_from_variables(ref.variables), strict=True)
+    pts, nrm = torch.as_tensor(ref.cloud(ref.u)), torch.as_tensor(ref.nrm)
+    b = tpatches.extract_patches(pts, nrm, cfg=PatchConfig(**PATCH), device="cpu")
+    model.train()
+    with torch.no_grad():
+        model(*_args(b, BN_PATCHES))
+    return tpredict(model.eval(), pts, nrm, patch_cfg=PatchConfig(**PATCH), batch_size=BATCH,
+                    device="cpu").numpy()
+
+
+def judge(ref, got) -> dict:
+    return within_spread(got, ref.out, ref.spreads, median=NORMAL_SPREAD_MEDIAN,
+                         largest=NORMAL_SPREAD_MAX)
+
+
+def test_the_port_is_within_the_reference_s_spread(ref):
+    got = _port(ref)
+    rec = judge(ref, got)
+    print("port", rec)
+    assert rec["ok"] and np.isfinite(got).all(), rec
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+    assert rec["spread_max"] > 1e-3  # the frames are ill-conditioned here
+
+
+@pytest.mark.parametrize("seed", NATURAL_SEEDS)
+def test_the_reference_s_own_nudges_pass(ref, seed):
+    rec = judge(ref, ref.natural[seed])
+    print("reference nudged by seed", seed, rec)
+    assert rec["ok"], rec
+
+
+def _tf32(x):
+    """float32 -> the nearest value with 10 mantissa bits (ties to even)."""
+    if not torch.is_tensor(x) or x.dtype != torch.float32:
+        return x
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_products(monkeypatch):
+    matmul, op = torch.matmul, torch.Tensor.__matmul__
+    monkeypatch.setattr(torch, "matmul", lambda a, b: matmul(_tf32(a), _tf32(b)))
+    monkeypatch.setattr(torch.Tensor, "__matmul__", lambda a, b: op(_tf32(a), _tf32(b)))
+
+
+def _unbiased_variance(monkeypatch):
+    forward = tedge.MaskedBatchNorm.forward
+
+    def unbiased(self, x, mask):
+        if not self.training:
+            return forward(self, x, mask)
+        m = mask.to(x.dtype)[..., None]
+        dims = tuple(range(x.dim() - 1))
+        cnt = torch.clamp(torch.sum(m), min=1.0)
+        mean = torch.sum(x * m, dim=dims) / cnt
+        var = torch.sum((x - mean) ** 2 * m, dim=dims) / torch.clamp(cnt - 1.0, min=1.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+            self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+        return (x - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
+
+    monkeypatch.setattr(tedge.MaskedBatchNorm, "forward", unbiased)
+
+
+def _higher_index_first(monkeypatch):
+    knn = tpatches.masked_pair_knn
+
+    def higher(x, node_mask, k):
+        idx, mask = knn(torch.flip(x, [1]), torch.flip(node_mask, [1]), k)
+        return torch.where(mask, x.shape[1] - 1 - idx, 0), mask
+
+    monkeypatch.setattr(tpatches, "masked_pair_knn", higher)
+
+
+STAND_INS = {"tf32_products": _tf32_products, "unbiased_bn_variance": _unbiased_variance,
+             "patch_knn_higher_index_first": _higher_index_first}
+
+
+@pytest.mark.parametrize("name", list(STAND_INS))
+def test_a_wrong_stand_in_fails(ref, name, monkeypatch):
+    STAND_INS[name](monkeypatch)
+    rec = judge(ref, _port(ref))
+    print("stand-in", name, rec)
+    assert not rec["ok"], rec
+
+
+def test_a_lone_far_normal_fails(ref):
+    v = ref.out.copy()
+    v[0, 0] += 1.1 * NORMAL_SPREAD_MAX * judge(ref, ref.out)["spread_max"]
+    rec = judge(ref, v)
+    assert rec["median"] == 0.0 and not rec["ok"], rec

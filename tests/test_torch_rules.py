@@ -88,6 +88,49 @@ def test_mesh_entry_points_default_to_the_card(name):
         _mesh_entry_points()[name]()
 
 
+def _point_entry_points():
+    import numpy as np
+
+    from ngpd_tpu_torch.core import noise, patches, process
+    from ngpd_tpu_torch.learn import predict
+    from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+
+    pts = torch.as_tensor(np.random.default_rng(0).random((80, 3), dtype=np.float32))
+    nrm = torch.nn.functional.normalize(pts - 0.5, dim=1)
+    return {"predict_cloud_normals": lambda: predict.predict_cloud_normals(
+                init_patch2normal(), pts, nrm),
+            "extract_patches": lambda: patches.extract_patches(pts, nrm),
+            "preprocess_pointcloud": lambda: process.preprocess_pointcloud(
+                noise.draw_noise(80, torch.Generator().manual_seed(0)), pts)}
+
+
+@pytest.mark.parametrize("name", ["predict_cloud_normals", "extract_patches",
+                                  "preprocess_pointcloud"])
+def test_point_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _point_entry_points()[name]()
+
+
+@pytest.mark.parametrize("command", ["predict-normals", "add-noise"])
+def test_point_cli_without_a_card_raises(tmp_path, command):
+    """``predict-normals`` and ``add-noise`` default to the card and do not
+    carry on on the CPU without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    import numpy as np
+
+    from ngpd_tpu_torch.apps import cli
+    from ngpd_tpu_torch.io.obj import save_obj
+
+    save_obj(tmp_path / "in.obj", np.random.default_rng(0).random((80, 3), dtype=np.float32))
+    out = tmp_path / ("out.xyz" if command == "predict-normals" else "out.obj")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([command, str(tmp_path / "in.obj"), "-o", str(out)])
+    assert not out.exists()
+
+
 def _small_pack():
     n = padded_size(300, 128, 64, 1)[0]
     pack = torch.rand((8, n))

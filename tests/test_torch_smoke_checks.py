@@ -17,14 +17,27 @@ over-eager word skip or a wrong tail mask would do, and must end
 passes A-D must end ``check_passes``. A K0 whose rk_feat is one
 bisection step off (23 steps), what a replay that lost a step would
 give, must end ``check_kernels`` too.
+
+The learned point track's agreement checks (``judge_point_model``,
+``judge_point_normals``) are held here too, at a narrow width on a small
+merged scan: a right run (the path on its input nudged by one ulp once
+more) passes, and three wrong stand-ins are refused by one of them: TF32
+in the products (emulated: operands rounded to 10 mantissa bits), an
+unbiased BatchNorm variance in the train-mode step, and the intra-patch
+kNN keeping the higher index among ties.
 """
 
 import functools
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 import chip_smoke as cs
+from ngpd_tpu_torch.bench import SPREAD_SEEDS, nudged
+from ngpd_tpu_torch.config import ModelConfig
+from ngpd_tpu_torch.core import patches as point_patches
+from ngpd_tpu_torch.models import edgeconv
 from ngpd_tpu_torch.bench import make_cloud, make_corner_cloud
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.core.cuda_fused import passes_prologue, prologue
@@ -286,3 +299,109 @@ def test_pass_that_drops_a_word_fails(no_cuda_sync, monkeypatch, wrapper, strate
     with pytest.raises(SystemExit):
         cs.check_passes(CFG, _state(strategy), strategy, timed=False,
                         min_class=cs.MIN_CLASS_POINTS)
+
+
+NARROW_P2N = ModelConfig(hidden=(16, 16, 32, 32, 32, 32, 64, 32, 16), dropout_rate=0.0)
+
+
+@pytest.fixture(scope="module")
+def point_ref():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cs, "POINT_REF_CFG", NARROW_P2N)
+        u, nrm, cloud = cs.merged_scan(160, 80)
+        nrm = torch.as_tensor(nrm)
+        pts = torch.as_tensor(cloud(u))
+        model = cs.refreshed_model(pts, nrm, "cpu")
+        b = point_patches.extract_patches(pts, nrm, device="cpu")
+        with torch.no_grad():
+            outputs = model(b.x, b.nbr_idx, b.nbr_mask, b.node_mask)
+        return SimpleNamespace(
+            u=u, nrm=nrm, cloud=cloud, patches=b, outputs=outputs,
+            base=cs.point_run(pts, nrm, "cpu"),
+            spreads=[cs.point_run(torch.as_tensor(cloud(nudged(u, s))), nrm, "cpu")
+                     for s in SPREAD_SEEDS])
+
+
+def _point_judges(ref, got_normals, got_outputs):
+    return (cs.judge_point_model(got_outputs, ref.outputs),
+            cs.judge_point_normals(got_normals, ref.base, ref.spreads, ref.base))
+
+
+def _point_path(ref, pts):
+    model = cs.refreshed_model(pts, ref.nrm, "cpu")
+    b = ref.patches
+    with torch.no_grad():
+        outputs = model(b.x, b.nbr_idx, b.nbr_mask, b.node_mask)
+    return cs.point_run(pts, ref.nrm, "cpu"), outputs
+
+
+def test_right_point_run_passes(point_ref, monkeypatch):
+    monkeypatch.setattr(cs, "POINT_REF_CFG", NARROW_P2N)
+    normals, outputs = _point_path(point_ref, torch.as_tensor(point_ref.cloud(
+        nudged(point_ref.u, 11))))
+    model_rec, normals_rec = _point_judges(point_ref, normals, point_ref.outputs)
+    print("right", model_rec, normals_rec)
+    assert model_rec["ok"] and normals_rec["ok"], (model_rec, normals_rec)
+    # The model alone, on identical inputs in two halves (another blocking).
+    half = point_ref.patches.x.shape[0] // 2
+    model = cs.refreshed_model(torch.as_tensor(point_ref.cloud(point_ref.u)), point_ref.nrm, "cpu")
+    b = point_ref.patches
+    with torch.no_grad():
+        parts = [model(b.x[s], b.nbr_idx[s], b.nbr_mask[s], b.node_mask[s])
+                 for s in (slice(0, half), slice(half, None))]
+    assert cs.judge_point_model(torch.cat(parts), point_ref.outputs)["ok"]
+
+
+def _tf32(x):
+    if not torch.is_tensor(x) or x.dtype != torch.float32:
+        return x
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_products(monkeypatch):
+    matmul = torch.matmul
+    monkeypatch.setattr(torch, "matmul", lambda a, b: matmul(_tf32(a), _tf32(b)))
+
+
+def _unbiased_variance(monkeypatch):
+    forward = edgeconv.MaskedBatchNorm.forward
+
+    def unbiased(self, x, mask):
+        if not self.training:
+            return forward(self, x, mask)
+        m = mask.to(x.dtype)[..., None]
+        dims = tuple(range(x.dim() - 1))
+        cnt = torch.clamp(torch.sum(m), min=1.0)
+        mean = torch.sum(x * m, dim=dims) / cnt
+        var = torch.sum((x - mean) ** 2 * m, dim=dims) / torch.clamp(cnt - 1.0, min=1.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+            self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+        return (x - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
+
+    monkeypatch.setattr(edgeconv.MaskedBatchNorm, "forward", unbiased)
+
+
+def _patch_knn_higher_index_first(monkeypatch):
+    knn = point_patches.masked_pair_knn
+
+    def higher(x, node_mask, k):
+        idx, mask = knn(torch.flip(x, [1]), torch.flip(node_mask, [1]), k)
+        return torch.where(mask, x.shape[1] - 1 - idx, 0), mask
+
+    monkeypatch.setattr(point_patches, "masked_pair_knn", higher)
+
+
+POINT_MUTANTS = {"tf32_products": _tf32_products, "unbiased_bn_variance": _unbiased_variance,
+                 "patch_knn_higher_index_first": _patch_knn_higher_index_first}
+
+
+@pytest.mark.parametrize("mutant", list(POINT_MUTANTS))
+def test_wrong_point_path_fails(point_ref, monkeypatch, mutant):
+    monkeypatch.setattr(cs, "POINT_REF_CFG", NARROW_P2N)
+    POINT_MUTANTS[mutant](monkeypatch)
+    normals, outputs = _point_path(point_ref, torch.as_tensor(point_ref.cloud(point_ref.u)))
+    model_rec, normals_rec = _point_judges(point_ref, normals, outputs)
+    print(mutant, model_rec, normals_rec)
+    assert not (model_rec["ok"] and normals_rec["ok"]), (model_rec, normals_rec)
