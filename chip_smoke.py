@@ -94,6 +94,33 @@ exit code and no result line:
              ``--save-noise``, ``--load-noise`` reproducing it bit for bit,
              ``add-noise`` on the ``cad_suite`` box, ``predict-normals`` on
              the noisy cloud with an ``.npz`` of the seeded model
+  train_point  Patch2Normal's trainer (plain torch, no kernel):
+             ``generate_dataset`` on three ``cad_suite`` meshes sampled at
+             TRAIN_POINTS points, TrainConfig's six noise levels, balanced
+             (seconds, the kNN searches apart); ``fit`` for TRAIN_EPOCHS
+             epochs at full width, batch 64, lr 1e-3: steps/s, patches/s,
+             TFLOP/s (3 x the forward's), peak memory, val custom_val_loss
+             each epoch, gated at half the untrained model's; the angular
+             error of the trained model's normals on a held-out shape beside
+             the PCA normals' (reported, not gated)
+  train_mesh  the DGCNN's trainer: ``build_mesh_dataset`` on three
+             ``cad_suite`` meshes and icosphere(5) at levels 0.1-0.3, at most
+             MESH_TRAIN_PATCHES patches a mesh; ``fit_dgcnn`` from
+             ``init_dgcnn(emb_dims=1024)``, batch 256, lr 1e-4, TRAIN_EPOCHS
+             epochs: patches/s, TFLOP/s, peak memory, val mse and angular
+             error each epoch, gated below the untrained model's angle
+  train_reference  one full-width training step of each model (Patch2Normal
+             at batch 64, the DGCNN at 256) on the card against the same
+             step on the CPU, the same weights, batch and dropout masks: the
+             loss, the BatchNorm statistics, the parameters after Adam, and
+             every gradient (relative to its norm) within a factor of the
+             CPU step's own spread under a one-ulp nudge of the batch; the
+             card's step twice (equal or not); the card's step with TF32 on
+             must fail; the DGCNN's batch variance on the card is Flax's
+             (``fast_variance_probe``)
+  train_cli  ``make-dataset`` on two TRAIN_CLI_POINTS-point OBJ clouds, ``train
+             --epochs 1`` (scores.json, at most top_k checkpoints), then
+             ``predict-normals --ckpt`` with the run's checkpoints on a third
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
@@ -113,7 +140,7 @@ import numpy as np
 import torch
 
 from ngpd_tpu_torch import bench
-from ngpd_tpu_torch.config import DenoiseConfig, GNFConfig, ModelConfig
+from ngpd_tpu_torch.config import DenoiseConfig, GNFConfig, ModelConfig, PatchConfig, TrainConfig
 from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import (
     denoise_hybrid, denoise_passes, passes_prologue, prologue,
@@ -128,17 +155,24 @@ from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
 from ngpd_tpu_torch.core.normals import estimated_normals
+from ngpd_tpu_torch.learn import train as trainer
+from ngpd_tpu_torch.learn import train_dgcnn as dgcnn_trainer
+from ngpd_tpu_torch.learn.checkpoints import CheckpointManager
+from ngpd_tpu_torch.learn.dataset import PatchDataset, generate_dataset
 from ngpd_tpu_torch.learn.predict import predict_cloud_normals, unrotate
 from ngpd_tpu_torch.learn.weights import (load_dgcnn_state_dict, save_variables_npz,
                                           variables_from_patch2normal_state_dict)
 from ngpd_tpu_torch.meshproc import gcn_denoiser as gcn
+from ngpd_tpu_torch.meshproc.collector import build_mesh_dataset
 from ngpd_tpu_torch.meshproc.filtering import guided_normal_filter
 from ngpd_tpu_torch.meshproc.metrics import mean_angular_error
 from ngpd_tpu_torch.meshproc.patches import extract_mesh_patches, unrotate_predictions
-from ngpd_tpu_torch.meshproc.synthetic import box
+from ngpd_tpu_torch.meshproc.synthetic import box, cad_suite, icosphere
 from ngpd_tpu_torch.meshproc.trimesh import add_mesh_noise
-from ngpd_tpu_torch.models.dgcnn import EDGE_CHANNELS, dgcnn_from_state_dict
-from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+from ngpd_tpu_torch.models import dgcnn as dgcnn_mod
+from ngpd_tpu_torch.models.dgcnn import DGCNN, EDGE_CHANNELS, dgcnn_from_state_dict
+from ngpd_tpu_torch.models.patch2normal import Patch2NormalModel, flax_init_, init_patch2normal
+from ngpd_tpu_torch.io.sampling import sample_mesh
 from ngpd_tpu_torch.ops import metrics
 
 ROOT = Path(__file__).resolve().parent
@@ -187,6 +221,28 @@ POINT_MODEL_TOL = 2e-4
 # The card-against-CPU model: full width, dropout off in the train-mode
 # step that refreshes the BatchNorm statistics (its draws would differ).
 POINT_REF_CFG = ModelConfig(dropout_rate=0.0)
+# Training: the shapes, their sampling, the depth (epochs, patches a mesh)
+# cut to hold the phases' time; widths are the configurations' own.
+TRAIN_SHAPES = ("syn_box", "syn_cylinder", "syn_fillet_box")
+TRAIN_HELD_OUT = "syn_chamfer_box"
+TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_CLI_POINTS = 3_000, 2, 1_500
+MESH_TRAIN_LEVELS, MESH_TRAIN_PATCHES, MESH_TRAIN_BATCH = (0.1, 0.2, 0.3), 4_000, 256
+MESH_TRAIN_SUBDIV = 5  # icosphere(5): 20,480 faces
+TRAIN_GATE = 0.5  # final val custom_val_loss over the untrained model's
+# Card-against-CPU training step: the loss to TRAIN_LOSS_TOL relative, the
+# statistics to 1e-5 of max(|entry|, 1), every parameter within 2 lr after
+# Adam (an Adam step moves an entry by at most lr). Both models' float32
+# gradients are ill-conditioned at full width (a max over nodes or
+# neighbours changes its winner under rounding; the DGCNN's fast variance
+# cancels), so the gradients are held to the CPU path's own spread: the
+# same step on the batch moved by one ulp (``bench.nudged``), per parameter
+# (error over max(its norm, 1e-3 x the largest norm)) and as a whole, times
+# TRAIN_SPREAD_FACTOR; the share of parameter entries off by more than 1e-6
+# after Adam to the same factor times the spread's share.
+TRAIN_LOSS_TOL = {"patch2normal": 1e-5, "dgcnn": 1e-4}
+TRAIN_SPREAD_FACTOR = {"grad_err_max": 10.0, "grad_err_whole": 30.0, "param_share_off": 10.0}
+TRAIN_STATS_TOL, TRAIN_PARAM_TOL, NULL_GRAD = 1e-5, 1e-6, 1e-3
+TRAIN_REF_P2N_CFG, TRAIN_REF_EMB = ModelConfig(), 1024  # full width, dropout 0.5
 
 
 T_START = time.perf_counter()
@@ -1154,6 +1210,327 @@ def check_point_cli() -> dict:
     return rec
 
 
+def _quiet(fn, *args, **kwargs):
+    """``fn``'s result, its printed lines kept apart from the phase lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().splitlines()
+
+
+def _write_meshes(tmp: str, names, extra=()) -> list:
+    suite = cad_suite()
+    paths = []
+    for name, mesh in [(n, suite[n]) for n in names] + list(extra):
+        save_obj(f"{tmp}/{name}.obj", mesh.v.numpy(), faces=mesh.f.numpy())
+        paths.append(f"{tmp}/{name}.obj")
+    return paths
+
+
+def _val_epochs(log_dir, key: str) -> list:
+    lines = [json.loads(ln) for ln in (Path(log_dir) / "metrics.jsonl").read_text().splitlines()]
+    return [ln[key] for ln in lines if ln["split"] == "val"]
+
+
+def _mean_eval(step, state, batches) -> dict:
+    acc, n = None, 0
+    for b in batches:
+        acc, n = trainer.acc_metrics(acc, step(state, b)), n + 1
+    return trainer.host_means(acc, n)
+
+
+def _sign_free_angle(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean angle in degrees between unoriented normals."""
+    cos = torch.clamp(torch.abs(torch.sum(a * b, dim=1)), max=1.0)
+    return float(torch.rad2deg(torch.arccos(cos)).mean())
+
+
+def check_train_point() -> dict:
+    """Patch2Normal's dataset and trainer at full width on the card."""
+    kw.reset_launch_counts()
+    kp.reset_launch_counts()
+    rec = {"shapes": TRAIN_SHAPES, "points": TRAIN_POINTS, "epochs": TRAIN_EPOCHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        raws = _write_meshes(tmp, TRAIN_SHAPES)
+        times: dict = {}
+        manifest, ds_ms = time_once(lambda: generate_dataset(
+            raws, f"{tmp}/ds", TrainConfig(), PatchConfig(), sample_points=TRAIN_POINTS,
+            device="cuda", times=times))
+        rec["dataset_seconds"] = ds_ms / 1e3
+        rec["dataset_stage_seconds"] = times
+        rec["patches"] = sum(sh["count"] for sh in manifest["shards"])
+        cfg = TrainConfig(num_epochs=TRAIN_EPOCHS, min_epochs=TRAIN_EPOCHS)
+        model, state = trainer.init_model(ModelConfig(), cfg, device="cuda")
+        train_ds = PatchDataset(f"{tmp}/ds", "train", device="cuda")
+        val_ds = PatchDataset(f"{tmp}/ds", "val", device="cuda")
+        rec["train_patches"], rec["val_patches"] = len(train_ds), len(val_ds)
+        rec["untrained_val_loss"] = _mean_eval(trainer.eval_step, state, val_ds.batches(
+            cfg.batch_size, seed=1))["custom_val_loss"]
+        torch.cuda.reset_peak_memory_stats()
+        _, fit_ms = time_once(lambda: _quiet(
+            trainer.fit, state, lambda: train_ds.batches(cfg.batch_size, seed=0),
+            lambda: val_ds.batches(cfg.batch_size, seed=1), cfg, log_dir=f"{tmp}/logs"))
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        rec["val_loss_by_epoch"] = _val_epochs(f"{tmp}/logs", "custom_val_loss")
+    steps = state.step
+    rec["fit_seconds"] = fit_ms / 1e3
+    # Validation passes included in the wall time.
+    rec["train_steps_per_s"] = steps / (fit_ms / 1e3)
+    rec["patches_per_s"] = steps * cfg.batch_size / (fit_ms / 1e3)
+    rec["tflop_per_s_estimate"] = (3 * patch2normal_flop_per_patch() * rec["patches_per_s"]
+                                   / 1e12)
+    rec["tflop_estimate"] = "3 x the forward's dense-layer FLOP a patch x patches/s"
+    rec["kernel_launches"] = {**kw.LAUNCHES, **kp.LAUNCHES}
+    # Held-out shape: the trained model's normals against PCA's.
+    mesh = cad_suite()[TRAIN_HELD_OUT]
+    cloud = sample_mesh(mesh.v.numpy(), mesh.f.numpy(), TRAIN_POINTS, seed=7)
+    clean_n = cloud.normals.to("cuda")
+    pts = cloud.points.to("cuda")
+    gauss, _ = draw_noise(len(pts), torch.Generator("cuda").manual_seed(3))
+    noisy = pts + clean_n * gauss[:, :1] * 0.005
+    pca = estimated_normals(noisy)
+    learned = predict_cloud_normals(model, noisy, pca, device="cuda")
+    rec["held_out"] = {"shape": TRAIN_HELD_OUT, "points": TRAIN_POINTS,
+                       "angle_deg_learned": _sign_free_angle(learned, clean_n),
+                       "angle_deg_pca": _sign_free_angle(pca, clean_n)}
+    final = rec["val_loss_by_epoch"][-1]
+    rec["gate"] = final <= TRAIN_GATE * rec["untrained_val_loss"]
+    if not rec["gate"] or not np.isfinite(final):
+        fail(f"train_point: the trainer did not learn: {rec}")
+    if any(rec["kernel_launches"].values()):
+        fail(f"train_point launched a window or pass kernel: {rec['kernel_launches']}")
+    return rec
+
+
+def check_train_mesh() -> dict:
+    """The DGCNN's dataset and trainer at full width on the card."""
+    rec = {"shapes": TRAIN_SHAPES + (f"icosphere({MESH_TRAIN_SUBDIV})",),
+           "levels": MESH_TRAIN_LEVELS, "max_patches_per_mesh": MESH_TRAIN_PATCHES,
+           "epochs": TRAIN_EPOCHS, "batch": MESH_TRAIN_BATCH}
+    with tempfile.TemporaryDirectory() as tmp:
+        raws = _write_meshes(tmp, TRAIN_SHAPES,
+                             [("ico5", icosphere(subdiv=MESH_TRAIN_SUBDIV))])
+        shards, ds_ms = time_once(lambda: build_mesh_dataset(
+            raws, f"{tmp}/shards", levels=MESH_TRAIN_LEVELS,
+            max_patches_per_mesh=MESH_TRAIN_PATCHES, device="cuda"))
+        rec["dataset_seconds"] = ds_ms / 1e3
+        store = dgcnn_trainer.ShardStore(shards, device="cuda")
+        rec["train_patches"], rec["val_patches"] = len(store.train["x"]), len(store.val["x"])
+        _, state = dgcnn_trainer.init_dgcnn(seed=0, emb_dims=1024, device="cuda")
+        untrained = _mean_eval(dgcnn_trainer.dgcnn_eval_step, state,
+                               store.batches("val", MESH_TRAIN_BATCH, shuffle=False))
+        rec["untrained_val"] = untrained
+        torch.cuda.reset_peak_memory_stats()
+        _, fit_ms = time_once(lambda: _quiet(
+            dgcnn_trainer.fit_dgcnn, state, store, batch_size=MESH_TRAIN_BATCH,
+            num_epochs=TRAIN_EPOCHS, log_dir=f"{tmp}/logs"))
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        rec["val_mse_by_epoch"] = _val_epochs(f"{tmp}/logs", "mse_loss")
+        rec["val_angle_deg_by_epoch"] = _val_epochs(f"{tmp}/logs", "angular_deg")
+    steps = (len(store.train["x"]) // MESH_TRAIN_BATCH) * TRAIN_EPOCHS
+    rec["fit_seconds"] = fit_ms / 1e3
+    rec["patches_per_s"] = steps * MESH_TRAIN_BATCH / (fit_ms / 1e3)
+    rec["tflop_per_s_estimate"] = 3 * dgcnn_flop_per_patch() * rec["patches_per_s"] / 1e12
+    rec["tflop_estimate"] = "3 x the forward's dense-layer FLOP a patch x patches/s"
+    final = rec["val_angle_deg_by_epoch"][-1]
+    rec["gate"] = final < untrained["angular_deg"]
+    if not rec["gate"] or not np.isfinite(final):
+        fail(f"train_mesh: the trainer did not learn: {rec}")
+    return rec
+
+
+def train_reference_batches() -> dict:
+    """The training step's batches, on the CPU: 64 Patch2Normal patches of
+    a noisy CAD roof, 256 DGCNN patches of a noisy ``cad_suite`` box."""
+    noisy, nrm, _ = bench.make_cloud(4096)
+    b = point_patches.extract_patches(torch.as_tensor(noisy), torch.as_tensor(nrm),
+                                      device="cpu")
+    take = torch.arange(0, 4096, 64)
+    point = {k: getattr(b, k)[take] for k in ("x", "nbr_idx", "nbr_mask", "node_mask", "y")}
+    clean = box(n=10)
+    mesh = add_mesh_noise(clean, draw_noise(clean.num_vertices,
+                                            torch.Generator().manual_seed(0)), 0.3)
+    mb = extract_mesh_patches(mesh, gt_normals=clean.face_data()[0], device="cpu")
+    take = torch.arange(0, mesh.num_faces, mesh.num_faces // MESH_TRAIN_BATCH)[:MESH_TRAIN_BATCH]
+    return {"patch2normal": point, "dgcnn": {"x": mb.inputs[take], "y": mb.y[take]}}
+
+
+def _fresh_model(kind: str, seed=None):
+    """A full-width model of ``kind`` (TRAIN_REF_P2N_CFG, TRAIN_REF_EMB),
+    seeded with Flax's initialisers when ``seed`` is given."""
+    model = (Patch2NormalModel(TRAIN_REF_P2N_CFG) if kind == "patch2normal"
+             else DGCNN(emb_dims=TRAIN_REF_EMB))
+    return model if seed is None else flax_init_(model, seed)
+
+
+def train_reference_inputs() -> dict:
+    """Per model: seeded weights, the batch and the dropout keep masks."""
+    batches = train_reference_batches()
+    out = {}
+    for kind in ("patch2normal", "dgcnn"):
+        model, batch = _fresh_model(kind, seed=1), batches[kind]
+        keep = model.draw_keep_masks(batch["x"].shape[0], torch.Generator().manual_seed(2))
+        out[kind] = (model.state_dict(), batch, keep)
+    return out
+
+
+def train_step_on(kind: str, device: str, weights: dict, batch: dict, keep) -> dict:
+    """One training step of a fresh model with ``weights`` on ``device``:
+    the metrics, gradients, statistics and parameters after Adam, on the CPU."""
+    model = _fresh_model(kind)
+    model.load_state_dict(weights)
+    model.to(device)
+    if kind == "patch2normal":
+        lr, step = TrainConfig().learning_rate, trainer.train_step
+    else:
+        lr, step = 1e-4, dgcnn_trainer.dgcnn_train_step
+    state = trainer.new_state(model, lr, 0, device)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    _, metrics = step(state, batch, keep=[m.to(device) for m in keep])
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            "buffers": {k: v.detach().cpu() for k, v in model.named_buffers()
+                        if not k.endswith("num_batches_tracked")},
+            "params": {k: p.detach().cpu() for k, p in model.named_parameters()}, "lr": lr}
+
+
+def compare_train_steps(got: dict, want: dict) -> dict:
+    """How far one training step's results lie from another's."""
+    norms = {k: float(g.norm()) for k, g in want["grads"].items()}
+    floor = NULL_GRAD * max(norms.values())
+    grad_err = {k: float((got["grads"][k] - g).norm()) / max(norms[k], floor)
+                for k, g in want["grads"].items()}
+    g_all = torch.cat([g.ravel() for g in want["grads"].values()])
+    whole = float((torch.cat([got["grads"][k].ravel() for k in want["grads"]]) - g_all).norm()
+                  / g_all.norm())
+    loss_key = "custom_val_loss" if "custom_val_loss" in want["metrics"] else "loss"
+    d = torch.cat([(got["params"][k] - p).abs().ravel() for k, p in want["params"].items()])
+    return {"loss_rel_err": abs(got["metrics"][loss_key] - want["metrics"][loss_key])
+            / abs(want["metrics"][loss_key]),
+            "grad_err_max": max(grad_err.values()),
+            "grad_err_worst": max(grad_err, key=grad_err.get), "grad_err_whole": whole,
+            "stats_err": max(float(((got["buffers"][k] - v).abs() / v.abs().clamp(min=1.0)).max())
+                             for k, v in want["buffers"].items()),
+            "param_err_max": float(d.max()),
+            "param_share_off": float((d > TRAIN_PARAM_TOL).double().mean())}
+
+
+def judge_train_step(kind: str, got: dict, want: dict, spread: dict) -> dict:
+    """A step against the CPU's, given the CPU's own spread (the same step
+    on the batch nudged by one ulp)."""
+    rec = compare_train_steps(got, want)
+    floors = {"grad_err_max": 1e-6, "grad_err_whole": 1e-6, "param_share_off": 1e-4}
+    rec["ok"] = (rec["loss_rel_err"] <= TRAIN_LOSS_TOL[kind]
+                 and rec["stats_err"] <= TRAIN_STATS_TOL and rec["param_err_max"] <= 2 * want["lr"]
+                 and all(rec[k] <= f * max(spread[k], floors[k])
+                         for k, f in TRAIN_SPREAD_FACTOR.items()))
+    return rec
+
+
+def nudged_batch(kind: str, batch: dict, seed: int) -> dict:
+    """The batch with every float input moved by one ulp (the DGCNN's
+    neighbour rows kept)."""
+    x = batch["x"].clone()
+    if kind == "dgcnn":
+        x[:, :17] = torch.as_tensor(bench.nudged(x[:, :17].numpy(), seed))
+    else:
+        x = torch.as_tensor(bench.nudged(x.numpy(), seed))
+    return {**batch, "x": x}
+
+
+def fast_variance_probe(device: str) -> dict:
+    """Flax's variance mean(x^2) - mean(x)^2 cancels where the mean is large
+    against the spread; a two-pass variance does not. On x = 1000 + 0.01 z
+    (true variance 1e-4) the DGCNN's batch statistics must carry that
+    cancellation: their error against float64 is held above 100 x the
+    float32 two-pass variance's."""
+    z = torch.randn((64, 64, 8, 16), generator=torch.Generator().manual_seed(5))
+    h = (1000.0 + 0.01 * z).to(torch.float32)
+    truth = h.double().var(dim=(0, 1, 2), unbiased=False)
+    got = dgcnn_mod.batch_stats(h.to(device))[1].double().cpu()
+    two_pass = ((h - h.mean(dim=(0, 1, 2))) ** 2).mean(dim=(0, 1, 2)).double()
+    rec = {"fast_err": float((got - truth).abs().max()),
+           "two_pass_err": float((two_pass - truth).abs().max())}
+    rec["ok"] = rec["fast_err"] > 100 * rec["two_pass_err"]
+    return rec
+
+
+def check_train_reference() -> dict:
+    """One full-width training step of each model, card against CPU, with
+    the same weights, batch and dropout masks, held to the CPU's own spread
+    under a one-ulp nudge of the batch; the card's step run twice (the
+    gathers' backward adds with atomics); then with TF32 on, which must
+    fail. And the DGCNN's batch variance on the card is Flax's."""
+    rec = {"fast_variance": fast_variance_probe("cuda")}
+    if not rec["fast_variance"]["ok"]:
+        fail(f"train_reference: the card's batch variance is not Flax's: {rec}")
+    for kind, (weights, batch, keep) in train_reference_inputs().items():
+        want = train_step_on(kind, "cpu", weights, batch, keep)
+        spread = compare_train_steps(train_step_on(kind, "cpu", weights,
+                                                   nudged_batch(kind, batch, 9), keep), want)
+        got = train_step_on(kind, "cuda", weights, batch, keep)
+        again = train_step_on(kind, "cuda", weights, batch, keep)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = train_step_on(kind, "cuda", weights, batch, keep)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rec[kind] = {"batch": int(batch["x"].shape[0]), "cpu_spread": spread,
+                     "card": judge_train_step(kind, got, want, spread),
+                     "card_again": compare_train_steps(again, got),
+                     "card_tf32": judge_train_step(kind, got_tf32, want, spread)}
+        if not rec[kind]["card"]["ok"]:
+            fail(f"train_reference: the card's {kind} step disagrees with the CPU's: {rec}")
+        if rec[kind]["card_tf32"]["ok"]:
+            fail(f"train_reference: the {kind} check passed the step with TF32 on: {rec}")
+    return rec
+
+
+def check_train_cli() -> dict:
+    """``make-dataset`` and ``train --epochs 1`` through the CLI, then
+    ``predict-normals --ckpt`` with the run's checkpoint directory."""
+    suite = cad_suite()
+    rec = {"points": TRAIN_CLI_POINTS}
+    with tempfile.TemporaryDirectory() as tmp:
+        clouds = []
+        for i, name in enumerate(TRAIN_SHAPES):
+            m = suite[name]
+            c = sample_mesh(m.v.numpy(), m.f.numpy(), TRAIN_CLI_POINTS, seed=i)
+            save_obj(f"{tmp}/{name}.obj", c.points.numpy())
+            clouds.append(f"{tmp}/{name}.obj")
+        said, rec["make_dataset_seconds"] = run_cli(tmp, "make-dataset", *clouds[:2], "-o",
+                                                    f"{tmp}/ds")
+        rec["make_dataset_said"] = said.strip().splitlines()[-1]
+        said, rec["train_seconds"] = run_cli(tmp, "train", f"{tmp}/ds", "-o", f"{tmp}/run",
+                                             "--epochs", "1")
+        rec["train_said"] = [ln for ln in said.strip().splitlines() if ln.startswith("epoch")]
+        ckpts = Path(f"{tmp}/run/ckpts")
+        scores = json.loads((ckpts / "scores.json").read_text())
+        kept = sorted(p.name for p in ckpts.iterdir() if p.name.startswith("step_"))
+        rec["scores"], rec["checkpoints"] = scores, kept
+        if not scores or kept != sorted(scores) or len(kept) > TrainConfig().checkpoint_top_k:
+            fail(f"train: checkpoints {kept} against scores {scores}")
+        _, rec["predict_normals_seconds"] = run_cli(tmp, "predict-normals", clouds[2], "-o",
+                                                    f"{tmp}/n.xyz", "--ckpt", str(ckpts))
+        said = np.loadtxt(f"{tmp}/n.xyz", dtype=np.float32)
+        from ngpd_tpu_torch.learn.weights import load_dgcnn_npz, load_model_variables
+
+        model = load_model_variables(Patch2NormalModel(), load_dgcnn_npz(
+            CheckpointManager(ckpts).variables_path()))
+        want = predict_cloud_normals(model.eval(), load_obj(clouds[2]).points,
+                                     device="cuda").cpu().numpy()
+    rec["predict_normals_max_diff"] = float(np.abs(said[:, 3:] - want).max())
+    rec["predict_normals_unit_err"] = float(np.abs(np.linalg.norm(said[:, 3:], axis=1)
+                                                   - 1.0).max())
+    if (said.shape != (TRAIN_CLI_POINTS, 6) or rec["predict_normals_max_diff"] > 1e-5
+            or rec["predict_normals_unit_err"] > 1e-5):
+        fail(f"predict-normals with the trained checkpoint: {rec}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1299,6 +1676,12 @@ def main() -> int:
     say("point_normals", **check_point_normals())
     say("point_normals_reference", **check_point_normals_reference())
     say("point_cli", **check_point_cli())
+
+    # training (plain torch, no kernel)
+    say("train_point", **check_train_point())
+    say("train_mesh", **check_train_mesh())
+    say("train_reference", **check_train_reference())
+    say("train_cli", **check_train_cli())
 
     kernels = []
     sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),

@@ -11,7 +11,12 @@ voting, the six steps, normal estimation); the IO, the metrics, the
 ``denoise``/``eval`` CLI and the throughput bench; the mesh cascade in
 plain torch (``meshproc``, ``models.dgcnn``, ``learn.weights``: the guided
 normal filter, the DGCNN patch network, the two-pass ``gcn_denoise_mesh``,
-the recipe router, the ``denoise-mesh`` CLI and ``bench --mesh``).
+the recipe router, the ``denoise-mesh`` CLI and ``bench --mesh``); the
+learned point track (``models.patch2normal``, ``learn.predict``, the
+``predict-normals`` and ``add-noise`` CLI); and training, both learned
+tracks (``learn.train``, ``learn.train_dgcnn``, ``learn.dataset``,
+``learn.checkpoints``, ``learn.export``, ``meshproc.collector``, the
+``make-dataset`` and ``train`` CLI), in plain torch.
 """
 
 from .config import DenoiseConfig

@@ -1,10 +1,13 @@
 """Command-line interface of the port: the subcommands of
-``ngpd_tpu/apps/cli.py`` but the two that train (``make-dataset``, ``train``):
+``ngpd_tpu/apps/cli.py``:
 
   python -m ngpd_tpu_torch.apps.cli denoise noisy.obj -o out.obj
   python -m ngpd_tpu_torch.apps.cli denoise noisy.obj --gt clean.obj --until-min
   python -m ngpd_tpu_torch.apps.cli eval clean.obj out.obj
-  python -m ngpd_tpu_torch.apps.cli predict-normals noisy.obj -o n.xyz [--ckpt weights.npz]
+  python -m ngpd_tpu_torch.apps.cli make-dataset raw/*.obj -o patchds/ [--sample-points N]
+  python -m ngpd_tpu_torch.apps.cli train patchds/ -o run/ [--epochs 100 --batch-size 64]
+  python -m ngpd_tpu_torch.apps.cli predict-normals noisy.obj -o n.xyz \
+      [--ckpt weights.npz | --ckpt run/ckpts]
   python -m ngpd_tpu_torch.apps.cli add-noise clean.obj -o noisy.obj --level 0.3 \
       [--save-noise DIR | --load-noise FILE.npz]
   python -m ngpd_tpu_torch.apps.cli denoise-mesh noisy.obj -o out.obj \
@@ -17,11 +20,16 @@ against ``--gt`` until the error stops falling; otherwise ``--fused`` or a
 cloud of 100k points or more goes to the hybrid engine on the card and to
 the windowed ``fused_denoise`` on the CPU, as the reference picks its
 Pallas engine on its accelerator and ``fused_denoise`` elsewhere, and a
-smaller cloud to the dense ``(N, k)`` pipeline. ``predict-normals`` runs
-the Patch2Normal model on one MD patch per point (normals estimated first)
-with the weights of a flat ``.npz`` archive of Flax variables
-(``save_variables_npz``), or a seeded initialisation without ``--ckpt``;
-it writes the points and the predicted normals as ``.xyz``. ``add-noise``
+smaller cloud to the dense ``(N, k)`` pipeline. ``make-dataset`` writes
+Patch2Normal's patch shards and manifest (``learn/dataset.py``, noise from
+a generator seeded with ``TrainConfig.seed`` on the device); ``train``
+fits a seeded Patch2Normal to them (``learn/train.py``), logs under
+``-o``/logs and keeps the top-k checkpoints under ``-o``/ckpts.
+``predict-normals`` runs the Patch2Normal model on one MD patch per point
+(normals estimated first) with the weights of a flat ``.npz`` archive of
+Flax variables (``save_variables_npz``) or of the best checkpoint of a
+``train`` checkpoint directory, or a seeded initialisation without
+``--ckpt``; it writes the points and the predicted normals as ``.xyz``. ``add-noise``
 corrupts a mesh (an OBJ with faces) or a cloud, its draws from a
 ``torch.Generator`` seeded with ``--seed`` on the device (other numbers
 than the reference's ``jax.random``), and can save the noisy positions or
@@ -206,17 +214,52 @@ def cmd_denoise_mesh(args):
         print(f"wrote {args.html}")
 
 
+def cmd_make_dataset(args):
+    from ..config import TrainConfig
+    from ..learn.dataset import generate_dataset
+
+    manifest = generate_dataset(args.inputs, args.output, train_cfg=TrainConfig(),
+                                sample_points=args.sample_points, balance=not args.no_balance,
+                                device=args.device)
+    total = sum(s["count"] for s in manifest["shards"])
+    print(f"wrote {len(manifest['shards'])} shards, {total} patches")
+
+
+def cmd_train(args):
+    from ..config import ModelConfig, TrainConfig
+    from ..learn.dataset import PatchDataset
+    from ..learn.train import fit, init_model
+
+    train_cfg = TrainConfig(num_epochs=args.epochs, batch_size=args.batch_size)
+    _, state = init_model(ModelConfig(), train_cfg, device=args.device)
+    train_ds = PatchDataset(args.dataset, "train", device=args.device)
+    val_ds = PatchDataset(args.dataset, "val", device=args.device)
+    print(f"train {len(train_ds)} patches, val {len(val_ds)}")
+    fit(state,
+        lambda: train_ds.batches(train_cfg.batch_size, seed=0),
+        lambda: val_ds.batches(train_cfg.batch_size, seed=1),
+        train_cfg,
+        log_dir=Path(args.output) / "logs",
+        checkpoint_dir=Path(args.output) / "ckpts")
+    print(f"done; checkpoints under {args.output}/ckpts")
+
+
 def _patch2normal(ckpt):
-    """The model of ``--ckpt`` (a flat ``.npz`` of Flax variables), or the
-    seeded initialisation without one."""
+    """The model of ``--ckpt`` (a flat ``.npz`` of Flax variables, or a
+    ``train`` checkpoint directory: its best step's), or the seeded
+    initialisation without one."""
+    from ..learn.checkpoints import CheckpointManager
     from ..learn.weights import load_dgcnn_npz, patch2normal_state_dict_from_variables
     from ..models.patch2normal import Patch2NormalModel, init_patch2normal
 
     if ckpt is None:
         return init_patch2normal(seed=0)
+    if (Path(ckpt) / "scores.json").is_file():
+        ckpt = CheckpointManager(ckpt).variables_path()
     if not str(ckpt).endswith(".npz"):
         raise SystemExit(
-            f"--ckpt {ckpt}: the port reads a flat .npz archive of Flax variables; "
+            f"--ckpt {ckpt}: the port reads a flat .npz archive of Flax variables or a "
+            "checkpoint directory of its own train command; "
             "convert an orbax checkpoint with ngpd_tpu.learn.weights.save_variables_npz"
             "({'params': state.params, 'batch_stats': state.batch_stats})")
     model = Patch2NormalModel()
@@ -337,12 +380,29 @@ def main(argv=None):
     e.add_argument("--device", default="cuda")
     e.set_defaults(fn=cmd_eval)
 
+    m = sub.add_parser("make-dataset", help="generate patch shards")
+    m.add_argument("inputs", nargs="+")
+    m.add_argument("-o", "--output", required=True)
+    m.add_argument("--sample-points", type=int, default=None)
+    m.add_argument("--no-balance", action="store_true")
+    m.add_argument("--device", default="cuda")
+    m.set_defaults(fn=cmd_make_dataset)
+
+    t = sub.add_parser("train", help="train Patch2Normal")
+    t.add_argument("dataset")
+    t.add_argument("-o", "--output", required=True)
+    t.add_argument("--epochs", type=int, default=100)
+    t.add_argument("--batch-size", type=int, default=64)
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=cmd_train)
+
     pr = sub.add_parser("predict-normals", help="learned normal regression")
     pr.add_argument("input")
     pr.add_argument("-o", "--output", required=True)
     pr.add_argument("--ckpt", default=None,
                     help="Patch2Normal weights: a flat .npz of Flax variables "
-                         "(save_variables_npz); a seeded initialisation without it")
+                         "(save_variables_npz) or a train checkpoint directory (its "
+                         "best step); a seeded initialisation without it")
     pr.add_argument("--device", default="cuda")
     pr.set_defaults(fn=cmd_predict_normals)
 

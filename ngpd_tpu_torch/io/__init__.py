@@ -1,1 +1,2 @@
-"""Point-cloud file IO (OBJ, XYZ, PLY)."""
+"""File IO: point clouds (OBJ, XYZ, PLY), mesh sampling, ``.mat`` patches and
+``.h5`` path lists."""

@@ -1,1 +1,1 @@
-"""Weights of the learned models."""
+"""Weights, training, datasets, checkpoints and export of the learned models."""

@@ -23,7 +23,9 @@ linear2/3/4.weight+bias   params/linear{2,3,4}/{kernel,bias}
 
 with the ``conv{i}.1`` aliases of the shared BatchNorms and
 ``num_batches_tracked``, so a strict ``load_state_dict`` takes it.
-``load_dgcnn_state_dict`` reads either kind of file.
+``load_dgcnn_state_dict`` reads either kind of file; ``variables_from_state_dict``
+is the inverse, so a DGCNN trained by the port saves as the same flat
+``.npz`` (``dgcnn_variables``).
 
 Patch2Normal (``models/patch2normal.py``) carries the Flax module names, so
 its Flax tree maps onto the port's state dict path by path, ``/`` becoming
@@ -32,8 +34,11 @@ its Flax tree maps onto the port's state dict path by path, ``/`` becoming
 ``params/<path>/scale`` is ``<path>.weight`` and ``batch_stats/<path>/{mean,var}``
 are ``<path>.running_{mean,var}``
 (``patch2normal_state_dict_from_variables`` and its inverse
-``variables_from_patch2normal_state_dict``). ``save_variables_npz`` writes
-the flat archive that ``ngpd_tpu/learn/weights.py`` reads.
+``variables_from_patch2normal_state_dict``). ``BetterDGCNN`` carries the
+Flax names too and maps the same way (``better_dgcnn_state_dict_from_variables``,
+``variables_from_better_dgcnn_state_dict``). ``model_variables`` and
+``load_model_variables`` take any of the three models. ``save_variables_npz``
+writes the flat archive that ``ngpd_tpu/learn/weights.py`` reads.
 """
 
 from __future__ import annotations
@@ -184,7 +189,7 @@ def variables_from_patch2normal_state_dict(state_dict: Mapping) -> dict:
     flat: dict = {}
     for key, value in state_dict.items():
         path, attr = key.rsplit(".", 1)
-        v = value.detach().cpu().numpy().astype(np.float32)
+        v = value.detach().cpu().numpy().copy()  # not a view of the live tensor
         path = path.replace(".", "/")
         if attr in stat_of:
             flat[f"batch_stats/{path}/{stat_of[attr]}"] = v
@@ -194,3 +199,65 @@ def variables_from_patch2normal_state_dict(state_dict: Mapping) -> dict:
         else:
             flat[f"params/{path}/{attr}"] = v
     return unflatten_variables(flat)
+
+
+def variables_from_state_dict(state_dict: Mapping) -> dict:
+    """The port's DGCNN state dict -> Flax DGCNN variables (numpy), the
+    inverse of ``state_dict_from_variables``."""
+    sd = {k: v.detach().cpu().numpy().copy() for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    params: dict = {}
+    stats: dict = {}
+
+    def bn_in(torch_name, p_node, s_node):
+        p_node.update(scale=sd[f"{torch_name}.weight"], bias=sd[f"{torch_name}.bias"])
+        s_node.update(mean=sd[f"{torch_name}.running_mean"], var=sd[f"{torch_name}.running_var"])
+
+    for i in range(1, _NUM_EDGE_CONVS + 1):
+        params[f"conv{i}"] = {"Dense_0": {"kernel": sd[f"conv{i}.0.weight"][:, :, 0, 0].T},
+                              "BatchNorm_0": {}}
+        stats[f"conv{i}"] = {"BatchNorm_0": {}}
+        bn_in(f"bn{i}", params[f"conv{i}"]["BatchNorm_0"], stats[f"conv{i}"]["BatchNorm_0"])
+    params["conv7"] = {"kernel": sd["conv7.0.weight"][:, :, 0].T}
+    params["linear1"] = {"kernel": sd["linear1.weight"].T}
+    for li in (2, 3, 4):
+        params[f"linear{li}"] = {"kernel": sd[f"linear{li}.weight"].T,
+                                 "bias": sd[f"linear{li}.bias"]}
+    for b in (7, 8, 9, 10):
+        params[f"bn{b}"], stats[f"bn{b}"] = {}, {}
+        bn_in(f"bn{b}", params[f"bn{b}"], stats[f"bn{b}"])
+    flat = flatten_variables({"params": params, "batch_stats": stats})
+    return unflatten_variables({k: np.ascontiguousarray(v) for k, v in flat.items()})
+
+
+# BetterDGCNN's modules carry the Flax names, as Patch2Normal's do.
+better_dgcnn_state_dict_from_variables = patch2normal_state_dict_from_variables
+variables_from_better_dgcnn_state_dict = variables_from_patch2normal_state_dict
+
+
+def _is_dgcnn(model) -> bool:
+    from ..models.dgcnn import DGCNN
+
+    return isinstance(model, DGCNN)
+
+
+def model_variables(model) -> dict:
+    """Flax variables (numpy) of a port DGCNN, BetterDGCNN or Patch2Normal."""
+    sd = model.state_dict()
+    return (variables_from_state_dict(sd) if _is_dgcnn(model)
+            else variables_from_patch2normal_state_dict(sd))
+
+
+def load_model_variables(model, variables: Mapping):
+    """Load Flax variables into a port model, strictly; returns the model."""
+    sd = (state_dict_from_variables(variables) if _is_dgcnn(model)
+          else patch2normal_state_dict_from_variables(variables))
+    dev = next(model.parameters()).device
+    model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
+    return model
+
+
+def dgcnn_variables(state) -> dict:
+    """``{"params", "batch_stats"}`` of a trained model: a ``TrainState``
+    (``learn/train.py``) or the model itself."""
+    return model_variables(getattr(state, "model", state))

@@ -13,20 +13,37 @@ Parameters carry the reference torch model's names (``conv{i}.0.weight``,
 ``bn{i}.*`` shared with ``conv{i}.1.*``, ``conv7.0.weight``, ``linear{1..4}``),
 so a reference ``.t7`` state dict or TorchScript ``.pt`` loads with
 ``load_state_dict``. The forward runs channel-last with ``torch.matmul``,
-as the Flax model's ``Dense`` layers do; BatchNorm uses the running
-statistics with Flax's formula and eps 1e-5, dropout is off.
+as the Flax model's ``Dense`` layers do.
+
+BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9)`` (eps 1e-5), not
+torch's: in eval mode it reads the running statistics; in train mode it
+normalises with the batch statistics over every axis but the last, the
+variance computed Flax's fast way, ``max(mean(x^2) - mean(x)^2, 0)``, and
+updates the running statistics as ``0.9 * old + 0.1 * batch`` with the
+biased variance (torch's own would take two passes, keep the unbiased
+variance and call the 0.1 its momentum). Dropout (after bn8 and bn9) takes
+explicit keep masks (``models/dropout.py``). ``feature_knn`` runs without
+autograd: its distances feed only the selection.
+
+``BetterDGCNN`` is the parameterised generalisation of
+``ngpd_tpu/models/dgcnn.py``; its modules carry the Flax names
+(``conv{i}.Dense_0``, ``conv{i}.BatchNorm_0``, ``emb``, ``emb_bn``,
+``head{i}``, ``head{i}_bn``, ``out``), so its Flax tree maps onto
+``state_dict()`` path by path, as Patch2Normal's does.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.knn import _topk_smallest
+from .dropout import apply_dropout, draw_keep_masks, dropout_sites
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 LEAKY_SLOPE = 0.2
 EDGE_CHANNELS = (64, 64, 128, 256, 256, 256)
 NUM_FIXED = 3  # fixed-graph convs; the rest take the feature kNN
@@ -35,6 +52,7 @@ NUM_FIXED = 3  # fixed-graph convs; the rest take the feature kNN
 KNN_BLOCK_BYTES = 1 << 30
 
 
+@torch.no_grad()
 def feature_knn(x: torch.Tensor, k: int) -> torch.Tensor:
     """Self-inclusive feature-space kNN: (B, P, C) -> (B, P, k) indices.
 
@@ -62,10 +80,27 @@ def _edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([xj - xi, xi], dim=-1)
 
 
-def _bn(h: torch.Tensor, bn: nn.Module) -> torch.Tensor:
-    """Inference BatchNorm over the last axis, Flax's order of operations."""
-    mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-    return (h - bn.running_mean) * mul + bn.bias
+def batch_stats(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flax's batch statistics over every axis but the last: the mean and
+    the fast variance max(mean(h^2) - mean(h)^2, 0)."""
+    dims = tuple(range(h.dim() - 1))
+    mean = torch.mean(h, dim=dims)
+    mean2 = torch.mean(h * h, dim=dims)
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
+def _bn(h: torch.Tensor, bn: nn.Module, training: bool = False) -> torch.Tensor:
+    """BatchNorm over the last axis, Flax's order of operations; in train
+    mode with the batch statistics, updating ``bn``'s running ones."""
+    if training:
+        mean, var = batch_stats(h)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return (h - mean) * mul + bn.bias
 
 
 def _act(h: torch.Tensor) -> torch.Tensor:
@@ -74,10 +109,11 @@ def _act(h: torch.Tensor) -> torch.Tensor:
 
 class DGCNN(nn.Module):
     def __init__(self, k: int = 8, init_dims: int = 17, emb_dims: int = 1024,
-                 output_channels: int = 3):
+                 output_channels: int = 3, dropout: float = 0.5):
         super().__init__()
         self.k = k
         self.init_dims = init_dims
+        self.dropout = dropout
         dims = (init_dims,) + EDGE_CHANNELS
         for i, c in enumerate(EDGE_CHANNELS, start=1):
             bn = nn.BatchNorm2d(c, eps=BN_EPS)
@@ -95,9 +131,19 @@ class DGCNN(nn.Module):
         self.bn10 = nn.BatchNorm1d(64, eps=BN_EPS)
         self.linear4 = nn.Linear(64, output_channels)
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def dropout_shapes(self, batch: int) -> list[tuple]:
+        return [(batch, self.linear1.out_features), (batch, self.linear2.out_features)]
+
+    def draw_keep_masks(self, batch: int, generator: torch.Generator) -> list[torch.Tensor]:
+        return draw_keep_masks(self.dropout_shapes(batch), self.dropout, generator)
+
+    def forward(self, inputs: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         """inputs: (B, 20, P) channel-first (17 features + 3 neighbour
-        rows) -> (B, output_channels)."""
+        rows) -> (B, output_channels). ``keep``: the dropout keep masks of
+        a train-mode forward (``draw_keep_masks``)."""
+        train = self.training
+        masks = dropout_sites(train, self.dropout, keep, 2)
         x = inputs[:, : self.init_dims, :].transpose(1, 2)  # (B, P, 17)
         idx = inputs[:, self.init_dims : self.init_dims + 3, :].to(torch.int64).transpose(1, 2)
         outs = []
@@ -105,14 +151,18 @@ class DGCNN(nn.Module):
             conv, bn = getattr(self, f"conv{i}")[0], getattr(self, f"bn{i}")
             nbr = idx if i <= NUM_FIXED else feature_knn(x, self.k)
             h = _edge_features(x, nbr) @ conv.weight[:, :, 0, 0].T
-            x = torch.amax(_act(_bn(h, bn)), dim=2)  # max over neighbours
+            x = torch.amax(_act(_bn(h, bn, train)), dim=2)  # max over neighbours
             outs.append(x)
         h = torch.cat(outs, dim=-1) @ self.conv7[0].weight[:, :, 0].T  # (B, P, E)
-        h = _act(_bn(h, self.bn7))
+        h = _act(_bn(h, self.bn7, train))
         h = torch.cat([torch.amax(h, dim=1), torch.mean(h, dim=1)], dim=-1)
-        h = _act(_bn(h @ self.linear1.weight.T, self.bn8))
-        h = _act(_bn(self.linear2(h), self.bn9))
-        h = _act(_bn(self.linear3(h), self.bn10))
+        h = _act(_bn(h @ self.linear1.weight.T, self.bn8, train))
+        if masks[0] is not None:
+            h = apply_dropout(h, masks[0], self.dropout)
+        h = _act(_bn(self.linear2(h), self.bn9, train))
+        if masks[1] is not None:
+            h = apply_dropout(h, masks[1], self.dropout)
+        h = _act(_bn(self.linear3(h), self.bn10, train))
         return self.linear4(h)
 
 
@@ -123,3 +173,89 @@ def dgcnn_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> DGCNN:
                   output_channels=int(state_dict["linear4.weight"].shape[0]))
     model.load_state_dict(state_dict, strict=True)
     return model.eval().requires_grad_(False)
+
+
+class FlaxBatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm(momentum=0.9)`` over the last axis (see
+    ``_bn``), with the roles of its variables: ``weight`` is ``scale``,
+    ``running_mean`` / ``running_var`` are ``batch_stats`` ``mean`` / ``var``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return _bn(h, self, self.training)
+
+
+class ConvBlock(nn.Module):
+    """1x1 conv (a dense layer) + BatchNorm + LeakyReLU, max over neighbours."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features, bias=False)
+        self.BatchNorm_0 = FlaxBatchNorm(features)
+
+    def forward(self, e: torch.Tensor) -> torch.Tensor:
+        return torch.amax(_act(self.BatchNorm_0(e @ self.Dense_0.weight.T)), dim=2)
+
+
+class BetterDGCNN(nn.Module):
+    """Configurable counts of fixed-graph edge convs, dynamic kNN convs and
+    head linears: ``channels`` the per-conv widths (num_edge_convs +
+    num_dynamic_convs of them), ``head_channels`` the post-pool MLP widths;
+    dropout after the first two head layers."""
+
+    def __init__(self, channels: Sequence[int] = EDGE_CHANNELS, num_edge_convs: int = 3,
+                 num_dynamic_convs: int = 3, head_channels: Sequence[int] = (512, 256, 64),
+                 k: int = 8, emb_dims: int = 1024, dropout: float = 0.5,
+                 output_channels: int = 3, init_dims: int = 17):
+        super().__init__()
+        if len(channels) != num_edge_convs + num_dynamic_convs:
+            raise ValueError(f"{len(channels)} channel widths for "
+                             f"{num_edge_convs} + {num_dynamic_convs} convs")
+        self.channels, self.head_channels = tuple(channels), tuple(head_channels)
+        self.num_edge_convs, self.k, self.dropout = num_edge_convs, k, dropout
+        self.init_dims = init_dims
+        width = init_dims
+        for i, c in enumerate(self.channels):
+            setattr(self, f"conv{i}", ConvBlock(2 * width, c))
+            width = c
+        self.emb = nn.Linear(sum(self.channels), emb_dims, bias=False)
+        self.emb_bn = FlaxBatchNorm(emb_dims)
+        width = 2 * emb_dims
+        for li, c in enumerate(self.head_channels):
+            setattr(self, f"head{li}", nn.Linear(width, c, bias=li > 0))
+            setattr(self, f"head{li}_bn", FlaxBatchNorm(c))
+            width = c
+        self.out = nn.Linear(width, output_channels)
+
+    def dropout_shapes(self, batch: int) -> list[tuple]:
+        return [(batch, c) for c in self.head_channels[:2]]
+
+    def draw_keep_masks(self, batch: int, generator: torch.Generator) -> list[torch.Tensor]:
+        return draw_keep_masks(self.dropout_shapes(batch), self.dropout, generator)
+
+    def forward(self, inputs: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        masks = dropout_sites(self.training, self.dropout, keep,
+                              len(self.dropout_shapes(1)))
+        x = inputs[:, : self.init_dims, :].transpose(1, 2)
+        idx = inputs[:, self.init_dims : self.init_dims + 3, :].to(torch.int64).transpose(1, 2)
+        outs, h = [], x
+        for i in range(len(self.channels)):
+            nbr = idx if i < self.num_edge_convs else feature_knn(h, self.k)
+            h = getattr(self, f"conv{i}")(_edge_features(h, nbr))
+            outs.append(h)
+        h = _act(self.emb_bn(torch.cat(outs, dim=-1) @ self.emb.weight.T))
+        h = torch.cat([torch.amax(h, dim=1), torch.mean(h, dim=1)], dim=-1)
+        for li in range(len(self.head_channels)):
+            lin = getattr(self, f"head{li}")
+            h = h @ lin.weight.T if lin.bias is None else lin(h)
+            h = _act(getattr(self, f"head{li}_bn")(h))
+            if li < len(masks) and masks[li] is not None:
+                h = apply_dropout(h, masks[li], self.dropout)
+        return self.out(h)

@@ -93,7 +93,9 @@ class DynamicEdgeConv(nn.Module):
         self.bn = MaskedBatchNorm(features)
 
     def forward(self, x, node_mask):
-        idx, nbr_mask = masked_pair_knn(x, node_mask, self.k)
+        # The distances feed only the selection: no graph is kept for them.
+        with torch.no_grad():
+            idx, nbr_mask = masked_pair_knn(x, node_mask, self.k)
         h = torch.matmul(_edge_block(x, idx), self.lin.weight.T)
         m = (nbr_mask & node_mask[:, :, None])[..., None]
         agg = torch.amax(torch.where(m, h, -torch.inf), dim=2)

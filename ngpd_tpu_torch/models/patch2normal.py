@@ -17,7 +17,9 @@ Modules carry the Flax names (``layer{i}`` with ``lin`` and ``bn``,
 onto ``state_dict()`` key by key. Products run with ``torch.matmul`` on
 channel-last blocks, as the Flax ``Dense`` layers do. ``train()`` /
 ``eval()`` switch BatchNorm between batch and running statistics and
-dropout on and off.
+dropout on and off. Dropout takes explicit keep masks (``models/dropout.py``):
+``draw_keep_masks(batch, generator)`` draws them and the forward's ``keep``
+applies them; a train-mode forward at a nonzero rate needs them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from .dropout import apply_dropout, draw_keep_masks, dropout_sites
 from .edgeconv import DynamicEdgeConv, EdgeConv, MaskedBatchNorm, masked_global_pool
 
 # Flax's lecun_normal: a normal truncated at two standard deviations, whose
@@ -68,12 +71,20 @@ class Patch2NormalModel(nn.Module):
             setattr(self, f"layer{i}_lin", nn.Linear(width, cfg.hidden[i]))
             setattr(self, f"layer{i}_bn", MaskedBatchNorm(cfg.hidden[i]))
             width = cfg.hidden[i]
-        self.dropout = nn.Dropout(cfg.dropout_rate)
         self.lastLayer = nn.Linear(width, cfg.output_size)
 
-    def forward(self, x, nbr_idx, nbr_mask, node_mask) -> torch.Tensor:
+    def dropout_shapes(self, batch: int) -> list[tuple]:
+        """The shapes of the keep masks, one per postpool block."""
+        first = self.cfg.num_edgeconv + self.cfg.num_dynamic_edgeconv + self.cfg.num_prepool
+        return [(batch, self.cfg.hidden[first + q]) for q in range(self.num_postpool)]
+
+    def draw_keep_masks(self, batch: int, generator: torch.Generator) -> list[torch.Tensor]:
+        return draw_keep_masks(self.dropout_shapes(batch), self.cfg.dropout_rate, generator)
+
+    def forward(self, x, nbr_idx, nbr_mask, node_mask, keep=None) -> torch.Tensor:
         """x (B, P, input_size), nbr_idx / nbr_mask (B, P, K), node_mask
-        (B, P) -> raw outputs (B, output_size)."""
+        (B, P) -> raw outputs (B, output_size). ``keep``: the dropout keep
+        masks of a train-mode forward (``draw_keep_masks``)."""
         cfg = self.cfg
         num_convs = cfg.num_edgeconv + cfg.num_dynamic_edgeconv
         outs, h = [], x
@@ -90,10 +101,12 @@ class Patch2NormalModel(nn.Module):
             h = nn.functional.leaky_relu(h, cfg.leaky_slope)
         h = masked_global_pool(h, node_mask)
         rows = torch.ones(h.shape[:-1], dtype=torch.bool, device=h.device)
+        masks = dropout_sites(self.training, cfg.dropout_rate, keep, self.num_postpool)
         for q in range(self.num_postpool):
             i = num_convs + cfg.num_prepool + q
             h = getattr(self, f"layer{i}_bn")(_dense(h, getattr(self, f"layer{i}_lin")), rows)
-            h = self.dropout(h)
+            if masks[q] is not None:
+                h = apply_dropout(h, masks[q], cfg.dropout_rate)
         return _dense(h, self.lastLayer)
 
     def predict(self, x, nbr_idx, nbr_mask, node_mask) -> torch.Tensor:
@@ -111,7 +124,7 @@ class Patch2NormalModel(nn.Module):
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     """Flax's lecun_normal in distribution: a truncated normal in
     [-2, 2], scaled to standard deviation sqrt(1 / fan_in). ``w`` is a
-    torch weight (out, in), so fan_in is its second axis."""
+    torch weight (out, in, ...), so fan_in is its second axis."""
     lo = 0.5 * math.erfc(math.sqrt(2.0))  # the normal CDF at -2
     u = lo + torch.rand(w.shape, generator=generator, dtype=torch.float64) * (1.0 - 2.0 * lo)
     z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)  # the inverse CDF
@@ -127,11 +140,18 @@ def init_patch2normal(cfg: ModelConfig = ModelConfig(), seed: int = 0) -> Patch2
     ``ngpd_tpu/learn/train.py`` for the model alone; the draws come from a
     CPU ``torch.Generator`` seeded with ``seed``, so the numbers differ from
     ``jax.random.PRNGKey(seed)``'s."""
+    return flax_init_(Patch2NormalModel(cfg), seed).eval()
+
+
+def flax_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Flax's initialisers in distribution on every dense or 1x1-conv
+    weight of ``model`` (lecun_normal, zero bias), drawn from a CPU
+    ``torch.Generator`` seeded with ``seed``; BatchNorm layers keep scale
+    1, bias 0, mean 0 and variance 1."""
     g = torch.Generator().manual_seed(seed)
-    model = Patch2NormalModel(cfg)
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             _lecun_normal_(mod.weight, g)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
-    return model.eval()
+    return model

@@ -54,6 +54,11 @@ def _topk_smallest(d: torch.Tensor, idx: torch.Tensor, k: int):
         # torch.min returns the first minimal value's index.
         vals, pos = torch.min(d, dim=1, keepdim=True)
         return vals, torch.gather(idx, 1, pos)
+    if d.dtype == torch.float64:
+        # No room for the position beside 64 key bits: a stable sort keeps
+        # equal values in order of position.
+        pos = torch.sort(d, dim=1, stable=True).indices[:, :k]
+        return torch.gather(d, 1, pos), torch.gather(idx, 1, pos)
     m = d.shape[1]
     bits = (d + 0.0).contiguous().view(torch.int32).to(torch.int64)  # -0.0 -> +0.0
     key = (bits << 32) | torch.arange(m, dtype=torch.int64, device=d.device)[None, :]

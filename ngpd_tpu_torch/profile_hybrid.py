@@ -19,7 +19,12 @@ what torch's kernels do (matrix products, top-k and sorts, gathers and
 scatters, reductions, the rest). ``--point`` profiles the learned point
 track, ``predict_cloud_normals`` with the seeded full-width Patch2Normal on
 ``make_cloud(--n)`` (100,000 points unless given) with normals estimated,
-grouped as ``--mesh`` is. Needs a card.
+grouped as ``--mesh`` is. ``--train`` profiles one training step of each
+learned model at full width after a warm-up step, grouped as ``--mesh`` is
+(gathers with their scatter-add backward under ``gather_scatter``): the
+Patch2Normal at batch 64 on ``make_cloud(4096)``'s patches, then the DGCNN
+(emb_dims 1024) at batch 256 on a noisy ``cad_suite`` box's patches; one
+JSON line each. Needs a card.
 """
 
 from __future__ import annotations
@@ -56,6 +61,32 @@ def _mesh_group(name: str) -> str:
     return "elementwise_other"
 
 
+def _train_step(engine: str, dev):
+    """One full-width training step of a learned model, as a closure over
+    its state and batch, and the batch size."""
+    from .bench import make_cloud
+    from .core.noise import draw_noise
+    from .core.patches import extract_patches
+    from .learn import train, train_dgcnn
+    from .meshproc.patches import extract_mesh_patches
+    from .meshproc.synthetic import box
+    from .meshproc.trimesh import add_mesh_noise
+
+    if engine == "train_point":
+        noisy, nrm, _ = make_cloud(4096)
+        b = extract_patches(torch.as_tensor(noisy), torch.as_tensor(nrm), device=dev)
+        batch = {k: getattr(b, k)[:64] for k in ("x", "nbr_idx", "nbr_mask", "node_mask", "y")}
+        _, state = train.init_model(device=dev)
+        return lambda: train.train_step(state, batch), 64
+    clean = box(n=10)
+    noisy = add_mesh_noise(clean, draw_noise(clean.num_vertices,
+                                             torch.Generator().manual_seed(0)), 0.3)
+    b = extract_mesh_patches(noisy, gt_normals=clean.face_data()[0], device=dev)
+    batch = {"x": b.inputs[:256], "y": b.y[:256]}
+    _, state = train_dgcnn.init_dgcnn(device=dev)
+    return lambda: train_dgcnn.dgcnn_train_step(state, batch), 256
+
+
 def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
     """``engine``: "hybrid", "passes" (exact delta), "passes_lagged",
     "mesh" (the bench's cascade; n, iters and k unused) or "point"
@@ -70,7 +101,9 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
     from .models.patch2normal import init_patch2normal
 
     dev = resolve_device("cuda")
-    if engine == "mesh":
+    if engine in ("train_point", "train_mesh"):
+        step, n = _train_step(engine, dev)
+    elif engine == "mesh":
         cascade = mesh_cascade(dev)
         mesh = mesh_workload()[1].to(dev)
         n = mesh.num_faces
@@ -81,9 +114,13 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
         cfg = DenoiseConfig(feature_k=k, step_k=8)
 
     model = init_patch2normal(seed=0).to(dev) if engine == "point" else None
+    if engine in ("train_point", "train_mesh"):
+        iters = k = None
 
     def once():
-        if engine == "mesh":
+        if engine in ("train_point", "train_mesh"):
+            step()
+        elif engine == "mesh":
             cascade(mesh)
         elif engine == "point":
             predict_cloud_normals(model, pts, device=dev)
@@ -102,7 +139,9 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
 
     spans, groups, per_name = [], {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # A user annotation (the optimizer's step range) is no kernel.
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
@@ -147,7 +186,13 @@ def main(argv=None):
                        help="profile the two-pass mesh cascade (bench.run_mesh's workload)")
     which.add_argument("--point", action="store_const", dest="engine", const="point",
                        help="profile predict_cloud_normals (the learned point track)")
+    which.add_argument("--train", action="store_const", dest="engine", const="train",
+                       help="profile one training step of Patch2Normal and of the DGCNN")
     args = ap.parse_args(argv)
+    if args.engine == "train":
+        for engine in ("train_point", "train_mesh"):
+            print(json.dumps(profile_run(0, 0, 0, engine)), flush=True)
+        return
     n = args.n or (100_000 if args.engine == "point" else 1_000_000)
     print(json.dumps(profile_run(n, args.iters, args.k, args.engine or "hybrid")))
 

@@ -473,3 +473,27 @@ def test_card_point_normals_match_cpu(cuda_device):
                               largest=bench.NORMAL_SPREAD_MAX)
     assert rec["ok"] and torch.isfinite(g).all(), rec
     assert float((g.norm(dim=1) - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["patch2normal", "dgcnn"])
+def test_card_training_step_matches_cpu(cuda_device, monkeypatch, kind):
+    """One training step at a narrow width (Patch2Normal hidden 16-64, the
+    DGCNN at emb_dims 64, 64 patches, dropout 0.5 with the same keep
+    masks), card against CPU under chip_smoke's ``judge_train_step``, held
+    to the CPU's own spread under a one-ulp nudge of the batch."""
+    import chip_smoke as cs
+    from ngpd_tpu_torch.config import ModelConfig
+
+    monkeypatch.setattr(cs, "TRAIN_REF_P2N_CFG",
+                        ModelConfig(hidden=(16, 16, 32, 32, 32, 32, 64, 32, 16)))
+    monkeypatch.setattr(cs, "TRAIN_REF_EMB", 64)
+    monkeypatch.setattr(cs, "MESH_TRAIN_BATCH", 64)
+    weights, batch, keep = cs.train_reference_inputs()[kind]
+    want = cs.train_step_on(kind, "cpu", weights, batch, keep)
+    spread = cs.compare_train_steps(cs.train_step_on(
+        kind, "cpu", weights, cs.nudged_batch(kind, batch, 9), keep), want)
+    got = cs.train_step_on(kind, "cuda", weights, batch, keep)
+    rec = cs.judge_train_step(kind, got, want, spread)
+    assert rec["ok"], (rec, spread)
+    if kind == "dgcnn":
+        assert cs.fast_variance_probe("cuda")["ok"]

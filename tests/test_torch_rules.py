@@ -131,6 +131,72 @@ def test_point_cli_without_a_card_raises(tmp_path, command):
     assert not out.exists()
 
 
+def _training_entry_points(tmp_path):
+    import numpy as np
+
+    from ngpd_tpu_torch.core import noise
+    from ngpd_tpu_torch.io.obj import save_obj
+    from ngpd_tpu_torch.learn import dataset, train, train_dgcnn
+    from ngpd_tpu_torch.meshproc import collector
+    from ngpd_tpu_torch.meshproc.synthetic import icosphere
+
+    mesh = icosphere(subdiv=1)
+    save_obj(tmp_path / "m.obj", mesh.v.numpy(), faces=mesh.f.numpy())
+    (tmp_path / "Noise").mkdir()
+    save_obj(tmp_path / "Noise" / "m_3.obj", mesh.v.numpy(), faces=mesh.f.numpy())
+    (tmp_path / "ds").mkdir()
+    (tmp_path / "ds" / "manifest.json").write_text('{"shards": [], "train": [], "val": []}')
+    np.savez(tmp_path / "s.npz", x=np.zeros((4, 20, 64), np.float32), y=np.zeros((4, 3), np.float32))
+    pts = torch.as_tensor(np.random.default_rng(0).random((80, 3), dtype=np.float32))
+    return {"init_model": lambda: train.init_model(),
+            "init_dgcnn": lambda: train_dgcnn.init_dgcnn(emb_dims=64),
+            "process_cloud": lambda: dataset.process_cloud(
+                pts, noise.draw_noise(80, torch.Generator().manual_seed(0)), 0.01, 0),
+            "generate_dataset": lambda: dataset.generate_dataset([tmp_path / "m.obj"],
+                                                                 tmp_path / "out"),
+            "PatchDataset": lambda: dataset.PatchDataset(tmp_path / "ds"),
+            "ShardStore": lambda: train_dgcnn.ShardStore([str(tmp_path / "s.npz")]),
+            "generate_noisy_meshes": lambda: collector.generate_noisy_meshes(
+                tmp_path / "m.obj", (0.1,)),
+            "collect_patches": lambda: collector.collect_patches(tmp_path / "Noise" / "m_3.obj"),
+            "collect_patch_shard": lambda: collector.collect_patch_shard(
+                tmp_path / "Noise" / "m_3.obj", tmp_path / "o.npz"),
+            "build_mesh_dataset": lambda: collector.build_mesh_dataset([tmp_path / "m.obj"],
+                                                                       tmp_path / "shards")}
+
+
+@pytest.mark.parametrize("name", ["init_model", "init_dgcnn", "process_cloud",
+                                  "generate_dataset", "PatchDataset", "ShardStore",
+                                  "generate_noisy_meshes", "collect_patches",
+                                  "collect_patch_shard", "build_mesh_dataset"])
+def test_training_entry_points_default_to_the_card(tmp_path, name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _training_entry_points(tmp_path)[name]()
+    assert not (tmp_path / "Noise" / "m_1.obj").exists()
+
+
+@pytest.mark.parametrize("command", ["make-dataset", "train"])
+def test_training_cli_without_a_card_raises(tmp_path, command):
+    """``make-dataset`` and ``train`` default to the card and do not carry
+    on on the CPU without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    from ngpd_tpu_torch.apps import cli
+    from ngpd_tpu_torch.io.obj import save_obj
+    import numpy as np
+
+    save_obj(tmp_path / "in.obj", np.random.default_rng(0).random((80, 3), dtype=np.float32))
+    (tmp_path / "ds").mkdir()
+    (tmp_path / "ds" / "manifest.json").write_text('{"shards": [], "train": [], "val": []}')
+    args = ([str(tmp_path / "in.obj"), "-o", str(tmp_path / "out")] if command == "make-dataset"
+            else [str(tmp_path / "ds"), "-o", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([command, *args])
+    assert not (tmp_path / "out").exists()
+
+
 def _small_pack():
     n = padded_size(300, 128, 64, 1)[0]
     pack = torch.rand((8, n))

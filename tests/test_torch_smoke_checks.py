@@ -18,6 +18,19 @@ passes A-D must end ``check_passes``. A K0 whose rk_feat is one
 bisection step off (23 steps), what a replay that lost a step would
 give, must end ``check_kernels`` too.
 
+``judge_train_step`` (chip_smoke's ``train_reference``) is held too, at a
+narrow width (Patch2Normal hidden 16-64, the DGCNN at emb_dims 64, 64
+patches each, dropout 0.5 with the same keep masks; the gradients held to
+the CPU's own spread under a one-ulp nudge of the batch): a right step (the
+CPU's on two threads against four, another summation order) passes, and
+wrong stand-ins are refused: TF32 in the products (emulated: operands
+rounded to 10 mantissa bits in the forward), torch's unbiased running
+variance, momentum 0.9 in torch's convention (0.1 old + 0.9 batch), the
+two-pass variance in place of Flax's fast one in the DGCNN (refused by
+``fast_variance_probe``: on a step's own data the two agree within
+rounding), and a dropout mask drawn anew between the forward and the
+backward.
+
 The learned point track's agreement checks (``judge_point_model``,
 ``judge_point_normals``) are held here too, at a narrow width on a small
 merged scan: a right run (the path on its input nudged by one ulp once
@@ -37,7 +50,10 @@ import chip_smoke as cs
 from ngpd_tpu_torch.bench import SPREAD_SEEDS, nudged
 from ngpd_tpu_torch.config import ModelConfig
 from ngpd_tpu_torch.core import patches as point_patches
+from ngpd_tpu_torch.models import dgcnn as dgcnn_mod
+from ngpd_tpu_torch.models import dropout as dropout_mod
 from ngpd_tpu_torch.models import edgeconv
+from ngpd_tpu_torch.models import patch2normal as p2n_mod
 from ngpd_tpu_torch.bench import make_cloud, make_corner_cloud
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.core.cuda_fused import passes_prologue, prologue
@@ -405,3 +421,146 @@ def test_wrong_point_path_fails(point_ref, monkeypatch, mutant):
     model_rec, normals_rec = _point_judges(point_ref, normals, outputs)
     print(mutant, model_rec, normals_rec)
     assert not (model_rec["ok"] and normals_rec["ok"]), (model_rec, normals_rec)
+
+
+NARROW_TRAIN = ModelConfig(hidden=(16, 16, 32, 32, 32, 32, 64, 32, 16))
+
+
+def _narrow_train(mp):
+    mp.setattr(cs, "TRAIN_REF_P2N_CFG", NARROW_TRAIN)
+    mp.setattr(cs, "TRAIN_REF_EMB", 64)
+    mp.setattr(cs, "MESH_TRAIN_BATCH", 64)
+
+
+@pytest.fixture(scope="module")
+def train_ref():
+    """The CPU's step on four threads and its spread under a one-ulp nudge."""
+    with pytest.MonkeyPatch.context() as mp:
+        _narrow_train(mp)
+        inputs = cs.train_reference_inputs()
+        torch.set_num_threads(4)
+        try:
+            want, spread = {}, {}
+            for kind, (weights, batch, keep) in inputs.items():
+                want[kind] = cs.train_step_on(kind, "cpu", weights, batch, keep)
+                spread[kind] = cs.compare_train_steps(cs.train_step_on(
+                    kind, "cpu", weights, cs.nudged_batch(kind, batch, 9), keep), want[kind])
+        finally:
+            torch.set_num_threads(2)
+        return inputs, want, spread
+
+
+def _train_judges(train_ref, kinds=("patch2normal", "dgcnn")):
+    """The step on two threads (another summation order) against the
+    fixture's, under ``judge_train_step``; for the DGCNN also the batch
+    variance's probe, as ``check_train_reference`` runs it."""
+    inputs, want, spread = train_ref
+    with pytest.MonkeyPatch.context() as mp:
+        _narrow_train(mp)
+        recs = {kind: cs.judge_train_step(kind, cs.train_step_on(kind, "cpu", *inputs[kind]),
+                                          want[kind], spread[kind]) for kind in kinds}
+    if "dgcnn" in recs:
+        probe = cs.fast_variance_probe("cpu")
+        recs["dgcnn"]["fast_variance"] = probe
+        recs["dgcnn"]["ok"] = recs["dgcnn"]["ok"] and probe["ok"]
+    return recs
+
+
+def test_right_training_steps_pass(train_ref):
+    recs = _train_judges(train_ref)
+    print("right", recs, "spread", train_ref[2])
+    assert all(r["ok"] for r in recs.values()), recs
+
+
+def _tf32_st(x):
+    """TF32 rounding of a float32 operand, the gradient passed straight."""
+    if not torch.is_tensor(x) or x.dtype != torch.float32:
+        return x
+    return x + (_tf32(x.detach()) - x).detach()
+
+
+def _tf32_training(monkeypatch):
+    matmul, mm, linear = torch.matmul, torch.Tensor.__matmul__, torch.nn.functional.linear
+    monkeypatch.setattr(torch, "matmul", lambda a, b: matmul(_tf32_st(a), _tf32_st(b)))
+    monkeypatch.setattr(torch.Tensor, "__matmul__", lambda a, b: mm(_tf32_st(a), _tf32_st(b)))
+    monkeypatch.setattr(torch.nn.functional, "linear",
+                        lambda x, w, b=None: linear(_tf32_st(x), _tf32_st(w), b))
+
+
+def _unbiased_running_variance(monkeypatch):
+    """torch's BatchNorm keeps n / (n - 1) x the batch variance."""
+    forward, bn = edgeconv.MaskedBatchNorm.forward, dgcnn_mod._bn
+
+    def masked(self, x, mask):
+        before = self.running_var.clone()
+        y = forward(self, x, mask)
+        if self.training:
+            n = float(mask.sum())
+            with torch.no_grad():
+                batch = (self.running_var - 0.9 * before) / 0.1
+                self.running_var.copy_(0.9 * before + 0.1 * batch * n / (n - 1))
+        return y
+
+    def dense(h, module, training=False):
+        before = module.running_var.clone()
+        y = bn(h, module, training)
+        if training:
+            n = h.numel() // h.shape[-1]
+            with torch.no_grad():
+                batch = (module.running_var - 0.9 * before) / 0.1
+                module.running_var.copy_(0.9 * before + 0.1 * batch * n / (n - 1))
+        return y
+
+    monkeypatch.setattr(edgeconv.MaskedBatchNorm, "forward", masked)
+    monkeypatch.setattr(dgcnn_mod, "_bn", dense)
+
+
+def _torch_momentum(monkeypatch):
+    """momentum=0.9 in torch's convention: 0.1 x old + 0.9 x batch."""
+    monkeypatch.setattr(edgeconv, "BN_MOMENTUM", 0.1)
+    monkeypatch.setattr(dgcnn_mod, "BN_MOMENTUM", 0.1)
+
+
+def _two_pass_variance(monkeypatch):
+    def stats(h):
+        dims = tuple(range(h.dim() - 1))
+        mean = torch.mean(h, dim=dims)
+        return mean, torch.mean((h - mean) ** 2, dim=dims)
+
+    monkeypatch.setattr(dgcnn_mod, "batch_stats", stats)
+
+
+class _RedrawnDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, keep, rate):
+        ctx.rate, ctx.shape = rate, h.shape
+        return torch.where(keep, h / (1.0 - rate), 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        fresh = torch.rand(ctx.shape) < 1.0 - ctx.rate
+        return torch.where(fresh, g / (1.0 - ctx.rate), 0.0), None, None
+
+
+def _dropout_redrawn(monkeypatch):
+    """A keep mask drawn anew between the forward and the backward."""
+    torch.manual_seed(0)
+    for mod in (p2n_mod, dgcnn_mod, dropout_mod):
+        monkeypatch.setattr(mod, "apply_dropout", _RedrawnDropout.apply)
+
+
+TRAIN_MUTANTS = {"tf32": (_tf32_training, ("patch2normal", "dgcnn")),
+                 "unbiased_running_variance": (_unbiased_running_variance,
+                                               ("patch2normal", "dgcnn")),
+                 "torch_momentum_convention": (_torch_momentum, ("patch2normal", "dgcnn")),
+                 "two_pass_variance": (_two_pass_variance, ("dgcnn",)),
+                 "dropout_mask_redrawn": (_dropout_redrawn, ("patch2normal", "dgcnn"))}
+
+
+@pytest.mark.parametrize("mutant,kind", [(m, k) for m, (_, kinds) in TRAIN_MUTANTS.items()
+                                         for k in kinds])
+def test_wrong_training_step_fails(train_ref, monkeypatch, mutant, kind):
+    TRAIN_MUTANTS[mutant][0](monkeypatch)
+    rec = _train_judges(train_ref, (kind,))[kind]
+    print(mutant, kind, rec)
+    assert not rec["ok"], rec
