@@ -121,6 +121,29 @@ exit code and no result line:
   train_cli  ``make-dataset`` on two TRAIN_CLI_POINTS-point OBJ clouds, ``train
              --epochs 1`` (scores.json, at most top_k checkpoints), then
              ``predict-normals --ckpt`` with the run's checkpoints on a third
+  sharded    the sharded dense path on ``torch.distributed`` (plain torch, no
+             kernel), each of the next three phases in a NCCL group of one
+             rank that it starts over a FileStore and destroys: the dense
+             cell's cloud, ``knn_sharded``, ``chamfer_distance_sharded`` and
+             ``denoise_sharded`` (2 iterations) against the single-device
+             functions on the card, to the CPU tests' bounds; seconds and
+             collective counts
+  fused_sharded  ``fused_denoise_sharded`` on the main cell's cloud (padded
+             to a multiple of 256), feature_k 32, tile 256, window 128,
+             2 iterations, against ``fused_denoise`` (exact thresholds, once
+             on the input) within 2e-4 and classes above 99%; the CD below
+             the noisy cloud's; seconds, peak memory, collective counts
+  halo       ``fused_denoise_halo`` on the same cloud, unsorted and held to
+             ``fused_denoise_sharded`` row for row (2e-4, classes above 99%);
+             its all-gather count must be 0
+  dp_train   a data-parallel group of one: one full-width training step
+             of each model with the group against the same step without it
+             (the same weights, batch and keep masks), by train_reference's
+             rules against the card's own one-ulp spread, TF32 on as the
+             control that must fail; ``fit(mesh=)`` and ``fit_dgcnn(mesh=)``
+             a few steps each; ``predict_face_normals(pmesh=)`` on the mesh
+             cell's 81,920 faces against the unsharded call (Ea within
+             MESH_EA_TOL, the normals within their own one-ulp spread)
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
@@ -128,6 +151,7 @@ The second-to-last line is the ``kernels`` JSON record, the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -138,8 +162,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ngpd_tpu_torch import bench
+from ngpd_tpu_torch.collectives import COLLECTIVES, reset_counts
 from ngpd_tpu_torch.config import DenoiseConfig, GNFConfig, ModelConfig, PatchConfig, TrainConfig
 from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import (
@@ -174,6 +200,12 @@ from ngpd_tpu_torch.models.dgcnn import DGCNN, EDGE_CHANNELS, dgcnn_from_state_d
 from ngpd_tpu_torch.models.patch2normal import Patch2NormalModel, flax_init_, init_patch2normal
 from ngpd_tpu_torch.io.sampling import sample_mesh
 from ngpd_tpu_torch.ops import metrics
+from ngpd_tpu_torch.ops.knn import knn
+from ngpd_tpu_torch.parallel import (chamfer_distance_sharded, denoise_sharded,
+                                     fused_denoise_sharded, knn_sharded, make_mesh)
+from ngpd_tpu_torch.parallel.fused_sharded import TILES_A_BATCH
+from ngpd_tpu_torch.parallel.halo import fused_denoise_halo
+from ngpd_tpu_torch.parallel.mesh import init_group
 
 ROOT = Path(__file__).resolve().parent
 MAIN_N, MAIN_K, MAIN_ITERS = 1_000_000, 32, 20
@@ -243,6 +275,15 @@ TRAIN_LOSS_TOL = {"patch2normal": 1e-5, "dgcnn": 1e-4}
 TRAIN_SPREAD_FACTOR = {"grad_err_max": 10.0, "grad_err_whole": 30.0, "param_share_off": 10.0}
 TRAIN_STATS_TOL, TRAIN_PARAM_TOL, NULL_GRAD = 1e-5, 1e-6, 1e-3
 TRAIN_REF_P2N_CFG, TRAIN_REF_EMB = ModelConfig(), 1024  # full width, dropout 0.5
+# torch.distributed on the card: one NCCL rank (the machine has one card),
+# so every collective runs through NCCL and no halo is sent. The sharded
+# dense path on the dense cell's cloud, the windowed engines on the main
+# cell's, at the pass engine's window (tile 256, window 128: wt 512); the
+# CPU tests' bounds.
+SHARDED_N, SHARDED_ITERS = DENSE_N, 2
+HALO_N, HALO_TILE, HALO_WINDOW = MAIN_N, 256, 128
+KNN_TOL, CD_RTOL, DENSE_SHARD_TOL, FUSED_SHARD_TOL = 1e-5, 1e-5, 5e-4, 2e-4
+DP_FIT_STEPS = 2  # fit(mesh=) steps; fit_dgcnn(mesh=) takes a box's patches
 
 
 T_START = time.perf_counter()
@@ -1377,9 +1418,11 @@ def train_reference_inputs() -> dict:
     return out
 
 
-def train_step_on(kind: str, device: str, weights: dict, batch: dict, keep) -> dict:
-    """One training step of a fresh model with ``weights`` on ``device``:
-    the metrics, gradients, statistics and parameters after Adam, on the CPU."""
+def train_step_on(kind: str, device: str, weights: dict, batch: dict, keep,
+                  group=None) -> dict:
+    """One training step of a fresh model with ``weights`` on ``device``
+    (data-parallel over ``group`` when given): the metrics, gradients,
+    statistics and parameters after Adam, on the CPU."""
     model = _fresh_model(kind)
     model.load_state_dict(weights)
     model.to(device)
@@ -1389,7 +1432,7 @@ def train_step_on(kind: str, device: str, weights: dict, batch: dict, keep) -> d
         lr, step = 1e-4, dgcnn_trainer.dgcnn_train_step
     state = trainer.new_state(model, lr, 0, device)
     batch = {k: v.to(device) for k, v in batch.items()}
-    _, metrics = step(state, batch, keep=[m.to(device) for m in keep])
+    _, metrics = step(state, batch, keep=[m.to(device) for m in keep], group=group)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
             "buffers": {k: v.detach().cpu() for k, v in model.named_buffers()
@@ -1528,6 +1571,211 @@ def check_train_cli() -> dict:
     if (said.shape != (TRAIN_CLI_POINTS, 6) or rec["predict_normals_max_diff"] > 1e-5
             or rec["predict_normals_unit_err"] > 1e-5):
         fail(f"predict-normals with the trained checkpoint: {rec}")
+    return rec
+
+
+@contextlib.contextmanager
+def one_rank_group(device: str = "cuda"):
+    """The default process group of one rank (NCCL on the card) over a
+    FileStore in a temporary directory, destroyed on the way out."""
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group(os.path.join(tmp, "store"), 0, 1, device=device)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def counted(fn):
+    """(fn(), milliseconds, the collective calls it made)."""
+    reset_counts()
+    out, ms = time_once(fn)
+    return out, ms, dict(COLLECTIVES)
+
+
+def check_sharded(n: int = SHARDED_N, device: str = "cuda") -> dict:
+    """The sharded dense path on one rank against the single-device
+    functions on the same card: kNN distances within KNN_TOL, the Chamfer
+    distance within CD_RTOL, ``denoise_sharded`` within DENSE_SHARD_TOL."""
+    noisy, nrm, clean = bench.make_cloud(n)
+    cfg = DenoiseConfig(feature_k=16, step_k=8)
+    pts, nrm_t, clean_t = (torch.as_tensor(a, device=device) for a in (noisy, nrm, clean))
+    rec = {"n": n, "iterations": SHARDED_ITERS}
+    with one_rank_group(device):
+        mesh = make_mesh(device=device)
+        (nbh_s, d_s), ms, calls = counted(lambda: knn_sharded(pts, 16, mesh, device=device))
+        nbh, d = knn(pts, 16)
+        rec["knn"] = {"seconds": ms / 1e3, "collectives": calls,
+                      "max_abs_err": float((d_s - d).abs().max()),
+                      "same_indices": float((nbh_s.idx == nbh.idx).float().mean())}
+        cd_s, ms, calls = counted(lambda: chamfer_distance_sharded(pts, clean_t, mesh,
+                                                                   device=device))
+        cd = float(torch.mean(metrics.chamfer_distance(pts, clean_t)))
+        rec["chamfer"] = {"seconds": ms / 1e3, "collectives": calls, "sharded": float(cd_s),
+                          "single": cd, "rel_err": abs(float(cd_s) - cd) / cd}
+        (pos, _), ms, calls = counted(lambda: denoise_sharded(
+            pts, nrm_t, mesh, cfg, iterations=SHARDED_ITERS, device=device))
+    want, _, _ = denoise(noisy, nrm, cfg, iterations=SHARDED_ITERS, device=device)
+    ratio, cd_noisy, cd_out = bench.cd_ratio(pos.cpu().numpy(), noisy, clean, device)
+    rec["denoise"] = {"seconds": ms / 1e3, "collectives": calls,
+                      "max_abs_err": float((pos - want).abs().max()),
+                      "cd_noisy": cd_noisy, "cd_denoised": cd_out, "cd_ratio": ratio}
+    if not (rec["knn"]["max_abs_err"] <= KNN_TOL and rec["chamfer"]["rel_err"] <= CD_RTOL
+            and rec["denoise"]["max_abs_err"] <= DENSE_SHARD_TOL and cd_out < cd_noisy):
+        fail(f"sharded: the sharded dense path disagrees with the single-device one: {rec}")
+    return rec
+
+
+def shard_check(got, want) -> dict:
+    """Positions and normals (largest difference) and classes of two
+    windowed runs in the original order."""
+    rec = {"pos_max_abs_err": float((got[0] - want[0]).abs().max()),
+           "nrm_max_abs_err": float((got[1] - want[1]).abs().max()),
+           "classes_equal": float((got[2] == want[2]).float().mean())}
+    rec["ok"] = (rec["pos_max_abs_err"] <= FUSED_SHARD_TOL
+                 and rec["nrm_max_abs_err"] <= FUSED_SHARD_TOL and rec["classes_equal"] > 0.99)
+    return rec
+
+
+def check_fused_sharded_and_halo(n: int = HALO_N, device: str = "cuda") -> tuple[dict, dict]:
+    """``fused_denoise_sharded`` and ``fused_denoise_halo`` on one rank:
+    the sharded engine against ``fused_denoise`` (exact thresholds computed
+    once, the same tile batches), the halo engine against the sharded one
+    after unsorting; the CD must fall; the halo engine gathers nothing."""
+    noisy, nrm, clean = bench.make_cloud(n)
+    cfg = DenoiseConfig(feature_k=MAIN_K, step_k=8)
+    kwargs = dict(cfg=cfg, iterations=SHARDED_ITERS, tile=HALO_TILE, window=HALO_WINDOW,
+                  device=device)
+    pts, nrm_t = torch.as_tensor(noisy, device=device), torch.as_tensor(nrm, device=device)
+
+    def peak(fn):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out = counted(fn)
+        return out + ((torch.cuda.max_memory_allocated() if device == "cuda" else None),)
+
+    with one_rank_group(device):
+        mesh = make_mesh(device=device)
+        sharded, s_ms, s_calls, s_peak = peak(lambda: fused_denoise_sharded(pts, nrm_t, mesh,
+                                                                            **kwargs))
+        halo, h_ms, h_calls, h_peak = peak(lambda: fused_denoise_halo(pts, nrm_t, mesh,
+                                                                      **kwargs))
+    single, f_ms = time_once(lambda: fused_denoise(noisy, nrm, threshold_method="exact",
+                                                   threshold_refresh=0, group=TILES_A_BATCH,
+                                                   **kwargs))
+    inv = torch.empty_like(halo[3])
+    inv[halo[3]] = torch.arange(len(inv), device=inv.device)
+    unsorted = tuple(x[inv] for x in halo[:3])
+    ratio, cd_noisy, cd_out = bench.cd_ratio(sharded[0].cpu().numpy(), noisy, clean, device)
+    s_rec = {"n": n, "iterations": SHARDED_ITERS, "tile": HALO_TILE, "window": HALO_WINDOW,
+             "group": TILES_A_BATCH, "seconds": s_ms / 1e3, "single_seconds": f_ms / 1e3,
+             "max_memory_allocated_bytes": s_peak, "collectives": s_calls,
+             "against_fused_denoise": shard_check(sharded, single), "cd_noisy": cd_noisy,
+             "cd_denoised": cd_out, "cd_ratio": ratio,
+             "finite": bool(torch.isfinite(sharded[0]).all())}
+    h_rec = {"n": n, "seconds": h_ms / 1e3, "max_memory_allocated_bytes": h_peak,
+             "collectives": h_calls, "against_sharded": shard_check(unsorted, sharded)}
+    if not (s_rec["against_fused_denoise"]["ok"] and s_rec["finite"] and cd_out < cd_noisy):
+        fail(f"fused_sharded: {s_rec}")
+    if not h_rec["against_sharded"]["ok"] or h_calls["all_gather"] != 0:
+        fail(f"halo: {h_rec}")
+    return s_rec, h_rec
+
+
+def dp_mesh_dataset(tmp: str) -> str:
+    """A shard of every face patch of the noisy ``cad_suite`` box (1,200)."""
+    clean = box(n=10)
+    mesh = add_mesh_noise(clean, draw_noise(clean.num_vertices,
+                                            torch.Generator().manual_seed(3)), 0.3)
+    b = extract_mesh_patches(mesh, gt_normals=clean.face_data()[0], device="cpu")
+    path = os.path.join(tmp, "box.npz")
+    np.savez(path, x=b.inputs.numpy(), y=b.y.numpy())
+    return path
+
+
+def check_dp_train(device: str = "cuda", mesh_subdiv: int = MESH_SUBDIV) -> dict:
+    """The learned paths' data-parallel arguments on one rank. A training
+    step with the group (BatchNorm statistics summed over it, the mean
+    gradient all-reduced) against the step without it, held to the card's
+    own one-ulp spread by train_reference's rules, TF32 on as the control;
+    ``fit(mesh=)`` and ``fit_dgcnn(mesh=)`` end to end; the sharded patch
+    inference of the mesh cell against the unsharded call."""
+    rec = {}
+    with one_rank_group(device), tempfile.TemporaryDirectory() as tmp:
+        mesh = make_mesh(axis_names=("dp",), device=device)
+        group = mesh.get_group("dp")
+        inputs = train_reference_inputs()
+        for kind, (weights, batch, keep) in inputs.items():
+            want = train_step_on(kind, device, weights, batch, keep)
+            spread = compare_train_steps(train_step_on(kind, device, weights,
+                                                       nudged_batch(kind, batch, 9), keep), want)
+            got, ms, calls = counted(lambda: train_step_on(kind, device, weights, batch, keep,
+                                                           group=group))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                got_tf32 = train_step_on(kind, device, weights, batch, keep, group=group)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            rec[kind] = {"batch": int(batch["x"].shape[0]), "step_seconds": ms / 1e3,
+                         "collectives": calls, "spread": spread,
+                         "dp": judge_train_step(kind, got, want, spread),
+                         "dp_tf32": judge_train_step(kind, got_tf32, want, spread)}
+            if not rec[kind]["dp"]["ok"]:
+                fail(f"dp_train: the {kind} step with a group disagrees: {rec[kind]}")
+            if rec[kind]["dp_tf32"]["ok"]:
+                fail(f"dp_train: the {kind} check passed the step with TF32 on: {rec[kind]}")
+
+        weights, batch, _ = inputs["patch2normal"]
+        model = _fresh_model("patch2normal")
+        model.load_state_dict(weights)
+        state = trainer.new_state(model.to(device), TrainConfig().learning_rate, 0, device)
+        batches = [{k: v.to(device) for k, v in batch.items()}] * DP_FIT_STEPS
+        (state, ms), _ = _quiet(lambda: time_once(lambda: trainer.fit(
+            state, lambda: iter(batches), lambda: iter(batches[:1]),
+            TrainConfig(num_epochs=1, min_epochs=1), log_dir=f"{tmp}/p2n", mesh=mesh)))
+        rec["fit"] = {"steps": state.step, "seconds": ms / 1e3,
+                      "finite": all(bool(torch.isfinite(p).all())
+                                    for p in state.model.parameters())}
+        store = dgcnn_trainer.ShardStore([dp_mesh_dataset(tmp)], seed=0, device=device)
+        _, dstate = dgcnn_trainer.init_dgcnn(seed=0, emb_dims=TRAIN_REF_EMB, device=device)
+        (dstate, ms), _ = _quiet(lambda: time_once(lambda: dgcnn_trainer.fit_dgcnn(
+            dstate, store, batch_size=MESH_TRAIN_BATCH, num_epochs=1, log_dir=f"{tmp}/dgcnn",
+            mesh=mesh)))
+        rec["fit_dgcnn"] = {"steps": dstate.step, "seconds": ms / 1e3,
+                            "finite": all(bool(torch.isfinite(p).all())
+                                          for p in dstate.model.parameters())}
+        if not (rec["fit"]["steps"] == DP_FIT_STEPS and rec["fit"]["finite"]
+                and rec["fit_dgcnn"]["steps"] >= 1 and rec["fit_dgcnn"]["finite"]):
+            fail(f"dp_train: fit(mesh=) / fit_dgcnn(mesh=): {rec}")
+        rec["faces"] = sharded_faces(make_mesh(device=device), device, mesh_subdiv)
+    return rec
+
+
+def sharded_faces(pmesh, device: str, subdiv: int) -> dict:
+    """``predict_face_normals(pmesh=)`` on the mesh cell's noisy icosphere
+    against the unsharded call: Ea within MESH_EA_TOL, the normals within
+    the unsharded call's own spread under one-ulp nudges of the vertices."""
+    clean, noisy = bench.mesh_workload(subdiv)
+    model = dgcnn_from_state_dict(load_dgcnn_state_dict(bench.ASSETS / "dgcnn_mesh.npz"))
+    model = model.to(device)
+
+    def normals(mesh, **kwargs):
+        mesh = mesh.to(device)
+        return gcn.predict_face_normals(mesh, model, batch_size=bench.MESH_BATCH,
+                                        pre_nbh=gcn.centroid_knn(mesh, 64), device=device,
+                                        **kwargs)
+
+    got, ms = time_once(lambda: normals(noisy, pmesh=pmesh))
+    want, single_ms = time_once(lambda: normals(noisy))
+    spreads = [normals(noisy.with_vertices(torch.as_tensor(bench.nudged(noisy.v, s)))).cpu()
+               for s in bench.SPREAD_SEEDS]
+    gt = clean.face_data()[0].to(device)
+    ea_got, ea_want = (float(metrics.mean_angular_error(x, gt)) for x in (got, want))
+    rec = {"faces": clean.num_faces, "seconds": ms / 1e3, "single_seconds": single_ms / 1e3,
+           "ea_sharded": ea_got, "ea_single": ea_want,
+           **bench.within_spread(got.cpu(), want.cpu(), spreads)}
+    if not (rec["ok"] and abs(ea_got - ea_want) <= bench.MESH_EA_TOL):
+        fail(f"dp_train: predict_face_normals(pmesh=) disagrees: {rec}")
     return rec
 
 
@@ -1682,6 +1930,14 @@ def main() -> int:
     say("train_mesh", **check_train_mesh())
     say("train_reference", **check_train_reference())
     say("train_cli", **check_train_cli())
+
+    # torch.distributed: the sharded main path and the learned paths'
+    # data-parallel arguments, each phase on a NCCL group of one
+    say("sharded", **check_sharded())
+    fused_sharded_rec, halo_rec = check_fused_sharded_and_halo()
+    say("fused_sharded", **fused_sharded_rec)
+    say("halo", **halo_rec)
+    say("dp_train", **check_dp_train())
 
     kernels = []
     sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),

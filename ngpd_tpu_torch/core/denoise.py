@@ -6,6 +6,10 @@ per point from gathered neighbour normals, solve (keeping the old
 position when singular), damp the displacement by alpha and reject it
 entirely when its norm reaches the threshold ``d``. Every step evaluates
 for ALL points and the caller selects per point by class id.
+
+``src_points`` / ``src_normals`` (every step but ``dummy_step``) are the
+gather sources of a sharded caller whose row arrays hold only its own
+query rows; they default to the query arrays.
 """
 
 from __future__ import annotations
@@ -34,24 +38,30 @@ def _weighted_normal_system(njw, nj, vj):
     return a, b
 
 
-def corner_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1) -> torch.Tensor:
+def _gathered(points, n, nbh: Neighborhood, src_points, src_normals):
+    """(vj, nj) from the sources, the query arrays by default."""
+    return (nbh.gather(points if src_points is None else src_points),
+            nbh.gather(n if src_normals is None else src_normals))
+
+
+def corner_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1,
+                src_points=None, src_normals=None) -> torch.Tensor:
     """Solve (sum nj nj^T) v = sum (nj nj^T) vj."""
-    vj = nbh.gather(points)
-    nj = nbh.gather(n)
+    vj, nj = _gathered(points, n, nbh, src_points, src_normals)
     njm = nj * nbh.mask.to(nj.dtype)[..., None]
     a, b = _weighted_normal_system(njm, nj, vj)
     opt, _ = solve3x3_guarded(a, b, points)
     return _clamp_step(points, opt, alpha, d, strict=True)
 
 
-def edge_step(points, nbh: Neighborhood, n, edge_vectors, d, alpha: float = 0.1) -> torch.Tensor:
+def edge_step(points, nbh: Neighborhood, n, edge_vectors, d, alpha: float = 0.1,
+              src_points=None, src_normals=None) -> torch.Tensor:
     """Corner solve with positions and normals projected off the edge
     direction, plus an edge-pinning term. ``edge_vectors`` is the
     smallest-eigenvalue NVT eigenvector, the crease direction."""
     y = edge_vectors
     vi = points
-    vj = nbh.gather(points)
-    nj = nbh.gather(n)
+    vj, nj = _gathered(points, n, nbh, src_points, src_normals)
     yk = y[:, None, :]
     vj_pi = vj - torch.sum((vj - vi[:, None, :]) * yk, dim=-1, keepdim=True) * yk
     nj_pi = nj - torch.sum(nj * yk, dim=-1, keepdim=True) * yk
@@ -74,12 +84,12 @@ def _neighbor_spread(vj, mask) -> torch.Tensor:
 
 
 def flat_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1,
-              delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+              delta: Optional[torch.Tensor] = None, src_points=None,
+              src_normals=None) -> torch.Tensor:
     """Bilateral normal-position weighting:
     Wij = exp(-16||ni-nj||^2/delta^2) * exp(-4||vj-vi||^2/delta^2),
     di = sum Wij (nj.(vj-vi)) ni / sum Wij * alpha."""
-    vj = nbh.gather(points)
-    nj = nbh.gather(n)
+    vj, nj = _gathered(points, n, nbh, src_points, src_normals)
     dist = vj - points[:, None, :]
     if delta is None:
         delta = _neighbor_spread(vj, nbh.mask)
@@ -96,14 +106,13 @@ def flat_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1,
     return points + di
 
 
-def _three_term_system(points, nbh: Neighborhood, n, wij):
+def _three_term_system(points, nbh: Neighborhood, n, wij, src_points=None, src_normals=None):
     """Shared assembly of the feature and new steps:
     A = (I + ni ni^T) + sum_j w_ij nj nj^T + |N(i)| ni ni^T
     b = (vi + ni ni^T vi) + ni ni^T sum_j w_ij vj + sum_j w_ij nj nj^T vj.
     The cardinality is the raw neighbour count, not weighted."""
     vi = points
-    vj = nbh.gather(points)
-    nj = nbh.gather(n)
+    vj, nj = _gathered(points, n, nbh, src_points, src_normals)
     ni_o = outer3(n, n)
     w = torch.where(nbh.mask, wij, 0.0)
     summed_nj_o, summed_nj_o_vj = _weighted_normal_system(nj * w[..., None], nj, vj)
@@ -115,26 +124,27 @@ def _three_term_system(points, nbh: Neighborhood, n, wij):
     return a, b
 
 
-def feature_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1) -> torch.Tensor:
+def feature_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1,
+                 src_points=None, src_normals=None) -> torch.Tensor:
     """The unweighted three-term system."""
     ones = torch.ones(nbh.mask.shape, dtype=points.dtype, device=points.device)
-    a, b = _three_term_system(points, nbh, n, ones)
+    a, b = _three_term_system(points, nbh, n, ones, src_points, src_normals)
     opt, _ = solve3x3_guarded(a, b, points)
     return _clamp_step(points, opt, alpha, d, strict=True)
 
 
 def new_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1,
-             delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+             delta: Optional[torch.Tensor] = None, src_points=None,
+             src_normals=None) -> torch.Tensor:
     """feature_step with the likeliness weight
     w_ij = exp(-9 (nj.(vj-vi))^2 / delta^2)."""
-    vj = nbh.gather(points)
-    nj = nbh.gather(n)
+    vj, nj = _gathered(points, n, nbh, src_points, src_normals)
     if delta is None:
         delta = _neighbor_spread(vj, nbh.mask)
     d2 = torch.clamp(torch.as_tensor(delta, dtype=points.dtype) ** 2, min=1e-30)
     plane_dist = torch.sum(nj * (vj - points[:, None, :]), dim=-1)
     likeliness = torch.exp(-9.0 * plane_dist**2 / d2)
-    a, b = _three_term_system(points, nbh, n, likeliness)
+    a, b = _three_term_system(points, nbh, n, likeliness, src_points, src_normals)
     opt, _ = solve3x3_guarded(a, b, points)
     return _clamp_step(points, opt, alpha, d, strict=True)
 

@@ -198,39 +198,137 @@ def _edge_tile(ctx: _TileCtx, s6, b_nv, d_thr, alpha, y):
 
 
 class _Tiles:
-    """The window geometry of one padded, sorted cloud, and the loop over
-    groups of tiles (``tiles`` of the reference)."""
+    """The window geometry of one padded, sorted cloud of ``n`` rows, and the
+    loop over groups of tiles (``tiles`` of the reference).
 
-    def __init__(self, n: int, nv: int, tile: int, window: int, group: int, device):
+    Tiles ``[first, first + count)`` are mapped (all of them by default). The
+    arrays the windows read hold the sorted rows ``[origin, origin +
+    length)``: the whole cloud by default, or one rank's rows with a halo on
+    each side (``parallel/halo.py``). A window that would leave them moves
+    inside, as ``lax.dynamic_slice`` clamps its start, and a tile's rows are
+    read from its window. Groups hold ``group`` tiles, the last one fewer."""
+
+    def __init__(self, n: int, nv: int, tile: int, window: int, group: int, device,
+                 first: int = 0, count: Optional[int] = None, origin: int = 0,
+                 length: Optional[int] = None):
         self.n, self.nv, self.tile = n, nv, tile
         self.wt = min(tile + 2 * window, n)
         self.num_tiles = n // tile
-        self.starts = torch.clamp(
-            torch.arange(self.num_tiles, device=device) * tile - window, 0, n - self.wt)
-        g = max(1, min(group, self.num_tiles))
-        while self.num_tiles % g:
-            g -= 1
-        self.g = g
-        self.cols = torch.arange(self.wt, device=device)
-        self.rows = torch.arange(tile, device=device)
+        self.count = self.num_tiles - first if count is None else count
+        self.g = max(1, min(group, self.count))
+        self.t = torch.arange(first, first + self.count, device=device)
+        starts = torch.clamp(self.t * tile - window, 0, n - self.wt)
+        ws = torch.clamp(starts - origin, 0, (n if length is None else length) - self.wt)
+        cols = torch.arange(self.wt, device=device)
+        rows = torch.arange(tile, device=device)
+        self.win = ws[:, None] + cols  # (count, W) rows of the arrays
+        self.tile_rows = (ws + self.t * tile - starts)[:, None] + rows  # (count, T)
+        self.col_valid = (starts[:, None] + cols) < nv
+        self.row_ok = (self.t[:, None] * tile + rows) < nv
 
-    def map(self, fn, *arrays):
+    def map(self, fn, *arrays, rows=()):
         """fn(t (G,) tile indices, col_valid (G, W), row_ok (G, T), tiles,
-        windows) over every group of tiles; tiles are (G, T, ...) and
-        windows (G, W, ...) slices of ``arrays``. The outputs, each with a
-        leading (G,) axis, are concatenated over the groups."""
+        windows) over every group of tiles. ``arrays`` give both tiles
+        (G, T, ...) and windows (G, W, ...); ``rows`` hold one row per row
+        of the mapped tiles, in order, and give tiles only, after those of
+        ``arrays``. The outputs, each with a leading (G,) axis, are
+        concatenated over the groups."""
         outs = []
-        for t0 in range(0, self.num_tiles, self.g):
-            t = torch.arange(t0, t0 + self.g, device=self.starts.device)
-            idx = self.starts[t][:, None] + self.cols[None, :]  # (G, W)
-            tl = [a[t0 * self.tile : (t0 + self.g) * self.tile].reshape(
-                self.g, self.tile, *a.shape[1:]) for a in arrays]
-            wn = [a[idx] for a in arrays]
-            row_ok = (t[:, None] * self.tile + self.rows[None, :]) < self.nv
-            out = fn(t, idx < self.nv, row_ok, tl, wn)
+        for g0 in range(0, self.count, self.g):
+            sl = slice(g0, g0 + self.g)
+            tl = [a[self.tile_rows[sl]] for a in arrays] + [
+                r[g0 * self.tile : (g0 + self.g) * self.tile].reshape(-1, self.tile, *r.shape[1:])
+                for r in rows]
+            wn = [a[self.win[sl]] for a in arrays]
+            out = fn(self.t[sl], self.col_valid[sl], self.row_ok[sl], tl, wn)
             outs.append(out if isinstance(out, tuple) else (out,))
         res = tuple(torch.cat(parts) for parts in zip(*outs))
         return res if len(res) > 1 else res[0]
+
+
+def _masked(d, rk):
+    """The kNN membership of a threshold: d <= rk per row, inf excluded."""
+    return (d <= rk[..., None]) & (d < _INF)
+
+
+def smooth_tile(tp, tn, wp, wn, d, rk, cos_rho, cfg: DenoiseConfig):
+    """Pass A: NVT1 over the feature masks, then the VU-smoothed tile
+    normals (G, T, 3)."""
+    dec = _nvt_tile(tp, wp, wn, d, _masked(d, rk), cos_rho)
+    f = voting.vu_smoothed_normals(dec, tn.reshape(-1, 3), cfg.vu_tau, cfg.vu_damping)
+    return f.reshape(tp.shape)
+
+
+def classify_tile(tp, wp, wf, d, rk, rk8, row_ok, cos_rho, cfg: DenoiseConfig, needs_delta):
+    """Pass B: NVT2 -> classes (G, T), edge directions (G, T, 3), and per
+    tile the delta classes' sums of p_j (G, C, 3) and counts (G, C) over
+    the step masks."""
+    dec = _nvt_tile(tp, wp, wf, d, _masked(d, rk), cos_rho)
+    cls = voting.classes(dec, cfg.class_scale).reshape(tp.shape[:-1])
+    edge_vec = dec.eigvec[..., 0].reshape(tp.shape)
+    m8 = _masked(d, rk8).to(torch.float32)
+    psums, pcnts = [], []
+    for c in needs_delta:
+        mc = m8 * ((cls == c) & row_ok).to(torch.float32)[..., None]
+        psums.append(torch.sum(torch.matmul(mc, wp), dim=1))  # (G, 3)
+        pcnts.append(torch.sum(mc, dim=(1, 2)))
+    if needs_delta:
+        return cls, edge_vec, torch.stack(psums, 1), torch.stack(pcnts, 1)
+    g = tp.shape[0]
+    return (cls, edge_vec, torch.zeros((g, 1, 3), device=tp.device),
+            torch.zeros((g, 1), device=tp.device))
+
+
+def spread_tile(wp, d, tc, rk8, row_ok, centers, needs_delta):
+    """Pass C: per tile and delta class, the largest distance of a step
+    neighbour from the class centre (G, C)."""
+    m8 = _masked(d, rk8)
+    outs = []
+    for ci, c in enumerate(needs_delta):
+        dist = _norm3(wp - centers[ci])  # (G, W)
+        m = m8 & ((tc == c) & row_ok)[..., None]
+        outs.append(torch.amax(torch.where(m, dist[:, None, :], 0.0), dim=(1, 2)))
+    return torch.stack(outs, 1)
+
+
+def update_tile(tp, tf, tc, te, wp, wf, d, rk8, cfg: DenoiseConfig, strategy, d_thr, deltas):
+    """Pass D: the class-dispatched vertex updates of a batch of tiles."""
+    m8f = _masked(d, rk8).to(torch.float32)
+    ctx = _TileCtx(tile_pos=tp, win_pos=wp, win_fn=wf, tile_fn=tf, d=d,
+                   mask8f=m8f, deg=torch.sum(m8f, dim=-1))
+    njvj, col_nnv, m6, s6, b_nv, sv = _step_columns(ctx)
+
+    def run(name, cid):
+        alpha = cfg.alphas[cid]
+        if name == "flat":
+            return _flat_tile(ctx, njvj, d_thr, alpha, deltas[cid])
+        if name == "edge":
+            return _edge_tile(ctx, s6, b_nv, d_thr, alpha, te)
+        if name == "corner":
+            return _corner_tile(ctx, s6, b_nv, d_thr, alpha)
+        if name == "feature":
+            return _feature_like_tile(ctx, s6, b_nv, sv, d_thr, alpha)
+        if name == "new":
+            return _new_tile(ctx, njvj, col_nnv, m6, d_thr, alpha, deltas[cid])
+        if name == "dummy":
+            return tp
+        raise ValueError(name)
+
+    outs = [run(strategy[c], c) for c in range(3)]
+    return torch.where((tc == 0)[..., None], outs[0],
+                       torch.where((tc == 1)[..., None], outs[1], outs[2]))
+
+
+def threshold_tile(tp, wp, col_valid, row_ok, cfg: DenoiseConfig):
+    """The stale thresholds' sweep: per row the feature_k-th and step_k-th
+    smallest window distances, and per tile the sum of the 6-NN edge
+    lengths (the self edge included) over valid rows and their count."""
+    d = _dist_tile(tp, wp, col_valid)
+    d6 = _k_smallest(d, 6)
+    dist6 = torch.sqrt(torch.where(torch.isfinite(d6), d6, 0.0))
+    return (_kth_smallest(d, cfg.feature_k), _kth_smallest(d, cfg.step_k),
+            torch.sum(torch.where(row_ok[..., None], dist6, 0.0), dim=(1, 2)),
+            torch.sum(row_ok, dim=1) * 6)
 
 
 def fused_denoise(
@@ -282,15 +380,12 @@ def fused_denoise(
     geo = _Tiles(n, nv, tile, window, group, dev)
     cos_rho = torch.cos(torch.tensor(cfg.angle, dtype=torch.float32, device=dev))
 
-    # d threshold: 2 * mean 6-NN edge length (Processor.py:120-121), once
-    # on the noisy input.
-    def thr_tile(t, col_valid, row_ok, tl, wn):
-        d6 = _k_smallest(_dist_tile(tl[0], wn[0], col_valid), 6)  # incl. the self edge
-        dist = torch.sqrt(torch.where(torch.isfinite(d6), d6, 0.0))
-        return (torch.sum(torch.where(row_ok[..., None], dist, 0.0), dim=(1, 2)),
-                torch.sum(row_ok, dim=1) * 6)
+    # One sweep on the noisy input: the d threshold, 2 * mean 6-NN edge
+    # length (Processor.py:120-121), and the stale thresholds.
+    def thr(t, col_valid, row_ok, tl, wn):
+        return threshold_tile(tl[0], wn[0], col_valid, row_ok, cfg)
 
-    sums, counts = geo.map(thr_tile, sc.pos)
+    rk_feat, rk_step, sums, counts = geo.map(thr, sc.pos)
     d_thr = cfg.d_scale * torch.sum(sums) / torch.clamp(torch.sum(counts), min=1)
 
     needs_delta = tuple(c for c in range(3) if strategy[c] in ("flat", "new"))
@@ -302,39 +397,17 @@ def fused_denoise(
             tp, tn, trk, trk8 = tl
             d = _dist_tile(tp, wn[0], col_valid)
             if threshold_refresh:
-                rk = _kth_smallest(d, cfg.feature_k)
-                rk8 = _kth_smallest(d, cfg.step_k)
-            else:
-                rk, rk8 = trk, trk8
-            mk = (d <= rk[..., None]) & (d < _INF)
-            dec = _nvt_tile(tp, wn[0], wn[1], d, mk, cos_rho)
-            f = voting.vu_smoothed_normals(dec, tn.reshape(-1, 3), cfg.vu_tau, cfg.vu_damping)
-            return f.reshape(tp.shape), rk, rk8
+                trk, trk8 = _kth_smallest(d, cfg.feature_k), _kth_smallest(d, cfg.step_k)
+            return smooth_tile(tp, tn, wn[0], wn[1], d, trk, cos_rho, cfg), trk, trk8
 
         f_n, rk_feat, rk_step = geo.map(pass_a, pos, nrm, rk_feat0, rk_step0)
         f_n, rk_feat, rk_step = f_n.reshape(n, 3), rk_feat.reshape(n), rk_step.reshape(n)
 
-        # Pass B: NVT2 -> classes, edge directions, the delta classes'
-        # partial sums of p_j and counts over the step masks.
         def pass_b(t, col_valid, row_ok, tl, wn):
             tp, _, trk, trk8 = tl
-            wp, wf = wn[0], wn[1]
-            d = _dist_tile(tp, wp, col_valid)
-            mk = (d <= trk[..., None]) & (d < _INF)
-            dec = _nvt_tile(tp, wp, wf, d, mk, cos_rho)
-            cls = voting.classes(dec, cfg.class_scale).reshape(tp.shape[:-1])
-            edge_vec = dec.eigvec[..., 0].reshape(tp.shape)
-            m8 = ((d <= trk8[..., None]) & (d < _INF)).to(torch.float32)
-            psums, pcnts = [], []
-            for c in needs_delta:
-                mc = m8 * ((cls == c) & row_ok).to(torch.float32)[..., None]
-                psums.append(torch.sum(torch.matmul(mc, wp), dim=1))  # (G, 3)
-                pcnts.append(torch.sum(mc, dim=(1, 2)))
-            if needs_delta:
-                return cls, edge_vec, torch.stack(psums, 1), torch.stack(pcnts, 1)
-            g = tp.shape[0]
-            return (cls, edge_vec, torch.zeros((g, 1, 3), device=dev),
-                    torch.zeros((g, 1), device=dev))
+            d = _dist_tile(tp, wn[0], col_valid)
+            return classify_tile(tp, wn[0], wn[1], d, trk, trk8, row_ok, cos_rho, cfg,
+                                 needs_delta)
 
         cls, edge_vec, psums, pcnts = geo.map(pass_b, pos, f_n, rk_feat, rk_step)
         cls, edge_vec = cls.reshape(n), edge_vec.reshape(n, 3)
@@ -345,69 +418,27 @@ def fused_denoise(
         if needs_delta:
             def pass_c(t, col_valid, row_ok, tl, wn):
                 tp, tc, trk8 = tl
-                wp = wn[0]
-                d = _dist_tile(tp, wp, col_valid)
-                m8 = (d <= trk8[..., None]) & (d < _INF)
-                outs = []
-                for ci, c in enumerate(needs_delta):
-                    dist = _norm3(wp - centers[ci])  # (G, W)
-                    m = m8 & ((tc == c) & row_ok)[..., None]
-                    outs.append(torch.amax(torch.where(m, dist[:, None, :], 0.0), dim=(1, 2)))
-                return torch.stack(outs, 1)
+                d = _dist_tile(tp, wn[0], col_valid)
+                return spread_tile(wn[0], d, tc, trk8, row_ok, centers, needs_delta)
 
             dmax = geo.map(pass_c, pos, cls, rk_step)
             deltas = {c: torch.amax(dmax[:, ci]) for ci, c in enumerate(needs_delta)}
 
-        # Pass D: the class-dispatched vertex updates.
         def pass_d(t, col_valid, row_ok, tl, wn):
             tp, tf, tc, te, trk8 = tl
-            wp, wf = wn[0], wn[1]
-            d = _dist_tile(tp, wp, col_valid)
-            m8f = ((d <= trk8[..., None]) & (d < _INF)).to(torch.float32)
-            ctx = _TileCtx(tile_pos=tp, win_pos=wp, win_fn=wf, tile_fn=tf, d=d,
-                           mask8f=m8f, deg=torch.sum(m8f, dim=-1))
-            njvj, col_nnv, m6, s6, b_nv, sv = _step_columns(ctx)
-
-            def run(name, cid):
-                alpha = cfg.alphas[cid]
-                if name == "flat":
-                    return _flat_tile(ctx, njvj, d_thr, alpha, deltas[cid])
-                if name == "edge":
-                    return _edge_tile(ctx, s6, b_nv, d_thr, alpha, te)
-                if name == "corner":
-                    return _corner_tile(ctx, s6, b_nv, d_thr, alpha)
-                if name == "feature":
-                    return _feature_like_tile(ctx, s6, b_nv, sv, d_thr, alpha)
-                if name == "new":
-                    return _new_tile(ctx, njvj, col_nnv, m6, d_thr, alpha, deltas[cid])
-                if name == "dummy":
-                    return tp
-                raise ValueError(name)
-
-            outs = [run(strategy[c], c) for c in range(3)]
-            return torch.where((tc == 0)[..., None], outs[0],
-                               torch.where((tc == 1)[..., None], outs[1], outs[2]))
+            d = _dist_tile(tp, wn[0], col_valid)
+            return update_tile(tp, tf, tc, te, wn[0], wn[1], d, trk8, cfg, strategy, d_thr,
+                               deltas)
 
         new_pos = geo.map(pass_d, pos, f_n, cls, edge_vec, rk_step).reshape(n, 3)
         # Padding rows stay pinned.
         new_pos = torch.where((torch.arange(n, device=dev) < nv)[:, None], new_pos, pos)
         return new_pos, f_n, rk_feat, rk_step, cls
 
-    if threshold_refresh:
-        rk_feat = torch.zeros(n, dtype=torch.float32, device=dev)
-        rk_step = torch.zeros(n, dtype=torch.float32, device=dev)
-    else:
-        # Stale thresholds: one k-th-distance sweep on the noisy input,
-        # inflated by the slack so the moving points keep about k
-        # neighbours inside.
-        def thr_pass(t, col_valid, row_ok, tl, wn):
-            d = _dist_tile(tl[0], wn[0], col_valid)
-            return (_kth_smallest(d, cfg.feature_k),
-                    _kth_smallest(d, cfg.step_k))
-
-        rk_feat, rk_step = geo.map(thr_pass, sc.pos)
-        rk_feat = rk_feat.reshape(n) * threshold_slack
-        rk_step = rk_step.reshape(n) * threshold_slack
+    # Stale thresholds are inflated by the slack so the moving points keep
+    # about k neighbours inside; refreshed ones replace them in pass A.
+    rk_feat = rk_feat.reshape(n) * threshold_slack
+    rk_step = rk_step.reshape(n) * threshold_slack
 
     pos, nrm_s = sc.pos, sc.nrm
     for _ in range(iters):

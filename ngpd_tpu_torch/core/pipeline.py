@@ -12,8 +12,13 @@ No kernel of the port lies on this path: it is plain torch on the
 caller's device (``device=None`` means ``"cuda"``). Where the reference
 scans or loops on the device (``lax.scan``, ``lax.while_loop``), these
 functions loop on the host; ``denoise_until_minimum_error`` reads one scalar
-a step. Only the single-device arguments are ported (no ``axis_name``,
-``gather_fn`` or ``src_*``).
+a step.
+
+The sharded arguments (``src_*``, ``gather_fn``, ``axis_name``) keep the
+reference's names. ``axis_name`` takes a ``torch.distributed`` process
+group where the reference takes a mesh axis's name: ``torch.distributed``
+runs one process a rank, and its collectives name the group, not an axis
+(``parallel/mesh.py::mesh_axis`` gives a mesh axis's group).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..collectives import all_reduce
 from ..config import DenoiseConfig
 from ..device import exact_float32, resolve_device
 from ..ops import metrics
@@ -35,12 +41,17 @@ DEFAULT_STRATEGY = ("flat", "edge", "feature")
 
 
 def my_feature_decomposition(points, normals, nbh: Neighborhood, angle: float,
-                             vu_tau: float = 0.3, vu_damping: float = 3.0):
+                             vu_tau: float = 0.3, vu_damping: float = 3.0,
+                             src_points=None, src_normals=None, src_f_n=None):
     """Filtered NVT, VU-smooth the normals, second filtered NVT on the
-    smoothed normals. Returns (Decomposition, smoothed normals)."""
-    nvt1 = voting.better_filtered_nvt(points, nbh, normals, angle)
+    smoothed normals. Returns (Decomposition, smoothed normals).
+
+    Sharded callers pass the whole arrays as ``src_points`` and
+    ``src_normals``, and as ``src_f_n`` the whole smoothed normals, so the
+    second NVT gathers the same values on every rank."""
+    nvt1 = voting.better_filtered_nvt(points, nbh, normals, angle, src_points, src_normals)
     f_n = voting.vu_smoothed_normals(nvt1, normals, vu_tau, vu_damping)
-    return voting.better_filtered_nvt(points, nbh, f_n, angle), f_n
+    return voting.better_filtered_nvt(points, nbh, f_n, angle, src_points, src_f_n), f_n
 
 
 def martin_feature_decomposition(points, normals, nbh: Neighborhood, rho: float = 0.9):
@@ -50,15 +61,26 @@ def martin_feature_decomposition(points, normals, nbh: Neighborhood, rho: float 
     return voting.normal_filtered_pvt(points, nbh, f_n, rho), f_n
 
 
-def _class_delta(points, nbh: Neighborhood, row_mask) -> torch.Tensor:
+def _class_delta(points, nbh: Neighborhood, row_mask, src_points=None,
+                 axis_name=None) -> torch.Tensor:
     """The global neighbour-spread scale restricted to the rows of one
     class: the largest distance of their gathered neighbours from those
-    neighbours' mean."""
-    vj = nbh.gather(points)
+    neighbours' mean. With ``axis_name`` (a process group) the sums and the
+    maximum run over every rank's rows (``psum`` / ``pmax``), so the scale
+    equals the single-device one."""
+    vj = nbh.gather(points if src_points is None else src_points)
     m = (row_mask[:, None] & nbh.mask).to(points.dtype)
-    center = torch.sum(vj * m[..., None], dim=(0, 1)) / torch.clamp(torch.sum(m), min=1.0)
+    vsum = torch.sum(vj * m[..., None], dim=(0, 1))
+    total = torch.sum(m)
+    if axis_name is not None:
+        both = all_reduce(torch.cat([vsum, total[None]]), "sum", axis_name)
+        vsum, total = both[:3], both[3]
+    center = vsum / torch.clamp(total, min=1.0)
     dist = torch.linalg.norm(vj - center, dim=-1)
-    return torch.max(torch.where(m > 0, dist, 0.0))
+    delta = torch.max(torch.where(m > 0, dist, 0.0))
+    if axis_name is not None:
+        delta = all_reduce(delta, "max", axis_name)
+    return delta
 
 
 def denoise_iteration(
@@ -73,27 +95,40 @@ def denoise_iteration(
     strategy: tuple[str, str, str] = DEFAULT_STRATEGY,
     vu_tau: float = 0.3,
     vu_damping: float = 3.0,
+    src_points: Optional[torch.Tensor] = None,
+    src_normals: Optional[torch.Tensor] = None,
+    gather_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    axis_name=None,
 ):
     """One full classify-and-update iteration for ALL points: each
     configured step runs densely and the result is selected per point.
-    Returns (new positions, smoothed normals, classes int32)."""
-    decomp, f_n = my_feature_decomposition(points, normals, nbh_feat, angle,
-                                           vu_tau, vu_damping)
+    Returns (new positions, smoothed normals, classes int32).
+
+    Sharded mode: ``points`` / ``normals`` hold only this rank's rows,
+    ``src_points`` / ``src_normals`` the whole arrays, ``gather_fn``
+    gathers a rank-local row array into the whole one, and ``axis_name``
+    is the process group of the cross-rank reductions. Single-device
+    callers leave all four unset."""
+    nvt1 = voting.better_filtered_nvt(points, nbh_feat, normals, angle, src_points, src_normals)
+    f_n = voting.vu_smoothed_normals(nvt1, normals, vu_tau, vu_damping)
+    src_f_n = gather_fn(f_n) if gather_fn is not None else None
+    decomp = voting.better_filtered_nvt(points, nbh_feat, f_n, angle, src_points, src_f_n)
     cls = voting.classes(decomp, class_scale)
     edge_vectors = decomp.eigvec[..., 0]  # smallest-eigenvalue direction
+    src = {"src_points": src_points, "src_normals": src_f_n}
 
     def run(name: str, class_id: int) -> torch.Tensor:
         alpha = alphas[class_id]
         if name in ("flat", "new"):
-            delta = _class_delta(points, nbh_step, cls == class_id)
+            delta = _class_delta(points, nbh_step, cls == class_id, src_points, axis_name)
             step = steps.flat_step if name == "flat" else steps.new_step
-            return step(points, nbh_step, f_n, d, alpha, delta=delta)
+            return step(points, nbh_step, f_n, d, alpha, delta=delta, **src)
         if name == "edge":
-            return steps.edge_step(points, nbh_step, f_n, edge_vectors, d, alpha)
+            return steps.edge_step(points, nbh_step, f_n, edge_vectors, d, alpha, **src)
         if name == "corner":
-            return steps.corner_step(points, nbh_step, f_n, d, alpha)
+            return steps.corner_step(points, nbh_step, f_n, d, alpha, **src)
         if name == "feature":
-            return steps.feature_step(points, nbh_step, f_n, d, alpha)
+            return steps.feature_step(points, nbh_step, f_n, d, alpha, **src)
         if name == "dummy":
             return steps.dummy_step(points, nbh_step, f_n, d, alpha)
         raise ValueError(f"unknown step {name!r}; expected one of {STEP_NAMES}")

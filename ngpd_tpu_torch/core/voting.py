@@ -7,11 +7,16 @@ smallest-eigenvalue eigenvector used as the edge direction.
 Every contraction over the neighbour axis is a sum of products written
 out (``_sum_outer``), not a matrix product: the terms have length 3 and
 the CPU and the card then round alike.
+
+The builders' ``src_points`` / ``src_normals`` are the reference's sharded
+arguments: a caller whose row arrays hold only its own query rows
+(``parallel/sharded.py``) gathers the neighbours from these whole arrays.
+They default to the query arrays.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -113,18 +118,24 @@ def r_inv(d: Decomposition, n: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def pvt(points: torch.Tensor, nbh: Neighborhood) -> Decomposition:
+def _src(rows: torch.Tensor, src: Optional[torch.Tensor]) -> torch.Tensor:
+    return rows if src is None else src
+
+
+def pvt(points: torch.Tensor, nbh: Neighborhood,
+        src_points: Optional[torch.Tensor] = None) -> Decomposition:
     """Plain neighbour covariance about the neighbours' own mean."""
-    vj = nbh.gather(points)
+    vj = nbh.gather(_src(points, src_points))
     center = nbh.mean(vj)
     dv = vj - center[:, None, :]
     dv = torch.where(nbh.mask[..., None], dv, 0.0)
     return Decomposition(*eigh3x3(_sum_outer(dv, dv)))
 
 
-def nvt(nbh: Neighborhood, n: torch.Tensor) -> Decomposition:
+def nvt(nbh: Neighborhood, n: torch.Tensor,
+        src_normals: Optional[torch.Tensor] = None) -> Decomposition:
     """Mean outer product of the neighbour normals."""
-    nj = nbh.gather(n)
+    nj = nbh.gather(_src(n, src_normals))
     w = nbh.mask.to(nj.dtype)
     t = _sum_outer(nj * w[..., None], nj)
     t = t / torch.clamp(nbh.degree(), min=1.0)[:, None, None]
@@ -142,10 +153,11 @@ def _weighted_nvt(nj, w) -> torch.Tensor:
     return t / torch.clamp(wsum, min=1.0)[:, None, None]
 
 
-def normal_filtered_nvt(nbh: Neighborhood, n: torch.Tensor, rho: float = 0.9) -> Decomposition:
+def normal_filtered_nvt(nbh: Neighborhood, n: torch.Tensor, rho: float = 0.9,
+                        src_normals: Optional[torch.Tensor] = None) -> Decomposition:
     """NVT with binary weight acos(ni.nj) <= rho; zero-weight rows fall
     back to the own-normal tensor ni ni^T."""
-    nj = nbh.gather(n)
+    nj = nbh.gather(_src(n, src_normals))
     w = (_acos_dot(n[:, None, :], nj) <= rho) & nbh.mask
     t = _weighted_nvt(nj, w)
     t = torch.where((torch.sum(w, dim=1) == 0)[:, None, None], outer3(n, n), t)
@@ -162,11 +174,12 @@ def _offset_angle_weights(points, nbh: Neighborhood, vj, nj, rho: float) -> torc
 
 
 def better_filtered_nvt(points: torch.Tensor, nbh: Neighborhood, n: torch.Tensor,
-                        rho: float = 0.9) -> Decomposition:
+                        rho: float = 0.9, src_points: Optional[torch.Tensor] = None,
+                        src_normals: Optional[torch.Tensor] = None) -> Decomposition:
     """NVT weighted by acos(|normalize(vj-vi) . nj|) > rho, with the
     zero-weight rescue."""
-    nj = nbh.gather(n)
-    w = _offset_angle_weights(points, nbh, nbh.gather(points), nj, rho)
+    nj = nbh.gather(_src(n, src_normals))
+    w = _offset_angle_weights(points, nbh, nbh.gather(_src(points, src_points)), nj, rho)
     return Decomposition(*eigh3x3(_weighted_nvt(nj, w)))
 
 
@@ -182,12 +195,13 @@ def _weighted_pvt(vj, w):
 
 
 def normal_filtered_pvt(points: torch.Tensor, nbh: Neighborhood, n: torch.Tensor,
-                        rho: float = 0.9) -> Decomposition:
+                        rho: float = 0.9, src_points: Optional[torch.Tensor] = None,
+                        src_normals: Optional[torch.Tensor] = None) -> Decomposition:
     """Weighted covariance about the weighted neighbour mean, weight
     acos(ni.nj) <= rho; zero-weight rows take every valid neighbour, and
     rows with no valid neighbour at all the analytic cross-sample tensor."""
-    vj = nbh.gather(points)
-    nj = nbh.gather(n)
+    vj = nbh.gather(_src(points, src_points))
+    nj = nbh.gather(_src(n, src_normals))
     w = (_acos_dot(n[:, None, :], nj) <= rho) & nbh.mask
     w = torch.where((torch.sum(w, dim=1) == 0)[:, None], nbh.mask, w)
     t, wsum = _weighted_pvt(vj, w)
@@ -199,31 +213,36 @@ def normal_filtered_pvt(points: torch.Tensor, nbh: Neighborhood, n: torch.Tensor
 
 
 def better_filtered_pvt(points: torch.Tensor, nbh: Neighborhood, n: torch.Tensor,
-                        rho: float = 0.9) -> Decomposition:
+                        rho: float = 0.9, src_points: Optional[torch.Tensor] = None,
+                        src_normals: Optional[torch.Tensor] = None) -> Decomposition:
     """Covariance weighted by acos(|normalize(dv) . nj|) > rho, with the
     zero-weight rescue."""
-    vj = nbh.gather(points)
-    w = _offset_angle_weights(points, nbh, vj, nbh.gather(n), rho)
+    vj = nbh.gather(_src(points, src_points))
+    w = _offset_angle_weights(points, nbh, vj, nbh.gather(_src(n, src_normals)), rho)
     t, _ = _weighted_pvt(vj, w)
     return Decomposition(*eigh3x3(t))
 
 
 def md_transformation(points: torch.Tensor, nbh: Neighborhood, n: torch.Tensor,
-                      mass: torch.Tensor, sigma_inv: float = 3.0):
+                      mass: torch.Tensor, sigma_inv: float = 3.0,
+                      src_points: Optional[torch.Tensor] = None,
+                      src_normals: Optional[torch.Tensor] = None):
     """The paper's patch voting tensor: scale the patch to unit radius,
     reflect neighbour normals about the plane spanned by dv
     (n' = 2(n.w)w - n, w = normalize((dv x n) x dv)), weight by
     mu = (area/maxArea) * exp(-sigma_inv ||dv||), sum outer products, eigh.
 
+    ``mass`` is gathered whole, as the reference gathers it.
+
     Returns (Decomposition, scale_factors (N,)).
     """
-    vj = nbh.gather(points)
+    vj = nbh.gather(_src(points, src_points))
     dv = vj - points[:, None, :]
     dist = torch.linalg.norm(dv, dim=-1)
     max_dist = torch.amax(torch.where(nbh.mask, dist, 0.0), dim=1)
     scale = 1.0 / torch.clamp(max_dist, min=1e-30)
     dv_s = dv * scale[:, None, None]
-    nj = nbh.gather(n)
+    nj = nbh.gather(_src(n, src_normals))
     w = normalize(torch.linalg.cross(torch.linalg.cross(dv_s, nj), dv_s))
     nj_ref = 2.0 * torch.sum(nj * w, dim=-1, keepdim=True) * w - nj
     areas = nbh.gather(mass) * (scale**2)[:, None]

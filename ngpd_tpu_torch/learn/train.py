@@ -16,6 +16,17 @@ With a ``schedule`` the learning rate of an update is
 
 Metrics accumulate on the device; ``fit`` reads them on the host once an
 epoch.
+
+Data parallelism (``fit(mesh=)``, a mesh with a ``"dp"`` axis) keeps the
+reference's GSPMD semantics, one program over the global batch: the state
+is broadcast from the group's first rank once, every rank takes its rows
+of each global batch (which must divide by the group's size), BatchNorm
+takes its statistics over the global batch (``models/edgeconv.py``),
+each rank draws the keep masks of the whole batch from the shared
+generator and applies its rows, and the gradient is the group's mean of
+the ranks' mean-loss gradients, which is exact for equal shards of a mean
+loss. So a step on d ranks is the single-device step on the same global
+batch and masks. Only the group's first rank logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -27,8 +38,10 @@ from pathlib import Path
 from typing import Callable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..collectives import all_reduce, broadcast_
 from ..config import ModelConfig, TrainConfig
 from ..device import exact_float32, resolve_device
 from ..models.patch2normal import Patch2NormalModel, init_patch2normal
@@ -80,13 +93,62 @@ def init_model(model_cfg: ModelConfig = ModelConfig(), train_cfg: TrainConfig = 
     return model, new_state(model, train_cfg.learning_rate, seed, dev)
 
 
-def optimise(state: TrainState, loss: torch.Tensor) -> None:
-    """One Adam update of ``state.model`` on ``loss``'s gradient."""
+def dp_group(mesh):
+    """The process group of a mesh's ``"dp"`` axis (None without a mesh)."""
+    return None if mesh is None else mesh.get_group("dp")
+
+
+def is_lead(group) -> bool:
+    """Whether this rank logs and writes: the group's first, or the only one."""
+    return group is None or dist.get_rank(group) == 0
+
+
+def local_rows(batch: dict, group) -> dict:
+    """This rank's rows of a global batch (every value split along axis 0)."""
+    if group is None:
+        return batch
+    d, r = dist.get_world_size(group), dist.get_rank(group)
+    b = next(iter(batch.values())).shape[0]
+    if b % d:
+        raise ValueError(f"a global batch of {b} does not split over {d} data-parallel ranks")
+    return {k: v[r * (b // d) : (r + 1) * (b // d)] for k, v in batch.items()}
+
+
+def draw_local_keep(model: nn.Module, batch: int, generator: torch.Generator, group):
+    """The keep masks of this rank's ``batch`` rows: drawn for the whole
+    global batch from the generator every rank shares, this rank's rows
+    taken."""
+    if group is None:
+        return model.draw_keep_masks(batch, generator)
+    d, r = dist.get_world_size(group), dist.get_rank(group)
+    return [k[r * batch : (r + 1) * batch] for k in model.draw_keep_masks(batch * d, generator)]
+
+
+def broadcast_model(model: nn.Module, group) -> None:
+    """The group's first rank's parameters and buffers on every rank."""
+    with torch.no_grad():
+        broadcast_(list(model.parameters()) + list(model.buffers()), group)
+
+
+def average_gradients(model: nn.Module, group) -> None:
+    """Replace each gradient by the group's mean of it, in one all-reduce."""
+    params = [p for p in model.parameters() if p.grad is not None]
+    flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), "sum", group)
+    flat = flat / dist.get_world_size(group)
+    for p, g in zip(params, torch.split(flat, [p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
+def optimise(state: TrainState, loss: torch.Tensor, group=None) -> None:
+    """One Adam update of ``state.model`` on ``loss``'s gradient; with a
+    data-parallel ``group``, on the group's mean of the ranks' gradients."""
     if state.schedule is not None:
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.schedule(state.step)
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = state.schedule(state.step)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if group is not None:
+        average_gradients(state.model, group)
     state.optimizer.step()
     state.step += 1
 
@@ -96,16 +158,18 @@ def _inputs(batch: dict) -> tuple:
 
 
 def train_step(state: TrainState, batch: dict, keep=None,
-               loss_key: str = "custom_val_loss") -> tuple[TrainState, dict]:
+               loss_key: str = "custom_val_loss", group=None) -> tuple[TrainState, dict]:
     """One optimization step minimising ``custom_val_loss``; the forward's
     BatchNorm layers update their running statistics. ``keep``: the
     dropout keep masks, drawn from ``state.generator`` when not given.
-    Returns the state (updated in place) and the four metrics."""
+    ``group``: the data-parallel group; ``batch`` is then this rank's rows.
+    Returns the state (updated in place) and the four metrics (this
+    rank's)."""
     model = state.model.train()
     if keep is None:
-        keep = model.draw_keep_masks(batch["x"].shape[0], state.generator)
-    metrics = losses.all_losses(model(*_inputs(batch), keep=keep), batch["y"])
-    optimise(state, metrics[loss_key])
+        keep = draw_local_keep(model, batch["x"].shape[0], state.generator, group)
+    metrics = losses.all_losses(model(*_inputs(batch), keep=keep, group=group), batch["y"])
+    optimise(state, metrics[loss_key], group)
     return state, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -128,12 +192,17 @@ def acc_metrics(acc: Optional[dict], metrics: dict) -> dict:
     return {k: acc[k] + v for k, v in metrics.items()}
 
 
-def host_means(acc: Optional[dict], n: int) -> dict:
-    """The accumulated sums over ``n`` on the host, in one read."""
+def host_means(acc: Optional[dict], n: int, group=None) -> dict:
+    """The accumulated sums over ``n`` on the host, in one read; with a
+    data-parallel ``group``, the mean over its ranks (every rank saw ``n``
+    equal shards)."""
     if not acc:
         return {}
     keys = list(acc)
-    return dict(zip(keys, (v / n for v in torch.stack([acc[k] for k in keys]).tolist())))
+    sums = torch.stack([acc[k] for k in keys])
+    if group is not None:
+        sums = all_reduce(sums, "sum", group) / dist.get_world_size(group)
+    return dict(zip(keys, (v / n for v in sums.tolist())))
 
 
 @dataclasses.dataclass
@@ -176,45 +245,56 @@ def fit(
     train_cfg: TrainConfig = TrainConfig(),
     log_dir: str | Path = "logs",
     checkpoint_dir: Optional[str | Path] = None,
+    mesh=None,
 ) -> TrainState:
     """Epoch loop with validation, early stopping and checkpointing. The
     monitored loss is ``train_cfg.monitor`` of the validation metrics, the
-    training metrics' when there is no full validation batch."""
+    training metrics' when there is no full validation batch.
+
+    With ``mesh`` (a ``DeviceMesh`` with a ``"dp"`` axis) every rank runs
+    this loop on the same global batches, takes its rows of each, and the
+    steps are data-parallel (see the module's docstring)."""
     from .checkpoints import CheckpointManager
 
     exact_float32()
-    logger = MetricLogger(log_dir)
+    group = dp_group(mesh)
+    if group is not None:
+        broadcast_model(state.model, group)
+    lead = is_lead(group)
+    logger = MetricLogger(log_dir) if lead else None
     stopper = EarlyStopping(train_cfg.early_stopping_patience)
     ckpt = (CheckpointManager(checkpoint_dir, top_k=train_cfg.checkpoint_top_k)
-            if checkpoint_dir else None)
+            if checkpoint_dir and lead else None)
 
     for epoch in range(train_cfg.num_epochs):
         acc, n_b = None, 0
         last_beat = time.time()
         for batch in train_batches():
-            state, metrics = train_step(state, batch)
+            state, metrics = train_step(state, local_rows(batch, group), group=group)
             acc, n_b = acc_metrics(acc, metrics), n_b + 1
-            if time.time() - last_beat > 120:
+            if lead and time.time() - last_beat > 120:
                 print(f"epoch {epoch}: step {n_b}...", flush=True)
                 last_beat = time.time()
-        train_metrics = host_means(acc, n_b)
-        logger.log(epoch, "train", train_metrics)
+        train_metrics = host_means(acc, n_b, group)
 
         acc, n_b = None, 0
         for batch in val_batches():
-            acc, n_b = acc_metrics(acc, eval_step(state, batch)), n_b + 1
-        val_metrics = host_means(acc, n_b)
+            acc, n_b = acc_metrics(acc, eval_step(state, local_rows(batch, group))), n_b + 1
+        val_metrics = host_means(acc, n_b, group)
         if not val_metrics:
             # Tiny datasets can yield zero full validation batches.
             val_metrics = dict(train_metrics)
-        logger.log(epoch, "val", val_metrics)
         monitored = val_metrics.get(train_cfg.monitor.replace("val_", ""),
                                     val_metrics["custom_val_loss"])
-        print(f"epoch {epoch}: train {train_metrics.get('custom_val_loss'):.5f} "
-              f"val {monitored:.5f}")
+        if lead:
+            logger.log(epoch, "train", train_metrics)
+            logger.log(epoch, "val", val_metrics)
+            print(f"epoch {epoch}: train {train_metrics.get('custom_val_loss'):.5f} "
+                  f"val {monitored:.5f}")
         if ckpt is not None:
             ckpt.save(epoch, state, monitored)
         if epoch + 1 >= train_cfg.min_epochs and stopper.update(monitored):
-            print(f"early stop at epoch {epoch} (best {stopper.best:.5f})")
+            if lead:
+                print(f"early stop at epoch {epoch} (best {stopper.best:.5f})")
             break
     return state

@@ -12,6 +12,7 @@ in the reference's order, so the validation split, the batches and
 best validation MSE. ``scan_steps > 0`` walks the same batches in blocks
 of that many steps (the reference's ``lax.scan`` supersteps; here a plain
 loop over each block's rows, from the split staged on the device).
+``fit_dgcnn(mesh=)`` is data-parallel as ``learn/train.py::fit`` is.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ import torch
 from ..device import exact_float32, resolve_device
 from ..models.dgcnn import DGCNN
 from ..models.patch2normal import flax_init_
-from .train import (EarlyStopping, MetricLogger, TrainState, acc_metrics, host_means,
-                    new_state, optimise)
+from .train import (EarlyStopping, MetricLogger, TrainState, acc_metrics, broadcast_model,
+                    dp_group, draw_local_keep, host_means, is_lead, local_rows, new_state,
+                    optimise)
 
 COSINE_ALPHA = 0.05
 
@@ -77,16 +79,16 @@ def dgcnn_losses(pred: torch.Tensor, target: torch.Tensor) -> dict:
 
 
 def dgcnn_train_step(state: TrainState, batch: dict, keep=None, alpha: float = 0.0,
-                     beta: float = 1.0) -> tuple[TrainState, dict]:
-    """One step on alpha * cos + beta * mse; ``keep`` as in
+                     beta: float = 1.0, group=None) -> tuple[TrainState, dict]:
+    """One step on alpha * cos + beta * mse; ``keep`` and ``group`` as in
     ``learn/train.py::train_step``. Returns the state and the metrics with
     the loss."""
     model = state.model.train()
     if keep is None:
-        keep = model.draw_keep_masks(batch["x"].shape[0], state.generator)
-    metrics = dgcnn_losses(model(batch["x"], keep=keep), batch["y"])
+        keep = draw_local_keep(model, batch["x"].shape[0], state.generator, group)
+    metrics = dgcnn_losses(model(batch["x"], keep=keep, group=group), batch["y"])
     loss = alpha * metrics["cos_loss"] + beta * metrics["mse_loss"]
-    optimise(state, loss)
+    optimise(state, loss, group)
     return state, {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach()}
 
 
@@ -195,47 +197,63 @@ def fit_dgcnn(
     log_dir: str | Path = "logs/dgcnn",
     checkpoint_dir: Optional[str | Path] = None,
     scan_steps: int = 0,
+    mesh=None,
 ) -> TrainState:
     """Epoch loop: per-epoch validation, top-k checkpoints, early stopping;
     returns the state (model, optimizer, generator, step) of the epoch with
-    the lowest validation MSE."""
+    the lowest validation MSE. With ``mesh`` (a ``DeviceMesh`` with a
+    ``"dp"`` axis) every rank walks the same store's batches and takes its
+    rows of each (``learn/train.py``); the block path is one device's."""
     from .checkpoints import CheckpointManager
 
+    if scan_steps and mesh is not None:
+        raise ValueError(
+            "scan_steps amortizes per-step dispatch on ONE device; "
+            "with a mesh, use the dp-sharded per-step path"
+        )
     exact_float32()
-    logger = MetricLogger(log_dir)
+    group = dp_group(mesh)
+    if group is not None:
+        broadcast_model(state.model, group)
+    lead = is_lead(group)
+    logger = MetricLogger(log_dir) if lead else None
     stopper = EarlyStopping(patience)
-    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir and lead else None
     best = _snapshot(state)
     for epoch in range(num_epochs):
         t0 = time.time()
         acc, n_b, last_beat = None, 0, time.time()
         for batch in _split_batches(store, "train", batch_size, scan_steps, True):
-            state, metrics = dgcnn_train_step(state, batch, alpha=alpha, beta=beta)
+            state, metrics = dgcnn_train_step(state, local_rows(batch, group), alpha=alpha,
+                                              beta=beta, group=group)
             acc, n_b = acc_metrics(acc, metrics), n_b + 1
-            if time.time() - last_beat > 120:
+            if lead and time.time() - last_beat > 120:
                 print(f"epoch {epoch}: step {n_b}...", flush=True)
                 last_beat = time.time()
         if acc is None:
             raise ValueError(f"no full train batches: split has {len(store.train['x'])} "
                              f"patches < batch_size {batch_size} — shrink the batch or add data")
-        train_metrics = host_means(acc, n_b)
-        logger.log(epoch, "train", train_metrics)
+        train_metrics = host_means(acc, n_b, group)
 
         acc, n_b = None, 0
         for batch in _split_batches(store, "val", batch_size, scan_steps, False):
-            acc, n_b = acc_metrics(acc, dgcnn_eval_step(state, batch)), n_b + 1
-        val_metrics = host_means(acc, n_b) or dict(train_metrics)
-        logger.log(epoch, "val", val_metrics)
+            acc = acc_metrics(acc, dgcnn_eval_step(state, local_rows(batch, group)))
+            n_b += 1
+        val_metrics = host_means(acc, n_b, group) or dict(train_metrics)
         monitored = val_metrics["mse_loss"]
-        print(f"epoch {epoch}: train mse {train_metrics['mse_loss']:.5f} "
-              f"val mse {monitored:.5f} val ang {val_metrics['angular_deg']:.2f}deg "
-              f"({time.time() - t0:.1f}s)", flush=True)
+        if lead:
+            logger.log(epoch, "train", train_metrics)
+            logger.log(epoch, "val", val_metrics)
+            print(f"epoch {epoch}: train mse {train_metrics['mse_loss']:.5f} "
+                  f"val mse {monitored:.5f} val ang {val_metrics['angular_deg']:.2f}deg "
+                  f"({time.time() - t0:.1f}s)", flush=True)
         if ckpt is not None:
             ckpt.save(epoch, state, monitored)
         if monitored <= stopper.best:
             best = _snapshot(state)
         if stopper.update(monitored):
-            print(f"early stop at epoch {epoch} (best {stopper.best:.5f})")
+            if lead:
+                print(f"early stop at epoch {epoch} (best {stopper.best:.5f})")
             break
     state.model.load_state_dict(best["model"])
     state.load_state_dict(best["train"])

@@ -40,17 +40,23 @@ def update_vertex_positions(
     vf_mask: torch.Tensor,
     filtered_normals: torch.Tensor,
     iterations: int = 16,
+    boundary_mask: Optional[torch.Tensor] = None,
+    fixed_boundary: bool = False,
 ) -> torch.Tensor:
-    """Iterate p += mean over incident faces of n (n . (c - p))."""
+    """Iterate p += mean over incident faces of n (n . (c - p)). With
+    ``fixed_boundary`` the vertices where ``boundary_mask`` (V,) is True
+    keep their positions in every iteration."""
     nf = filtered_normals[vf_idx]  # (V, D, 3)
     m = vf_mask[..., None]
     deg = torch.clamp(torch.sum(m.to(v.dtype), dim=1), min=1.0)
+    pinned = boundary_mask[:, None] if fixed_boundary and boundary_mask is not None else None
     pts = v
     for _ in range(iterations):
         cf = _centroids(pts, f)[vf_idx]
         dot = torch.sum(nf * (cf - pts[:, None, :]), dim=-1)
         contrib = torch.where(m, nf * dot[..., None], 0.0)
-        pts = pts + torch.sum(contrib, dim=1) / deg
+        new = pts + torch.sum(contrib, dim=1) / deg
+        pts = new if pinned is None else torch.where(pinned, pts, new)
     return pts
 
 

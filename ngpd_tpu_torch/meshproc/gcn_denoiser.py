@@ -10,6 +10,10 @@
 
 Each pass builds one centroid kNN (k = 64, self included) and shares it
 between the patches and the filter.
+
+``pmesh`` shards the patch inference over a mesh axis: every rank builds
+the patches of the whole mesh, forwards its share of them and all-gathers
+the predictions, so every rank ends with the whole result.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ from typing import Mapping, Optional
 
 import torch
 
+from ..collectives import all_gather
 from ..config import GNFConfig, PatchConfig
 from ..device import exact_float32, resolve_device
 from ..models.dgcnn import DGCNN, dgcnn_from_state_dict
 from ..ops.knn import knn
+from ..parallel.mesh import mesh_axis
 from .bucketing import pad_mesh
 from .filtering import guided_normal_filter
 from .patches import extract_mesh_patches, unrotate_predictions
@@ -49,12 +55,30 @@ def predict_face_normals(
     batch_size: int = 720,
     pre_nbh=None,
     device=None,
+    pmesh=None,
+    axis: str = "points",
 ) -> torch.Tensor:
     """Per-face world-frame normals from the patch network, on ``device``
-    (``model`` is moved there)."""
+    (``model`` is moved there).
+
+    With ``pmesh`` (a ``DeviceMesh``) the faces are padded to a multiple of
+    8 x the size of its ``axis``; each rank forwards its contiguous share
+    in chunks of ``batch_size`` and the shares are all-gathered. (The
+    reference forwards a shard as one batch; at 81,920 faces one forward
+    would not fit a card.)"""
     dev = resolve_device(device)
     patches = extract_mesh_patches(mesh, cfg=patch_cfg, pre_nbh=pre_nbh, device=dev)
-    pred = run_dgcnn(model.to(dev), patches.inputs, batch_size)
+    model = model.to(dev)
+    if pmesh is None:
+        pred = run_dgcnn(model, patches.inputs, batch_size)
+    else:
+        group, d, rank = mesh_axis(pmesh, axis, dev)
+        x = patches.inputs
+        nf = x.shape[0]
+        x = torch.cat([x, x.new_zeros((-nf % (d * 8),) + tuple(x.shape[1:]))])
+        rows = x.shape[0] // d
+        pred = all_gather(run_dgcnn(model, x[rank * rows : (rank + 1) * rows], batch_size),
+                          group)[:nf]
     pred = pred / torch.clamp(torch.linalg.norm(pred, dim=1, keepdim=True), min=1e-12)
     return unrotate_predictions(pred, patches.rotations)
 
@@ -70,6 +94,7 @@ def gcn_denoise_mesh(
     bucketed: bool = False,
     gnf_cfg2: Optional[GNFConfig] = None,
     device=None,
+    pmesh=None,
 ) -> TriMesh:
     """Network-predicted normals -> guided filtering, ``passes`` times with
     rebuilt neighbourhoods; returns the denoised mesh on ``device``.
@@ -79,7 +104,8 @@ def gcn_denoise_mesh(
     ``gnf_cfg2``: the filter settings of every pass after the first;
     defaults to ``gnf_cfg``. ``bucketed``: pad the mesh to power-of-two
     shape buckets first (``meshproc.bucketing``); the result is the same
-    mesh.
+    mesh. ``pmesh``: shard the patch inference over the mesh's ``"points"``
+    axis (``predict_face_normals``).
     """
     dev = resolve_device(device)
     exact_float32()
@@ -94,7 +120,7 @@ def gcn_denoise_mesh(
         # Only when patches and filter agree on k can they share it.
         pre_nbh = centroid_knn(out, 64) if patch_cfg.num_nodes == 64 else None
         guidance = predict_face_normals(out, model if p == 0 else model2, patch_cfg,
-                                        batch_size, pre_nbh=pre_nbh, device=dev)
+                                        batch_size, pre_nbh=pre_nbh, device=dev, pmesh=pmesh)
         if face_mask is not None:
             # Sentinel faces guide with their own normals; their
             # neighbourhoods never touch real faces.

@@ -23,7 +23,10 @@ updates the running statistics as ``0.9 * old + 0.1 * batch`` with the
 biased variance (torch's own would take two passes, keep the unbiased
 variance and call the 0.1 its momentum). Dropout (after bn8 and bn9) takes
 explicit keep masks (``models/dropout.py``). ``feature_knn`` runs without
-autograd: its distances feed only the selection.
+autograd: its distances feed only the selection. With a data-parallel
+``group`` a train-mode forward takes the batch statistics over the global
+batch: the sums of h and h^2 and the count are summed over the group, then
+the fast variance as above.
 
 ``BetterDGCNN`` is the parameterised generalisation of
 ``ngpd_tpu/models/dgcnn.py``; its modules carry the Flax names
@@ -39,6 +42,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from ..collectives import sum_across
 from ..ops.knn import _topk_smallest
 from .dropout import apply_dropout, draw_keep_masks, dropout_sites
 
@@ -80,20 +84,28 @@ def _edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([xj - xi, xi], dim=-1)
 
 
-def batch_stats(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def batch_stats(h: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Flax's batch statistics over every axis but the last: the mean and
-    the fast variance max(mean(h^2) - mean(h)^2, 0)."""
+    the fast variance max(mean(h^2) - mean(h)^2, 0); with ``group`` over
+    every rank's rows."""
     dims = tuple(range(h.dim() - 1))
-    mean = torch.mean(h, dim=dims)
-    mean2 = torch.mean(h * h, dim=dims)
+    if group is None:
+        mean = torch.mean(h, dim=dims)
+        mean2 = torch.mean(h * h, dim=dims)
+    else:
+        c = h.shape[-1]
+        count = h.new_full((1,), h.numel() // c)
+        sums = sum_across(torch.cat([torch.sum(h, dim=dims), torch.sum(h * h, dim=dims), count]),
+                          group)
+        mean, mean2 = sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
-def _bn(h: torch.Tensor, bn: nn.Module, training: bool = False) -> torch.Tensor:
+def _bn(h: torch.Tensor, bn: nn.Module, training: bool = False, group=None) -> torch.Tensor:
     """BatchNorm over the last axis, Flax's order of operations; in train
     mode with the batch statistics, updating ``bn``'s running ones."""
     if training:
-        mean, var = batch_stats(h)
+        mean, var = batch_stats(h, group)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
@@ -137,11 +149,12 @@ class DGCNN(nn.Module):
     def draw_keep_masks(self, batch: int, generator: torch.Generator) -> list[torch.Tensor]:
         return draw_keep_masks(self.dropout_shapes(batch), self.dropout, generator)
 
-    def forward(self, inputs: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
+                group=None) -> torch.Tensor:
         """inputs: (B, 20, P) channel-first (17 features + 3 neighbour
         rows) -> (B, output_channels). ``keep``: the dropout keep masks of
-        a train-mode forward (``draw_keep_masks``)."""
+        a train-mode forward (``draw_keep_masks``); ``group``: the
+        data-parallel process group (see the module's docstring)."""
         train = self.training
         masks = dropout_sites(train, self.dropout, keep, 2)
         x = inputs[:, : self.init_dims, :].transpose(1, 2)  # (B, P, 17)
@@ -151,18 +164,18 @@ class DGCNN(nn.Module):
             conv, bn = getattr(self, f"conv{i}")[0], getattr(self, f"bn{i}")
             nbr = idx if i <= NUM_FIXED else feature_knn(x, self.k)
             h = _edge_features(x, nbr) @ conv.weight[:, :, 0, 0].T
-            x = torch.amax(_act(_bn(h, bn, train)), dim=2)  # max over neighbours
+            x = torch.amax(_act(_bn(h, bn, train, group)), dim=2)  # max over neighbours
             outs.append(x)
         h = torch.cat(outs, dim=-1) @ self.conv7[0].weight[:, :, 0].T  # (B, P, E)
-        h = _act(_bn(h, self.bn7, train))
+        h = _act(_bn(h, self.bn7, train, group))
         h = torch.cat([torch.amax(h, dim=1), torch.mean(h, dim=1)], dim=-1)
-        h = _act(_bn(h @ self.linear1.weight.T, self.bn8, train))
+        h = _act(_bn(h @ self.linear1.weight.T, self.bn8, train, group))
         if masks[0] is not None:
             h = apply_dropout(h, masks[0], self.dropout)
-        h = _act(_bn(self.linear2(h), self.bn9, train))
+        h = _act(_bn(self.linear2(h), self.bn9, train, group))
         if masks[1] is not None:
             h = apply_dropout(h, masks[1], self.dropout)
-        h = _act(_bn(self.linear3(h), self.bn10, train))
+        h = _act(_bn(self.linear3(h), self.bn10, train, group))
         return self.linear4(h)
 
 
@@ -187,8 +200,8 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return _bn(h, self, self.training)
+    def forward(self, h: torch.Tensor, group=None) -> torch.Tensor:
+        return _bn(h, self, self.training, group)
 
 
 class ConvBlock(nn.Module):
@@ -199,8 +212,8 @@ class ConvBlock(nn.Module):
         self.Dense_0 = nn.Linear(in_features, features, bias=False)
         self.BatchNorm_0 = FlaxBatchNorm(features)
 
-    def forward(self, e: torch.Tensor) -> torch.Tensor:
-        return torch.amax(_act(self.BatchNorm_0(e @ self.Dense_0.weight.T)), dim=2)
+    def forward(self, e: torch.Tensor, group=None) -> torch.Tensor:
+        return torch.amax(_act(self.BatchNorm_0(e @ self.Dense_0.weight.T, group)), dim=2)
 
 
 class BetterDGCNN(nn.Module):
@@ -239,8 +252,8 @@ class BetterDGCNN(nn.Module):
     def draw_keep_masks(self, batch: int, generator: torch.Generator) -> list[torch.Tensor]:
         return draw_keep_masks(self.dropout_shapes(batch), self.dropout, generator)
 
-    def forward(self, inputs: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
+                group=None) -> torch.Tensor:
         masks = dropout_sites(self.training, self.dropout, keep,
                               len(self.dropout_shapes(1)))
         x = inputs[:, : self.init_dims, :].transpose(1, 2)
@@ -248,14 +261,14 @@ class BetterDGCNN(nn.Module):
         outs, h = [], x
         for i in range(len(self.channels)):
             nbr = idx if i < self.num_edge_convs else feature_knn(h, self.k)
-            h = getattr(self, f"conv{i}")(_edge_features(h, nbr))
+            h = getattr(self, f"conv{i}")(_edge_features(h, nbr), group)
             outs.append(h)
-        h = _act(self.emb_bn(torch.cat(outs, dim=-1) @ self.emb.weight.T))
+        h = _act(self.emb_bn(torch.cat(outs, dim=-1) @ self.emb.weight.T, group))
         h = torch.cat([torch.amax(h, dim=1), torch.mean(h, dim=1)], dim=-1)
         for li in range(len(self.head_channels)):
             lin = getattr(self, f"head{li}")
             h = h @ lin.weight.T if lin.bias is None else lin(h)
-            h = _act(getattr(self, f"head{li}_bn")(h))
+            h = _act(getattr(self, f"head{li}_bn")(h, group))
             if li < len(masks) and masks[li] is not None:
                 h = apply_dropout(h, masks[li], self.dropout)
         return self.out(h)

@@ -14,6 +14,13 @@ valid nodes only, its variance is the biased one, and its running update
 is Flax's, ``momentum * old + (1 - momentum) * batch`` with momentum 0.9.
 Parameters carry the Flax names' roles: ``weight`` is ``scale``,
 ``running_mean`` / ``running_var`` are ``batch_stats`` ``mean`` / ``var``.
+
+A train-mode forward with a data-parallel ``group`` (a process group)
+takes each rank's rows of the global batch and computes the statistics
+over the global batch, as the reference's GSPMD program does over its
+sharded batch: the masked sums and the count are summed over the group,
+then the variance the same two-pass way. Per-rank statistics would be
+torch DDP's default, and another model.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..collectives import sum_across
 from ..core.patches import masked_pair_knn
 
 BN_EPS = 1e-5
@@ -37,14 +45,19 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
         # x: (..., F); mask: (...,) boolean over the leading dims.
         if self.training:
             m = mask.to(x.dtype)[..., None]
             dims = tuple(range(x.dim() - 1))
-            cnt = torch.clamp(torch.sum(m), min=1.0)
-            mean = torch.sum(x * m, dim=dims) / cnt
-            var = torch.sum((x - mean) ** 2 * m, dim=dims) / cnt
+            total, cnt = torch.sum(x * m, dim=dims), torch.sum(m)
+            if group is not None:
+                both = sum_across(torch.cat([total, cnt[None]]), group)
+                total, cnt = both[:-1], both[-1]
+            cnt = torch.clamp(cnt, min=1.0)
+            mean = total / cnt
+            sq = torch.sum((x - mean) ** 2 * m, dim=dims)
+            var = (sq if group is None else sum_across(sq, group)) / cnt
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1 - BN_MOMENTUM) * mean)
@@ -73,11 +86,11 @@ class EdgeConv(nn.Module):
         self.lin = nn.Linear(2 * in_features, features, bias=False)
         self.bn = MaskedBatchNorm(features)
 
-    def forward(self, x, nbr_idx, nbr_mask, node_mask):
+    def forward(self, x, nbr_idx, nbr_mask, node_mask, group=None):
         h = torch.matmul(_edge_block(x, nbr_idx), self.lin.weight.T)  # (B, P, K, F')
         m = (nbr_mask & node_mask[:, :, None]).to(h.dtype)[..., None]
         agg = torch.sum(h * m, dim=2) / torch.clamp(torch.sum(m, dim=2), min=1.0)
-        return nn.functional.leaky_relu(self.bn(agg, node_mask), self.negative_slope)
+        return nn.functional.leaky_relu(self.bn(agg, node_mask, group), self.negative_slope)
 
 
 class DynamicEdgeConv(nn.Module):
@@ -92,7 +105,7 @@ class DynamicEdgeConv(nn.Module):
         self.lin = nn.Linear(2 * in_features, features, bias=False)
         self.bn = MaskedBatchNorm(features)
 
-    def forward(self, x, node_mask):
+    def forward(self, x, node_mask, group=None):
         # The distances feed only the selection: no graph is kept for them.
         with torch.no_grad():
             idx, nbr_mask = masked_pair_knn(x, node_mask, self.k)
@@ -100,7 +113,7 @@ class DynamicEdgeConv(nn.Module):
         m = (nbr_mask & node_mask[:, :, None])[..., None]
         agg = torch.amax(torch.where(m, h, -torch.inf), dim=2)
         agg = torch.where(torch.isfinite(agg), agg, 0.0)
-        return nn.functional.leaky_relu(self.bn(agg, node_mask), self.negative_slope)
+        return nn.functional.leaky_relu(self.bn(agg, node_mask, group), self.negative_slope)
 
 
 def masked_global_pool(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:

@@ -81,30 +81,33 @@ class Patch2NormalModel(nn.Module):
     def draw_keep_masks(self, batch: int, generator: torch.Generator) -> list[torch.Tensor]:
         return draw_keep_masks(self.dropout_shapes(batch), self.cfg.dropout_rate, generator)
 
-    def forward(self, x, nbr_idx, nbr_mask, node_mask, keep=None) -> torch.Tensor:
+    def forward(self, x, nbr_idx, nbr_mask, node_mask, keep=None, group=None) -> torch.Tensor:
         """x (B, P, input_size), nbr_idx / nbr_mask (B, P, K), node_mask
         (B, P) -> raw outputs (B, output_size). ``keep``: the dropout keep
-        masks of a train-mode forward (``draw_keep_masks``)."""
+        masks of a train-mode forward (``draw_keep_masks``). ``group``: the
+        data-parallel process group whose ranks hold the rest of the global
+        batch; train-mode BatchNorm takes its statistics over all of it."""
         cfg = self.cfg
         num_convs = cfg.num_edgeconv + cfg.num_dynamic_edgeconv
         outs, h = [], x
         for i in range(cfg.num_edgeconv):
-            h = getattr(self, f"layer{i}")(h, nbr_idx, nbr_mask, node_mask)
+            h = getattr(self, f"layer{i}")(h, nbr_idx, nbr_mask, node_mask, group)
             outs.append(h)
         for i in range(cfg.num_edgeconv, num_convs):
-            h = getattr(self, f"layer{i}")(h, node_mask)
+            h = getattr(self, f"layer{i}")(h, node_mask, group)
             outs.append(h)
         h = torch.cat(outs, dim=-1)
         for i in range(num_convs, num_convs + cfg.num_prepool):
             h = _dense(h, getattr(self, f"layer{i}_lin"))
-            h = getattr(self, f"layer{i}_bn")(h, node_mask)
+            h = getattr(self, f"layer{i}_bn")(h, node_mask, group)
             h = nn.functional.leaky_relu(h, cfg.leaky_slope)
         h = masked_global_pool(h, node_mask)
         rows = torch.ones(h.shape[:-1], dtype=torch.bool, device=h.device)
         masks = dropout_sites(self.training, cfg.dropout_rate, keep, self.num_postpool)
         for q in range(self.num_postpool):
             i = num_convs + cfg.num_prepool + q
-            h = getattr(self, f"layer{i}_bn")(_dense(h, getattr(self, f"layer{i}_lin")), rows)
+            h = getattr(self, f"layer{i}_bn")(_dense(h, getattr(self, f"layer{i}_lin")), rows,
+                                              group)
             if masks[q] is not None:
                 h = apply_dropout(h, masks[q], cfg.dropout_rate)
         return _dense(h, self.lastLayer)

@@ -27,16 +27,28 @@ def _part1by2(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def valid_bounds(points: torch.Tensor, valid: torch.Tensor):
+    """(points with invalid rows zeroed, per-axis min and max over the
+    valid rows)."""
+    v3 = valid[:, None]
+    safe = torch.where(v3, points, torch.zeros_like(points))
+    inf = torch.tensor(float("inf"), dtype=points.dtype, device=points.device)
+    return safe, torch.where(v3, safe, inf).amin(dim=0), torch.where(v3, safe, -inf).amax(dim=0)
+
+
 def morton_codes(points: torch.Tensor, num_valid: Optional[int] = None) -> torch.Tensor:
     """Z-order codes (int32) of (N, 3) points; padding rows get 2**30."""
     n = points.shape[0]
     nv = n if num_valid is None else int(num_valid)
     valid = torch.arange(n, device=points.device) < nv
-    v3 = valid[:, None]
-    safe = torch.where(v3, points, torch.zeros_like(points))
-    inf = torch.tensor(float("inf"), dtype=points.dtype, device=points.device)
-    mn = torch.where(v3, safe, inf).amin(dim=0)
-    mx = torch.where(v3, safe, -inf).amax(dim=0)
+    safe, mn, mx = valid_bounds(points, valid)
+    return codes_in_box(safe, valid, mn, mx)
+
+
+def codes_in_box(safe: torch.Tensor, valid: torch.Tensor, mn: torch.Tensor,
+                 mx: torch.Tensor) -> torch.Tensor:
+    """Z-order codes of ``safe`` quantised in the box [mn, mx]; invalid rows
+    get 2**30."""
     # A tensor numerator: torch computes `scalar / tensor` as a reciprocal
     # times the scalar, which rounds differently and moves cells at the
     # truncation boundary.

@@ -99,9 +99,10 @@ def matvec3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(m * v[..., None, :], dim=-1)
 
 
-def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """Safe L2 normalisation (torch.nn.functional.normalize semantics)."""
-    n = torch.linalg.norm(v, dim=dim, keepdim=True)
+def normalize(v: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """Safe L2 normalisation along ``axis`` (the reference's name for the
+    dimension), torch.nn.functional.normalize semantics."""
+    n = torch.linalg.norm(v, dim=axis, keepdim=True)
     return v / torch.clamp(n, min=eps)
 
 

@@ -497,3 +497,51 @@ def test_card_training_step_matches_cpu(cuda_device, monkeypatch, kind):
     assert rec["ok"], (rec, spread)
     if kind == "dgcnn":
         assert cs.fast_variance_probe("cuda")["ok"]
+
+
+# torch.distributed on the card: chip_smoke's sharded phases at small
+# sizes, each on a NCCL group of one rank that the check starts and
+# destroys (the machine has one card; the multi-rank exchanges are held
+# against the reference on the CPU, tests/test_torch_{parallel,halo,dp_train}.py).
+
+
+def test_card_sharded_dense_path(cuda_device):
+    """chip_smoke ``sharded``: knn_sharded, chamfer_distance_sharded and
+    denoise_sharded on one NCCL rank against the single-device functions."""
+    import chip_smoke as cs
+
+    rec = cs.check_sharded(n=4096)
+    assert rec["denoise"]["collectives"]["all_gather"] >= 1
+
+
+def test_card_fused_sharded_and_halo(cuda_device):
+    """chip_smoke ``fused_sharded`` and ``halo``: the windowed engines on
+    one NCCL rank, a cloud that is not a multiple of the tile."""
+    import chip_smoke as cs
+
+    sharded, halo = cs.check_fused_sharded_and_halo(n=20_000)
+    assert sharded["collectives"]["all_gather"] >= 1
+    assert halo["collectives"]["all_gather"] == 0
+
+
+def test_card_fused_halo_on_one_rank_sends_nothing(cuda_device):
+    """chip_smoke ``halo``: with one rank the halos are zeros and no point
+    to point call is made."""
+    import chip_smoke as cs
+
+    _, halo = cs.check_fused_sharded_and_halo(n=8192)
+    assert halo["collectives"]["send"] == halo["collectives"]["recv"] == 0
+
+
+def test_card_dp_train(cuda_device, monkeypatch):
+    """chip_smoke ``dp_train`` at a narrow width and on icosphere(3): the
+    steps with a group of one against the steps without, TF32 refused, the
+    fits, the sharded patch inference."""
+    import chip_smoke as cs
+    from ngpd_tpu_torch.config import ModelConfig
+
+    monkeypatch.setattr(cs, "TRAIN_REF_P2N_CFG",
+                        ModelConfig(hidden=(16, 16, 32, 32, 32, 32, 64, 32, 16)))
+    monkeypatch.setattr(cs, "TRAIN_REF_EMB", 64)
+    rec = cs.check_dp_train(mesh_subdiv=3)
+    assert rec["fit"]["steps"] == cs.DP_FIT_STEPS and rec["faces"]["ok"]

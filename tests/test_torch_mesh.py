@@ -217,6 +217,33 @@ def _plane_mesh(n):
     return v, np.asarray(faces, np.int64)
 
 
+@pytest.mark.parametrize("fixed", [True, False])
+def test_vertex_update_pins_the_boundary_like_the_reference(fixed):
+    """An open plane mesh with noisy heights: with ``fixed_boundary`` the
+    border vertices stay where they are, without it they move; either
+    way the port's positions equal the reference's."""
+    n = 8
+    v, f = _plane_mesh(n)
+    rng = np.random.default_rng(4)
+    v[:, 2] = rng.normal(scale=0.2, size=len(v)).astype(np.float32)
+    ij = np.stack(np.meshgrid(np.arange(n), np.arange(n), indexing="ij"), -1).reshape(-1, 2)
+    border = np.any((ij == 0) | (ij == n - 1), axis=1)
+    j = jtm.TriMesh.from_numpy(v, f.astype(np.int32))
+    t = ttm.TriMesh.from_numpy(v, f)
+    normals = rng.normal(size=(len(f), 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    want = jfl.update_vertex_positions(j.v, j.f, *j.vertex_face_adjacency(),
+                                       jnp.asarray(normals), iterations=5,
+                                       boundary_mask=jnp.asarray(border), fixed_boundary=fixed)
+    got = tfl.update_vertex_positions(t.v, t.f, *t.vertex_face_adjacency(),
+                                      torch.as_tensor(normals), iterations=5,
+                                      boundary_mask=torch.as_tensor(border), fixed_boundary=fixed)
+    close(got, want, atol=1e-6)
+    moved = np.any(got.numpy() != v, axis=1)
+    assert moved[~border].all()
+    assert moved[border].any() != fixed
+
+
 def test_masks_keep_non_finite_slots_out():
     """A masked face at infinity leaves the radius finite, NaN normals on
     masked adjacency slots add nothing, and a filter whose every weight

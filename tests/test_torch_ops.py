@@ -9,8 +9,9 @@ import torch
 from ngpd_tpu.ops import eigh3 as jeigh
 from ngpd_tpu.ops import fastmath as jfastmath
 from ngpd_tpu.ops import morton as jmorton
+from ngpd_tpu.ops import neighbors as jneighbors
 from ngpd_tpu.ops import solve3 as jsolve
-from ngpd_tpu_torch.ops import eigh3, fastmath, morton, solve3
+from ngpd_tpu_torch.ops import eigh3, fastmath, morton, neighbors, solve3
 
 torch.set_num_threads(2)
 
@@ -146,6 +147,28 @@ def test_solve3x3_matches_reference_with_singular_rows():
     assert np.array_equal(okc.numpy(), np.asarray(okcj))
     for x, y in zip(xcj, xc):
         np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=1e-4, atol=1e-4)
+
+
+def test_det3_and_adjugate3_match_reference():
+    """The public cofactor helpers: determinants and adjugates equal the
+    reference's to float32 rounding, and A adj(A) = det(A) I."""
+    a = np.concatenate([_spd(64, 8), _degenerate(9)])
+    a[::5] *= -1.0  # negative determinants too
+    dj, dt = jsolve.det3(jnp.asarray(a)), solve3.det3(torch.as_tensor(a))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-6, atol=1e-6)
+    aj, at = jsolve.adjugate3(jnp.asarray(a)), solve3.adjugate3(torch.as_tensor(a))
+    np.testing.assert_allclose(at.numpy(), np.asarray(aj), rtol=1e-6, atol=1e-6)
+    eye = dt.numpy().astype(np.float64)[:, None, None] * np.eye(3)
+    np.testing.assert_allclose(a.astype(np.float64) @ at.numpy(), eye, atol=1e-3)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_normalize_takes_the_reference_axis(axis):
+    v = np.random.default_rng(10).normal(size=(7, 3)).astype(np.float32)
+    v[2] = 0.0  # the eps clamp keeps a zero row at zero
+    want = jneighbors.normalize(jnp.asarray(v), axis=axis)
+    got = neighbors.normalize(torch.as_tensor(v), axis=axis)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("n,nv", [(1000, 1000), (1024, 919), (4096, 3000)])

@@ -150,9 +150,9 @@ def _tf32_products(monkeypatch):
 def _unbiased_variance(monkeypatch):
     forward = tedge.MaskedBatchNorm.forward
 
-    def unbiased(self, x, mask):
+    def unbiased(self, x, mask, group=None):
         if not self.training:
-            return forward(self, x, mask)
+            return forward(self, x, mask, group)
         m = mask.to(x.dtype)[..., None]
         dims = tuple(range(x.dim() - 1))
         cnt = torch.clamp(torch.sum(m), min=1.0)

@@ -197,6 +197,78 @@ def test_training_cli_without_a_card_raises(tmp_path, command):
     assert not (tmp_path / "out").exists()
 
 
+@pytest.fixture(scope="module")
+def cpu_mesh(tmp_path_factory):
+    """A gloo process group of one rank and its CPU mesh."""
+    import torch.distributed as dist
+
+    from ngpd_tpu_torch.parallel.mesh import init_group, make_mesh
+
+    init_group(str(tmp_path_factory.mktemp("group") / "store"), 0, 1, device="cpu")
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_entry_points(mesh):
+    from ngpd_tpu_torch.meshproc.gcn_denoiser import predict_face_normals
+    from ngpd_tpu_torch.meshproc.synthetic import icosphere
+    from ngpd_tpu_torch.models.dgcnn import DGCNN
+    from ngpd_tpu_torch.parallel import halo, mesh as pmesh, sharded
+    from ngpd_tpu_torch.parallel.fused_sharded import fused_denoise_sharded
+
+    pts = torch.rand((256, 3), generator=torch.Generator().manual_seed(0))
+    nrm = torch.nn.functional.normalize(pts - 0.5, dim=1)
+    return {"make_mesh": lambda: pmesh.make_mesh(),
+            "shard_points": lambda: pmesh.shard_points(pts, mesh),
+            "knn_sharded": lambda: sharded.knn_sharded(pts, 4, mesh),
+            "chamfer_distance_sharded": lambda: sharded.chamfer_distance_sharded(pts, pts, mesh),
+            "denoise_sharded": lambda: sharded.denoise_sharded(pts, nrm, mesh),
+            "fused_denoise_sharded": lambda: fused_denoise_sharded(pts, nrm, mesh, tile=64,
+                                                                   window=64),
+            "morton_sort_sharded": lambda: halo.morton_sort_sharded(pts, nrm, mesh),
+            "fused_denoise_halo": lambda: halo.fused_denoise_halo(pts, nrm, mesh, tile=64,
+                                                                  window=64),
+            "predict_face_normals": lambda: predict_face_normals(
+                icosphere(subdiv=1), DGCNN(), pmesh=mesh)}
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "shard_points", "knn_sharded",
+                                  "chamfer_distance_sharded", "denoise_sharded",
+                                  "fused_denoise_sharded", "morton_sort_sharded",
+                                  "fused_denoise_halo", "predict_face_normals"])
+def test_sharded_entry_points_default_to_the_card(cpu_mesh, name):
+    """The mesh and the sharded engines default to the card like every
+    entry point: without one they raise, on a CPU mesh too, before any
+    collective runs."""
+    from ngpd_tpu_torch.collectives import COLLECTIVES, reset_counts
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the missing-card path cannot be observed")
+    reset_counts()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _sharded_entry_points(cpu_mesh)[name]()
+    assert sum(COLLECTIVES.values()) == 0
+
+
+def test_make_mesh_checks_its_ranks_shape_and_device(cpu_mesh):
+    """A CPU mesh over the gloo group; a mesh of more devices than ranks, a 3-D
+    mesh and a call on another device than the mesh's are refused. The
+    2-D shape is the reference's (n, 1)."""
+    from ngpd_tpu_torch.parallel import knn_sharded, make_mesh
+
+    assert cpu_mesh.device_type == "cpu" and cpu_mesh.mesh_dim_names == ("points",)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        make_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="only 1-D or 2-D"):
+        make_mesh(axis_names=("a", "b", "c"), device="cpu")
+    assert tuple(make_mesh(axis_names=("dp", "mp"), device="cpu").mesh.shape) == (1, 1)
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="the mesh is on cpu"):
+            knn_sharded(torch.rand((8, 3)), 2, cpu_mesh, device="cuda")
+
+
 def _small_pack():
     n = padded_size(300, 128, 64, 1)[0]
     pack = torch.rand((8, n))

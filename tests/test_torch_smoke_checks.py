@@ -383,9 +383,9 @@ def _tf32_products(monkeypatch):
 def _unbiased_variance(monkeypatch):
     forward = edgeconv.MaskedBatchNorm.forward
 
-    def unbiased(self, x, mask):
+    def unbiased(self, x, mask, group=None):
         if not self.training:
-            return forward(self, x, mask)
+            return forward(self, x, mask, group)
         m = mask.to(x.dtype)[..., None]
         dims = tuple(range(x.dim() - 1))
         cnt = torch.clamp(torch.sum(m), min=1.0)
@@ -491,9 +491,9 @@ def _unbiased_running_variance(monkeypatch):
     """torch's BatchNorm keeps n / (n - 1) x the batch variance."""
     forward, bn = edgeconv.MaskedBatchNorm.forward, dgcnn_mod._bn
 
-    def masked(self, x, mask):
+    def masked(self, x, mask, group=None):
         before = self.running_var.clone()
-        y = forward(self, x, mask)
+        y = forward(self, x, mask, group)
         if self.training:
             n = float(mask.sum())
             with torch.no_grad():
@@ -501,9 +501,9 @@ def _unbiased_running_variance(monkeypatch):
                 self.running_var.copy_(0.9 * before + 0.1 * batch * n / (n - 1))
         return y
 
-    def dense(h, module, training=False):
+    def dense(h, module, training=False, group=None):
         before = module.running_var.clone()
-        y = bn(h, module, training)
+        y = bn(h, module, training, group)
         if training:
             n = h.numel() // h.shape[-1]
             with torch.no_grad():
@@ -522,7 +522,7 @@ def _torch_momentum(monkeypatch):
 
 
 def _two_pass_variance(monkeypatch):
-    def stats(h):
+    def stats(h, group=None):
         dims = tuple(range(h.dim() - 1))
         mean = torch.mean(h, dim=dims)
         return mean, torch.mean((h - mean) ** 2, dim=dims)
