@@ -9,6 +9,20 @@ exit code and no result line:
   card       the card's name and power limit (nvidia-smi), CUDA version
   build      nvcc builds K0/K1/K2, passes A-D and the fused pass BD from
              ``ngpd_tpu_torch/kernels/csrc``; ptxas registers and spills
+  native     the native host runtime (``ngpd_tpu_torch/native``, host code,
+             no kernel): g++ builds it (the flags that built it, seconds);
+             an OBJ of icosphere(8) with vertex normals (655,362 vertices,
+             1,310,720 faces, ~2.6M lines) written by ``save_obj`` and read
+             by ``read_obj`` with the C++ parser and with the Python path:
+             faces equal, vertices and normals within one ulp (equal so
+             far); both seconds, their ratio, the host CPU; then
+             ``native_grid_knn`` on the host as the exact oracle of
+             ``ops/knn.py::knn`` and ``::knn_grid`` (capacity 256) on the
+             card, on the noisy ``make_cloud(100_000)`` with k 16: sorted
+             squared distances within 8 x 2^-24 x (|q|^2 + |p|^2) a pair,
+             indices equal where the gaps to both neighbouring slots exceed
+             that bound; host and card seconds; the rows that ``knn_grid``
+             at the pipeline's capacity (96) gets off the oracle, counted
   kernels    each kernel against its plain PyTorch version on the card, at
              the main path's shape (1M points, feature_k 32), for K2's
              other strategy variants at 65,536 points, and at the CLI's
@@ -152,6 +166,7 @@ The second-to-last line is the ``kernels`` JSON record, the last line
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -194,13 +209,14 @@ from ngpd_tpu_torch.meshproc.filtering import guided_normal_filter
 from ngpd_tpu_torch.meshproc.metrics import mean_angular_error
 from ngpd_tpu_torch.meshproc.patches import extract_mesh_patches, unrotate_predictions
 from ngpd_tpu_torch.meshproc.synthetic import box, cad_suite, icosphere
+from ngpd_tpu_torch import native
 from ngpd_tpu_torch.meshproc.trimesh import add_mesh_noise
 from ngpd_tpu_torch.models import dgcnn as dgcnn_mod
 from ngpd_tpu_torch.models.dgcnn import DGCNN, EDGE_CHANNELS, dgcnn_from_state_dict
 from ngpd_tpu_torch.models.patch2normal import Patch2NormalModel, flax_init_, init_patch2normal
 from ngpd_tpu_torch.io.sampling import sample_mesh
 from ngpd_tpu_torch.ops import metrics
-from ngpd_tpu_torch.ops.knn import knn
+from ngpd_tpu_torch.ops.knn import estimate_cell_size, knn, knn_grid
 from ngpd_tpu_torch.parallel import (chamfer_distance_sharded, denoise_sharded,
                                      fused_denoise_sharded, knn_sharded, make_mesh)
 from ngpd_tpu_torch.parallel.fused_sharded import TILES_A_BATCH
@@ -284,6 +300,18 @@ SHARDED_N, SHARDED_ITERS = DENSE_N, 2
 HALO_N, HALO_TILE, HALO_WINDOW = MAIN_N, 256, 128
 KNN_TOL, CD_RTOL, DENSE_SHARD_TOL, FUSED_SHARD_TOL = 1e-5, 1e-5, 5e-4, 2e-4
 DP_FIT_STEPS = 2  # fit(mesh=) steps; fit_dgcnn(mesh=) takes a box's patches
+# The native runtime: the mesh cell's icosphere at subdivision 8 (655,362
+# vertices, 1,310,720 faces) for the parsers; the point track's cloud and
+# neighbourhood for the kNN oracle. The port's kNN takes |q|^2 + |p|^2 -
+# 2 q.p and grid_knn the difference form, so a pair's squared distances
+# may differ by a few roundings of |q|^2 + |p|^2: NATIVE_KNN_ULPS of them.
+NATIVE_SUBDIV, NATIVE_KNN_N, NATIVE_KNN_K, NATIVE_KNN_ULPS = 8, 100_000, 16, 8
+# knn_grid is exact where the k-th neighbour lies within its cell and no
+# hash run it visits holds more than ``capacity`` points. With
+# estimate_cell_size's cell the cloud's largest run holds 144 points, so
+# the check runs at 256; the pipeline's own capacity (``denoise``'s
+# grid_capacity, 96) is run too and its rows off the oracle are counted.
+NATIVE_GRID_CAPACITY = 256
 
 
 T_START = time.perf_counter()
@@ -1779,6 +1807,141 @@ def sharded_faces(pmesh, device: str, subdiv: int) -> dict:
     return rec
 
 
+def host_cpu() -> dict:
+    """The host CPU's model name, vendor, family and model number
+    (``/proc/cpuinfo``, first processor) and thread count."""
+    fields = {}
+    for ln in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = ln.partition(":")
+        fields.setdefault(key.strip(), value.strip())
+    return {"model_name": fields.get("model name"), "vendor": fields.get("vendor_id"),
+            "family": fields.get("cpu family"), "model": fields.get("model"),
+            "threads": os.cpu_count()}
+
+
+def wall(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def max_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance in units in the last place between two float32
+    arrays of one sign pattern (0 where equal)."""
+    if a.size == 0:
+        return 0
+    ia, ib = a.view(np.int32).astype(np.int64), b.view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max())
+
+
+def check_native_parse(tmp: str, subdiv: int = NATIVE_SUBDIV) -> dict:
+    """The C++ parser against the Python path on icosphere(subdiv) with its
+    vertex normals: faces equal, positions and normals within one ulp (the
+    Python path rounds through ``np.loadtxt``, the C++ one through
+    ``strtof``)."""
+    mesh = icosphere(subdiv=subdiv)
+    v = mesh.v.numpy()
+    nrm = v / np.linalg.norm(v, axis=1, keepdims=True)
+    path = f"{tmp}/icosphere{subdiv}.obj"
+    _, write_s = wall(lambda: save_obj(path, v, nrm, faces=mesh.f.numpy()))
+    with open(path, "rb") as fh:
+        lines = sum(1 for _ in fh)
+    fast, native_s = wall(lambda: read_obj(path, use_native=True))
+    slow, python_s = wall(lambda: read_obj(path, use_native=False))
+    for key in ("fv", "fn"):
+        if not np.array_equal(getattr(fast, key), getattr(slow, key)):
+            fail(f"native: the parsers' {key} differ")
+    ulps = {key: max_ulps(getattr(fast, key), getattr(slow, key))
+            if getattr(fast, key).shape == getattr(slow, key).shape else -1
+            for key in ("v", "vn")}
+    if not all(0 <= u <= 1 for u in ulps.values()):
+        fail(f"native: the parsers' positions or normals differ by more than one ulp: {ulps}")
+    if len(fast.v) != len(v) or len(fast.fv) != len(mesh.f) or len(fast.vn) != len(v):
+        fail("native: the parsed mesh has the wrong size")
+    return {"lines": lines, "vertices": len(fast.v), "faces": len(fast.fv),
+            "bytes": os.path.getsize(path), "write_s": write_s, "native_s": native_s,
+            "python_s": python_s, "python_over_native": python_s / native_s,
+            "max_ulps": ulps, "equal": all(u == 0 for u in ulps.values())}
+
+
+def oracle_check(name: str, idx: torch.Tensor, d: torch.Tensor, oidx: np.ndarray,
+                 od: np.ndarray, sq: np.ndarray) -> dict:
+    """One card kNN (k columns) against the host oracle (k + 1 columns):
+    distances within NATIVE_KNN_ULPS roundings of |q|^2 + |p|^2, indices
+    equal where the oracle's gaps to both neighbouring slots exceed the
+    bound of each slot."""
+    idx, d = idx.cpu().numpy(), d.cpu().numpy()
+    k = idx.shape[1]
+    ulp = NATIVE_KNN_ULPS * 2.0 ** -24
+    tol_o = ulp * (sq[:, None] + sq[oidx])  # (n, k + 1)
+    tol = ulp * (sq[:, None] + np.maximum(sq[oidx[:, :k]], sq[idx]))
+    err = np.abs(d.astype(np.float64) - od[:, :k])
+    sep = np.diff(od.astype(np.float64), axis=1) > tol_o[:, :-1] + tol_o[:, 1:]  # (n, k)
+    clear = sep.copy()
+    clear[:, 1:] &= sep[:, :-1]
+    wrong = int((idx != oidx[:, :k])[clear].sum())
+    rec = {"max_abs_err": float(err.max()), "max_err_over_bound": float((err / tol).max()),
+           "clear_share": float(clear.mean()), "wrong_clear_indices": wrong,
+           "other_indices": int((idx != oidx[:, :k]).sum())}
+    if not rec["max_err_over_bound"] <= 1.0 or wrong:
+        fail(f"native: {name} disagrees with the grid_knn oracle: {rec}")
+    return rec
+
+
+def check_native_knn(n: int = NATIVE_KNN_N, device: str = "cuda", knn_fn=knn) -> dict:
+    """``native_grid_knn`` on the host, the exact oracle, against ``knn``
+    (or a stand-in ``knn_fn``) and ``knn_grid`` on ``device`` on the noisy
+    make_cloud(n)."""
+    noisy, _, _ = bench.make_cloud(n)
+    pts_np = np.asarray(noisy, np.float32)
+    k = NATIVE_KNN_K
+    (oidx, od), host_s = wall(lambda: native.native_grid_knn(pts_np, k + 1))
+    sq = (pts_np.astype(np.float64) ** 2).sum(1)
+    pts = torch.as_tensor(pts_np, device=device)
+
+    def on_device(fn):
+        if device != "cuda":
+            return wall(fn)
+        out, ms = time_once(fn)
+        return out, ms / 1e3
+
+    on_device(lambda: knn_fn(pts, k))  # warm-up
+    (nbh, d), knn_s = on_device(lambda: knn_fn(pts, k))
+    cell, cell_s = on_device(lambda: estimate_cell_size(pts, k))
+    on_device(lambda: knn_grid(pts, k, cell, capacity=NATIVE_GRID_CAPACITY))  # warm-up
+    (gnbh, gd), grid_s = on_device(
+        lambda: knn_grid(pts, k, cell, capacity=NATIVE_GRID_CAPACITY))
+    capacity = inspect.signature(denoise).parameters["grid_capacity"].default
+    (_, pd), pipe_s = on_device(lambda: knn_grid(pts, k, cell, capacity=capacity))
+    bound = NATIVE_KNN_ULPS * 2.0 ** -24 * (sq[:, None] + sq[oidx[:, :k]])
+    rows_off = int((np.abs(pd.cpu().numpy() - od[:, :k]) > bound).any(axis=1).sum())
+    return {"n": n, "k": k, "grid_knn_host_s": host_s, "knn_card_s": knn_s,
+            "knn_grid_card_s": grid_s, "cell_size": float(cell), "cell_size_card_s": cell_s,
+            "knn": oracle_check("knn", nbh.idx, d, oidx, od, sq),
+            "knn_grid": oracle_check("knn_grid", gnbh.idx, gd, oidx, od, sq),
+            "knn_grid_pipeline_capacity": {"capacity": capacity, "card_s": pipe_s,
+                                           "rows_off_the_oracle": rows_off}}
+
+
+def check_native(smi: str) -> dict:
+    """Builds the native runtime (a fresh build unless the build cache
+    already holds this source, flags and CPU), then the parse and the kNN
+    oracle checks."""
+    fresh = not any(native.library_path(f, c).is_file()
+                    for f in native.FLAG_SETS for c in native.compilers())
+    lib, build_s = wall(native.get_lib)
+    if lib is None:
+        fail(f"native: the library did not build: {native.BUILD_FAILURES}")
+    with tempfile.TemporaryDirectory() as tmp:
+        parse = check_native_parse(tmp)
+    return {"nvidia_smi": smi, "host_cpu": host_cpu(), "compiler": native.BUILD_COMPILER,
+            "build_flags": " ".join(native.BUILD_FLAGS), "build_s": build_s,
+            "fresh_build": fresh, "failed_builds": native.BUILD_FAILURES,
+            "openmp_runtimes": sorted({ln.split()[-1] for ln in open("/proc/self/maps")
+                                       if "gomp" in ln or "libomp" in ln}),
+            "parse": parse, "knn": check_native_knn()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1806,6 +1969,9 @@ def main() -> int:
     say("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     for name in paths:
         build.load_library(name)
+
+    # the native host runtime (g++), before anything reads an OBJ
+    say("native", **check_native(smi))
 
     # kernels against their plain versions
     cfg = DenoiseConfig(feature_k=MAIN_K, step_k=8)

@@ -16,7 +16,10 @@ learned point track (``models.patch2normal``, ``learn.predict``, the
 ``predict-normals`` and ``add-noise`` CLI); and training, both learned
 tracks (``learn.train``, ``learn.train_dgcnn``, ``learn.dataset``,
 ``learn.checkpoints``, ``learn.export``, ``meshproc.collector``, the
-``make-dataset`` and ``train`` CLI), in plain torch.
+``make-dataset`` and ``train`` CLI), in plain torch; the sharded layer on
+``torch.distributed`` (``parallel``); and the host side: the native OBJ
+parser and exact grid kNN (``native``, C++ built with g++ at first use),
+``apps.viz`` and ``utils`` (timing, tracing, the build cache).
 """
 
 from .config import DenoiseConfig

@@ -354,6 +354,12 @@ def cmd_add_noise(args):
 
 
 def main(argv=None):
+    # The build cache of the kernels and the native runtime first, as the
+    # reference enables its compilation cache; done here, not at import
+    # time, so merely importing this module mutates nothing.
+    from ..utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     p = argparse.ArgumentParser(prog="ngpd_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 

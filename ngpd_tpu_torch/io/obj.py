@@ -1,9 +1,13 @@
-"""Wavefront OBJ IO (host side, pure Python parser).
+"""Wavefront OBJ IO (host side), the port of ``ngpd_tpu/io/obj.py``.
 
-The port of ``ngpd_tpu/io/obj.py`` without its C++ fast path (a later
-slice). Vertex normals: face-indexed normals are accumulated onto their
-vertices and renormalised; else one normal per vertex is used directly;
-else the cloud has no normals.
+``read_obj`` parses with the C++ parser of ``native/`` when it builds and
+with the Python path otherwise, as the reference does. The two parsers
+differ where the reference's differ: the C++ one skips leading blanks and
+takes a tab after the tag, the Python one reads only lines that start
+with ``"v "``, ``"vn "`` or ``"f "`` (``native/ngpd_native.cpp``). Vertex
+normals: face-indexed normals are accumulated onto their vertices and
+renormalised; else one normal per vertex is used directly; else the cloud
+has no normals.
 """
 
 from __future__ import annotations
@@ -59,10 +63,18 @@ def _rows(buf: list[str]) -> np.ndarray:
     return np.loadtxt(_io.StringIO("".join(buf)), dtype=np.float32, ndmin=2)[:, :3]
 
 
-def read_obj(file_path: str | Path) -> ObjData:
-    """Parse an .obj file into raw arrays."""
+def read_obj(file_path: str | Path, use_native: bool = True) -> ObjData:
+    """Parse an .obj file into raw arrays: with the C++ parser
+    (``native/``) when ``use_native`` and it builds, else in Python."""
     path = Path(file_path)
     assert path.is_file(), path
+    if use_native:
+        from ..native import native_read_obj
+
+        parsed = native_read_obj(path)
+        if parsed is not None:
+            v, vn, fv, fn = parsed
+            return ObjData(v=v, vn=vn, fv=fv, fn=fn)
     v_buf, vn_buf, f_lines = [], [], []
     with open(path, "r", errors="replace") as f:
         for line in f:

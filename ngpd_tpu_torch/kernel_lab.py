@@ -18,7 +18,8 @@ only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_K1_MIN_BLOCKS=n``,
 ``-DNGPD_C_MIN_BLOCKS=n``, ``-DNGPD_D_MIN_BLOCKS=n`` and
 ``-DNGPD_BD_MIN_BLOCKS=n`` set the launch bounds), and for each ``--against`` from another directory of sources
 with the same launch interface (an older checkout's ``csrc``, unpacked
-with ``git archive``), into ``build/lab/``. ``--kernel`` limits the run to
+with ``git archive``), into ``lab/`` of the build cache (``build/lab/``
+by default). ``--kernel`` limits the run to
 the kernels named (default: all of ``NAMES``).
 
 At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
@@ -55,9 +56,9 @@ from .core.cuda_fused import passes_prologue, prologue
 from .kernels import build
 from .kernels import passes as kp
 from .kernels import window as kw
+from .utils.cache import cache_dir
 
 NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
-LAB_DIR = build.BUILD_DIR.parent / "lab"
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
@@ -68,7 +69,8 @@ def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
     spec = {"tree": (build.CSRC, ())}
     spec.update({v: (build.CSRC, tuple(flags)) for v, flags in variants.items()})
     spec.update({name: (Path(csrc).resolve(), ()) for name, csrc in against.items()})
-    paths = {(b, k): build.library_path(k, csrc, extra, LAB_DIR)
+    lab_dir = cache_dir() / "lab"
+    paths = {(b, k): build.library_path(k, csrc, extra, lab_dir)
              for b, (csrc, extra) in spec.items() for k in names}
     build.compile_all({p: (spec[b][0] / f"{k}.cu", spec[b][1]) for (b, k), p in paths.items()})
     out = {}

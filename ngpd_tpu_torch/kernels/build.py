@@ -1,8 +1,10 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Each source in ``csrc/`` becomes its own shared library with a plain C
-interface, compiled for ``sm_90a`` at first use into ``build/kernels/``
-at the root of the checkout (listed in ``.gitignore``). The file name
+interface, compiled for ``sm_90a`` at first use into ``kernels/`` of the
+build cache (``utils/cache.py``): ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``) unless ``NGPD_TORCH_BUILD_DIR`` moves
+it. The file name
 carries a hash of the source, of every header in ``HEADERS`` and of the
 flags, so an edited source or header is rebuilt and a stale library is
 never loaded. The nvcc processes of all sources
@@ -21,6 +23,9 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
+
+from ..utils.cache import cache_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -72,10 +77,18 @@ def _digest(source: Path, headers, extra=()) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(name: str, csrc: Path = CSRC, extra=(), out_dir: Path = BUILD_DIR) -> Path:
+def build_dir() -> Path:
+    """``kernels/`` of the build cache in use: ``BUILD_DIR`` by default."""
+    return cache_dir() / "kernels"
+
+
+def library_path(name: str, csrc: Path = CSRC, extra=(),
+                 out_dir: Optional[Path] = None) -> Path:
     """Where the library of ``csrc/name.cu`` built with the ``extra`` nvcc
-    flags goes. The package's own sources hash the listed ``HEADERS``, any
-    other directory every ``.cuh`` in it."""
+    flags goes (``out_dir``, default ``build_dir()``). The package's own
+    sources hash the listed ``HEADERS``, any other directory every
+    ``.cuh`` in it."""
+    out_dir = build_dir() if out_dir is None else out_dir
     headers = ([csrc / f for f in HEADERS] if csrc == CSRC
                else sorted(csrc.glob("*.cuh")))
     return out_dir / f"libngpd_{name}_{_digest(csrc / f'{name}.cu', headers, extra)}.so"

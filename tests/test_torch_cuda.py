@@ -545,3 +545,57 @@ def test_card_dp_train(cuda_device, monkeypatch):
     monkeypatch.setattr(cs, "TRAIN_REF_EMB", 64)
     rec = cs.check_dp_train(mesh_subdiv=3)
     assert rec["fit"]["steps"] == cs.DP_FIT_STEPS and rec["faces"]["ok"]
+
+
+def test_card_time_fn_synchronises_a_cuda_result(cuda_device):
+    """``utils.time_fn`` waits for the card when the result (nested in a
+    tuple, a dict and a list) holds a CUDA tensor."""
+    from ngpd_tpu_torch.utils import time_fn
+
+    a = torch.randn(2048, 2048, device=cuda_device)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return a, {"out": [a @ a @ a]}
+
+    best = time_fn(fn, repeats=3, warmup=1)
+    assert isinstance(best, float) and best > 0.0 and len(calls) == 4
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    # Host time of a synchronised call covers the card's time of the work.
+    assert best * 1e3 >= 0.5 * t0.elapsed_time(t1)
+
+
+def test_card_plot_cloud_takes_cuda_tensors(cuda_device, tmp_path):
+    pytest.importorskip("matplotlib")
+    import matplotlib.image as mpimg
+
+    from ngpd_tpu_torch.apps import viz
+
+    g = torch.Generator().manual_seed(0)
+    pts = torch.randn(300, 3, generator=g)
+    nrm = torch.nn.functional.normalize(torch.randn(300, 3, generator=g), dim=1)
+    cls = torch.randint(0, 3, (300,), generator=g)
+    got = viz.plot_cloud(pts.to(cuda_device), normals=nrm.to(cuda_device),
+                         out=tmp_path / "card.png")
+    want = viz.plot_cloud(pts.numpy(), normals=nrm.numpy(), out=tmp_path / "host.png")
+    assert np.array_equal(mpimg.imread(got), mpimg.imread(want))
+    assert viz.plot_classes(pts.to(cuda_device), cls.to(cuda_device),
+                            out=tmp_path / "cls.png").stat().st_size > 1000
+
+
+def test_card_knn_against_the_native_oracle(cuda_device):
+    """chip_smoke ``native``'s kNN check at 20,000 points: ``knn`` and
+    ``knn_grid`` on the card against ``native_grid_knn`` on the host."""
+    import chip_smoke as cs
+
+    rec = cs.check_native_knn(n=20_000)
+    for name in ("knn", "knn_grid"):
+        assert rec[name]["wrong_clear_indices"] == 0
+        assert rec[name]["max_err_over_bound"] <= 1.0
