@@ -7,8 +7,28 @@ Phases, one output line each; any failure ends the run with a non-zero
 exit code and no result line:
 
   card       the card's name and power limit (nvidia-smi), CUDA version
-  build      nvcc builds K0/K1/K2, passes A-D and the fused pass BD from
-             ``ngpd_tpu_torch/kernels/csrc``; ptxas registers and spills
+  build      nvcc builds K0/K1/K2, passes A-D, the fused pass BD and the
+             kNN kernel from ``ngpd_tpu_torch/kernels/csrc``; ptxas
+             registers and spills
+  knn_kernel the kNN kernel (``csrc/knn.cu``, behind ``ops/knn.py::knn``
+             and ``::nn_distances`` on the card) against its plain version,
+             the tile loop ``knn_plain``, on the card, ``torch.equal`` on
+             distances, indices and masks, one launch a call: the noisy
+             ``make_cloud(100_000)`` with k 16, plain, with exclude_self and
+             with num_valid n - 50; the mesh cell's 81,920 face centroids
+             with k 64; k 1 through ``nn_distances`` at the Chamfer gate's
+             shape (``bench.cd_ratio``: 20,000 clean against 20,000 noisy
+             points of the 1M-point main cloud) and with 20,000 clean points
+             against the whole main cloud; the dense cell's
+             ``make_cloud(32_768)`` at the dense route's k 6, 8 and 16 and
+             at k 6 and 24 with exclude_self; a 40^3 integer lattice (exact
+             ties); separate queries; k past the valid count; k 65, past the
+             largest register variant (the row kernel). Each case's kernel
+             and plain time (one call); the first case's median of 10
+             launches, its bound and the library composition's time
+             (``torch.cdist`` then ``torch.topk``, one 4,096-query tile
+             timed and scaled by n / 4,096); registers, spills and blocks
+             an SM of every variant
   native     the native host runtime (``ngpd_tpu_torch/native``, host code,
              no kernel): g++ builds it (the flags that built it, seconds);
              an OBJ of icosphere(8) with vertex normals (655,362 vertices,
@@ -21,7 +41,8 @@ exit code and no result line:
              card, on the noisy ``make_cloud(100_000)`` with k 16: sorted
              squared distances within 8 x 2^-24 x (|q|^2 + |p|^2) a pair,
              indices equal where the gaps to both neighbouring slots exceed
-             that bound; host and card seconds; the rows that ``knn_grid``
+             that bound; host and card seconds, the kNN kernel's launches
+             (one); the rows that ``knn_grid``
              at the pipeline's capacity (96) gets off the oracle, counted
   kernels    each kernel against its plain PyTorch version on the card, at
              the main path's shape (1M points, feature_k 32), for K2's
@@ -69,17 +90,20 @@ exit code and no result line:
              its accelerator) on 65,536 points, groups of 16 tiles: the
              card against the CPU path after 2 iterations (mask-flip
              bound), then 20 iterations on the card, wall time and CD gate
-  dense      the dense (N, k) pipeline (plain torch, no kernel):
-             ``denoise`` on 32,768 points, 2 iterations, the CD must fall;
+  dense      the dense (N, k) pipeline (plain torch over the kNN kernel):
+             ``denoise`` on 32,768 points, 2 iterations, the CD must fall,
+             the kNN kernel launched 5 times (the step threshold's 6-NN,
+             then feature_k and step_k an iteration);
              the CLI on an OBJ of that cloud without normals (estimated
              normals, dense route) and with ``--until-min --gt``; three
              steps of ``denoise_until_minimum_error_windowed`` at 100k
              points, K0/K1/K2 launched once a step
-  mesh       the mesh cascade (plain torch, no kernel): ``bench.run_mesh``,
+  mesh       the mesh cascade (plain torch over the kNN kernel): ``bench.run_mesh``,
              icosphere subdivision 6 (81,920 faces), noise 0.3, two passes
              of the full-width DGCNN with the committed checkpoints, batch
-             2048; faces/s, the Ea gate (ratio <= 0.35), no kernel
-             launched; then one pass's stages, each synchronized (the
+             2048; faces/s, the Ea gate (ratio <= 0.35), no window or pass
+             kernel launched, the kNN kernel's launches; then one pass's
+             stages, each synchronized (the
              host's adjacency build, centroid kNN, patch extraction, DGCNN
              forward, guided filter), and the peak of allocated device memory
   mesh_reference  the cascade's card path against its CPU path on an
@@ -90,14 +114,14 @@ exit code and no result line:
              --pass2 4:0.12:2 --gt``, then with ``--auto``: Ea must fall
              both times; prints the recipe it picked; the cascade's run also
              writes ``--html`` (the viewer, with error-map colours)
-  point_normals  the learned point track (plain torch, no kernel):
+  point_normals  the learned point track (plain torch over the kNN kernel):
              ``predict_cloud_normals`` on the noisy ``make_cloud(100_000)``
              with normals estimated, the full-width Patch2Normal (seeded),
              batch 1,024; points/s (best of 2 after a warm-up), each stage
              synchronized (normal estimation, ``md_selection``'s two kNN,
              the patch build, the model forward, the un-rotation), the
-             model's TFLOP/s and peak allocated memory; unit normals and no
-             window or pass kernel launched
+             model's TFLOP/s and peak allocated memory; unit normals, no
+             window or pass kernel launched, the kNN kernel's launches a run
   point_normals_reference  card against CPU on 1,024 points (768 held
              once and 256 twice, each copy with its own noisy normal), the
              full-width model with its BatchNorm statistics refreshed by one
@@ -108,10 +132,11 @@ exit code and no result line:
              ``--save-noise``, ``--load-noise`` reproducing it bit for bit,
              ``add-noise`` on the ``cad_suite`` box, ``predict-normals`` on
              the noisy cloud with an ``.npz`` of the seeded model
-  train_point  Patch2Normal's trainer (plain torch, no kernel):
+  train_point  Patch2Normal's trainer (plain torch over the kNN kernel):
              ``generate_dataset`` on three ``cad_suite`` meshes sampled at
              TRAIN_POINTS points, TrainConfig's six noise levels, balanced
-             (seconds, the kNN searches apart); ``fit`` for TRAIN_EPOCHS
+             (seconds, the kNN searches apart, the kNN kernel's launches);
+             ``fit`` for TRAIN_EPOCHS
              epochs at full width, batch 64, lr 1e-3: steps/s, patches/s,
              TFLOP/s (3 x the forward's), peak memory, val custom_val_loss
              each epoch, gated at half the untrained model's; the angular
@@ -159,7 +184,8 @@ exit code and no result line:
              cell's 81,920 faces against the unsharded call (Ea within
              MESH_EA_TOL, the normals within their own one-ulp spread)
 
-The second-to-last line is the ``kernels`` JSON record, the last line
+The second-to-last line is the ``kernels`` JSON record (nine kernels: K0,
+K1, K2, passes A-D and BD, KNN), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
 """
 
@@ -193,6 +219,7 @@ from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_wi
 from ngpd_tpu_torch.io.obj import load_obj, read_obj, save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
 from ngpd_tpu_torch.core.normals import estimated_normals
@@ -216,7 +243,7 @@ from ngpd_tpu_torch.models.dgcnn import DGCNN, EDGE_CHANNELS, dgcnn_from_state_d
 from ngpd_tpu_torch.models.patch2normal import Patch2NormalModel, flax_init_, init_patch2normal
 from ngpd_tpu_torch.io.sampling import sample_mesh
 from ngpd_tpu_torch.ops import metrics
-from ngpd_tpu_torch.ops.knn import estimate_cell_size, knn, knn_grid
+from ngpd_tpu_torch.ops.knn import estimate_cell_size, knn, knn_grid, knn_plain, nn_distances
 from ngpd_tpu_torch.parallel import (chamfer_distance_sharded, denoise_sharded,
                                      fused_denoise_sharded, knn_sharded, make_mesh)
 from ngpd_tpu_torch.parallel.fused_sharded import TILES_A_BATCH
@@ -312,6 +339,20 @@ NATIVE_SUBDIV, NATIVE_KNN_N, NATIVE_KNN_K, NATIVE_KNN_ULPS = 8, 100_000, 16, 8
 # the check runs at 256; the pipeline's own capacity (``denoise``'s
 # grid_capacity, 96) is run too and its rows off the oracle are counted.
 NATIVE_GRID_CAPACITY = 256
+# The kNN kernel (csrc/knn.cu) against its plain version on the card, held
+# with torch.equal: the point track's cloud (k 16, plain, exclude_self,
+# num_valid n - 50), the mesh cell's centroids (k 64), k 1 through
+# nn_distances at the Chamfer gate's shape (bench.cd_ratio: KNN_NN_QUERIES
+# clean points against as many noisy ones of the main cloud) and with
+# KNN_NN_QUERIES clean points against the whole main cloud (few queries,
+# many points), the dense cell's cloud at the dense route's k (6, 8, 16)
+# and at a k of the 32-list variant, an integer lattice (exact ties),
+# separate queries, k past the valid count and one k past the largest
+# register variant (the row kernel).
+KNN_N, KNN_K, KNN_NN_QUERIES, KNN_LATTICE_SIDE = 100_000, 16, 20_000, 40
+# The library composition is timed on one query tile (KNN_LIBRARY_REPS
+# runs) and scaled by the tile count: every tile does the same work.
+KNN_REPS, KNN_LIBRARY_TILE, KNN_LIBRARY_REPS = 10, 4_096, 3
 
 
 T_START = time.perf_counter()
@@ -895,10 +936,16 @@ def check_dense() -> dict:
     rec = {"n": DENSE_N}
     noisy, nrm, clean = bench.make_cloud(DENSE_N)
     cfg = DenoiseConfig(feature_k=16, step_k=8)
+    kknn.reset_launch_counts()
     (out, out_n, cls), ms = time_once(
         lambda: denoise(noisy, nrm, cfg, iterations=2, device="cuda"))
+    knn_launches = kknn.LAUNCHES["knn"]
+    # The step threshold's 6-NN, then feature_k and step_k an iteration.
+    if knn_launches != 1 + 2 * 2:
+        fail(f"dense denoise launched the kNN kernel {knn_launches} times, not 5")
     ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
-    rec["denoise"] = {"seconds": ms / 1e3, "cd_noisy": cd_noisy, "cd_denoised": cd_out,
+    rec["denoise"] = {"seconds": ms / 1e3, "knn_launches": knn_launches,
+                      "cd_noisy": cd_noisy, "cd_denoised": cd_out,
                       "classes": torch.bincount(cls.long(), minlength=3).tolist()}
     if not (torch.isfinite(out).all() and torch.isfinite(out_n).all() and cd_out < cd_noisy):
         fail(f"dense denoise did not lower the CD: {cd_noisy} -> {cd_out}")
@@ -957,9 +1004,13 @@ def check_mesh() -> dict:
     of allocated device memory."""
     kw.reset_launch_counts()
     kp.reset_launch_counts()
+    kknn.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     rec = bench.run_mesh(MESH_SUBDIV, "cuda")
     rec["kernel_launches"] = {**kw.LAUNCHES, **kp.LAUNCHES}
+    rec["knn_launches_three_runs"] = kknn.LAUNCHES["knn"]
+    if not rec["knn_launches_three_runs"]:
+        fail("the mesh cascade did not launch the kNN kernel")
     rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     if rec["quality_gate"] != "pass" or not rec["finite"]:
         fail(f"mesh cascade: {rec}")
@@ -973,7 +1024,9 @@ def check_mesh() -> dict:
     torch.cuda.reset_peak_memory_stats()
     # Built on the host in numpy once a pass's mesh, shared by patches and filter.
     _, adj_ms = time_once(lambda: (noisy.face_face_adjacency(), noisy.vertex_face_adjacency()))
+    kknn.reset_launch_counts()
     pre, knn_ms = time_once(lambda: gcn.centroid_knn(noisy, 64))
+    rec["centroid_knn_launches"] = kknn.LAUNCHES["knn"]
     patches, patch_ms = time_once(lambda: extract_mesh_patches(noisy, pre_nbh=pre,
                                                                device="cuda"))
     pred, dgcnn_ms = time_once(lambda: gcn.run_dgcnn(model, patches.inputs, bench.MESH_BATCH))
@@ -1117,11 +1170,15 @@ def check_point_normals() -> dict:
     pred, fwd_ms = time_once(forward)
     _, unrot_ms = time_once(lambda: unrotate(pred, patches.r_inv))
     del patches, pred
-    runs = [time_once(lambda: predict_cloud_normals(model, pts, batch_size=POINT_BATCH,
-                                                    device="cuda")) for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        kknn.reset_launch_counts()
+        runs.append(time_once(lambda: predict_cloud_normals(model, pts, batch_size=POINT_BATCH,
+                                                            device="cuda")))
     out, best = runs[-1][0], min(ms for _, ms in runs)
     rec = {"n": POINT_N, "seconds": best / 1e3, "points_per_s": POINT_N / (best / 1e3),
            "kernel_launches": {**kw.LAUNCHES, **kp.LAUNCHES},
+           "knn_launches_one_run": kknn.LAUNCHES["knn"],
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     norm_err = float((out.norm(dim=1) - 1.0).abs().max())
     rec["finite"], rec["unit_norm_max_err"] = bool(torch.isfinite(out).all()), norm_err
@@ -1130,6 +1187,8 @@ def check_point_normals() -> dict:
              f"|norm - 1| {norm_err}")
     if any(rec["kernel_launches"].values()):
         fail(f"point_normals launched a window or pass kernel: {rec['kernel_launches']}")
+    if not rec["knn_launches_one_run"]:
+        fail("point_normals did not launch the kNN kernel")
     flop = POINT_N * patch2normal_flop_per_patch()
     rec["stages_ms"] = {"normal_estimation": est_ms, "md_selection_knn": sel_ms,
                         "patch_build": patch_ms, "model_forward": fwd_ms,
@@ -1321,6 +1380,7 @@ def check_train_point() -> dict:
     """Patch2Normal's dataset and trainer at full width on the card."""
     kw.reset_launch_counts()
     kp.reset_launch_counts()
+    kknn.reset_launch_counts()
     rec = {"shapes": TRAIN_SHAPES, "points": TRAIN_POINTS, "epochs": TRAIN_EPOCHS}
     with tempfile.TemporaryDirectory() as tmp:
         raws = _write_meshes(tmp, TRAIN_SHAPES)
@@ -1329,6 +1389,9 @@ def check_train_point() -> dict:
             raws, f"{tmp}/ds", TrainConfig(), PatchConfig(), sample_points=TRAIN_POINTS,
             device="cuda", times=times))
         rec["dataset_seconds"] = ds_ms / 1e3
+        rec["dataset_knn_launches"] = kknn.LAUNCHES["knn"]
+        if not rec["dataset_knn_launches"]:
+            fail("train_point: the dataset did not launch the kNN kernel")
         rec["dataset_stage_seconds"] = times
         rec["patches"] = sum(sh["count"] for sh in manifest["shards"])
         cfg = TrainConfig(num_epochs=TRAIN_EPOCHS, min_epochs=TRAIN_EPOCHS)
@@ -1888,6 +1951,143 @@ def oracle_check(name: str, idx: torch.Tensor, d: torch.Tensor, oidx: np.ndarray
     return rec
 
 
+def knn_kernel_cases(n: int = KNN_N, mesh_subdiv: int = MESH_SUBDIV,
+                     nn_points: int = MAIN_N, nn_queries: int = KNN_NN_QUERIES,
+                     lattice_side: int = KNN_LATTICE_SIDE,
+                     dense_n: int = DENSE_N) -> list[dict]:
+    """The knn_kernel phase's cases on the CPU: each names its points, its
+    queries (None for the points themselves), k and the masks; ``nn`` marks
+    the cases that go through ``nn_distances``."""
+    noisy = torch.as_tensor(bench.make_cloud(n)[0])
+    cents = bench.mesh_workload(mesh_subdiv)[1].face_data()[2]
+    main_noisy, _, main_clean = bench.make_cloud(nn_points)
+    gate = bench.gate_sample(nn_points, nn_queries)
+    stride = max(1, nn_points // nn_queries)
+    dense = torch.as_tensor(bench.make_cloud(dense_n)[0])
+    g = torch.arange(lattice_side, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1).reshape(-1, 3)
+    top = kknn.REGISTER_KS[-1]
+
+    def case(name, points, k, queries=None, exclude_self=False, num_valid=None, nn=False):
+        return {"case": name, "points": points, "queries": queries, "k": k,
+                "exclude_self": exclude_self, "num_valid": num_valid, "nn": nn}
+
+    return [
+        case("cloud", noisy, KNN_K),
+        case("cloud_exclude_self", noisy, KNN_K, exclude_self=True),
+        case("cloud_num_valid", noisy, KNN_K, num_valid=n - 50),
+        case("mesh_centroids", cents, 64),
+        case("chamfer_gate", torch.as_tensor(main_noisy[gate]), 1,
+             torch.as_tensor(main_clean[gate]), nn=True),
+        case("nn_whole_cloud", torch.as_tensor(main_noisy), 1,
+             torch.as_tensor(main_clean[::stride][:nn_queries]), nn=True),
+        # core/pipeline.py's threshold 6-NN, step_k and feature_k, then
+        # core/process.py's 6-NN and a k of the 32-list variant.
+        case("dense_k6", dense, 6, num_valid=dense_n),
+        case("dense_k8", dense, 8, num_valid=dense_n),
+        case("dense_k16", dense, 16),
+        case("dense_k6_exclude_self", dense, 6, exclude_self=True),
+        case("dense_k24_exclude_self", dense, 24, exclude_self=True),
+        case("lattice_ties", lattice, KNN_K, exclude_self=True),
+        case("separate_queries", noisy, 12, noisy[::5] + 0.003, num_valid=n - 50),
+        case("k_past_valid", noisy, KNN_K, noisy[:4096], num_valid=10),
+        case("row_kernel", noisy, top + 1, exclude_self=True),
+    ]
+
+
+def _knn_of(case: dict, knn_fn, nn_fn, device: str):
+    """(idx, mask, d) of one case through ``knn_fn`` (or ``nn_fn``)."""
+    pts = case["points"].to(device)
+    q = None if case["queries"] is None else case["queries"].to(device)
+    if case["nn"]:
+        d, idx = nn_fn(q, pts, num_valid_b=case["num_valid"])
+        return idx[:, None], torch.isfinite(d)[:, None], d[:, None]
+    nbh, d = knn_fn(pts, case["k"], q, exclude_self=case["exclude_self"],
+                    num_valid=case["num_valid"])
+    return nbh.idx, nbh.mask, d
+
+
+def _knn_plain_of(case: dict, device: str):
+    """The same case through the plain tile loop; k 1 with nn_distances'
+    tiles."""
+    tiles = {"point_tile": 16384, "query_tile": 2048} if case["nn"] else {}
+    pts = case["points"].to(device)
+    q = None if case["queries"] is None else case["queries"].to(device)
+    nbh, d = knn_plain(pts, case["k"], q, exclude_self=case["exclude_self"],
+                       num_valid=case["num_valid"], **tiles)
+    return nbh.idx, nbh.mask, d
+
+
+def knn_library_ms(pts: torch.Tensor, k: int) -> float:
+    """The nearest library composition, two calls a query tile:
+    ``torch.cdist`` without the matrix-product form, then ``torch.topk``;
+    one full tile's median time times the tiles the queries fill."""
+    def run():
+        d = torch.cdist(pts[:KNN_LIBRARY_TILE], pts,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        torch.topk(d, k, dim=1, largest=False)
+    tiles = pts.shape[0] / KNN_LIBRARY_TILE
+    return time_launches(run, reps=KNN_LIBRARY_REPS) * tiles
+
+
+def check_knn_kernel(device: str = "cuda", knn_fn=knn, nn_fn=nn_distances,
+                     cases=None) -> dict:
+    """``knn`` (or a stand-in ``knn_fn``) against the plain tile loop on
+    every case of ``knn_kernel_cases``, on ``device``: distances, indices
+    and masks ``torch.equal``; on the card one launch a call. Then, on the
+    card, the first case's kernel time (median of KNN_REPS launches), plain
+    and library time, bound, and the registers, spills and blocks an SM
+    of every variant."""
+    on_card = device == "cuda"
+
+    def timer(fn):
+        if on_card:
+            return time_once(fn)
+        out, secs = wall(fn)
+        return out, secs * 1e3
+
+    cases = knn_kernel_cases() if cases is None else cases
+    records = []
+    for case in cases:
+        kknn.reset_launch_counts()
+        (idx, mask, d), ms = timer(lambda: _knn_of(case, knn_fn, nn_fn, device))
+        launches = kknn.LAUNCHES["knn"]
+        (pidx, pmask, pd), plain_ms = timer(lambda: _knn_plain_of(case, device))
+        finite = torch.isfinite(pd) & torch.isfinite(d)
+        rec = {"case": case["case"], "n": len(case["points"]),
+               "queries": len(case["points"] if case["queries"] is None else case["queries"]),
+               "k": case["k"], "exclude_self": case["exclude_self"],
+               "num_valid": case["num_valid"], "variant": kknn.variant(case["k"]),
+               "launches": launches, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": float((d - pd)[finite].abs().max()) if finite.any() else 0.0,
+               "equal": (torch.equal(d, pd) and torch.equal(idx, pidx)
+                         and torch.equal(mask, pmask))}
+        records.append(rec)
+        if not rec["equal"]:
+            fail(f"knn_kernel: {case['case']} differs from the plain version: {rec}")
+        if on_card and launches != 1:
+            fail(f"knn_kernel: {case['case']} launched the kernel {launches} times")
+    out = {"cases": records}
+    if not on_card:
+        return out
+    first = cases[0]
+    pts, k = first["points"].to(device), first["k"]
+    nq = nv = len(pts)
+    b_ms, by = bound((nv + nq) * 12 + nq * k * 12, DIST_OPS * nq * nv)
+    out["timed"] = {"case": first["case"], "ms": time_launches(lambda: knn(pts, k),
+                                                               reps=KNN_REPS),
+                    "plain_ms": records[0]["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+                    "library_ms": knn_library_ms(pts, k),
+                    "library_note": "torch.cdist (donot_use_mm_for_euclid_dist) then "
+                                    "torch.topk, two calls a 4,096-query tile; one tile "
+                                    "timed, times the tiles"}
+    out["build"] = {f"knn_kernel<{v}>": build_facts("knn", "knn_kernel", (v,), (v,))
+                    for v in kknn.REGISTER_KS}
+    out["build"]["knn_row_kernel"] = build_facts("knn", "knn_row_kernel", (),
+                                                 (kknn.REGISTER_KS[-1] + 1,))
+    return out
+
+
 def check_native_knn(n: int = NATIVE_KNN_N, device: str = "cuda", knn_fn=knn) -> dict:
     """``native_grid_knn`` on the host, the exact oracle, against ``knn``
     (or a stand-in ``knn_fn``) and ``knn_grid`` on ``device`` on the noisy
@@ -1906,7 +2106,11 @@ def check_native_knn(n: int = NATIVE_KNN_N, device: str = "cuda", knn_fn=knn) ->
         return out, ms / 1e3
 
     on_device(lambda: knn_fn(pts, k))  # warm-up
+    kknn.reset_launch_counts()
     (nbh, d), knn_s = on_device(lambda: knn_fn(pts, k))
+    knn_launches = kknn.LAUNCHES["knn"]
+    if device == "cuda" and knn_fn is knn and knn_launches != 1:
+        fail(f"native: knn launched the kernel {knn_launches} times, not once")
     cell, cell_s = on_device(lambda: estimate_cell_size(pts, k))
     on_device(lambda: knn_grid(pts, k, cell, capacity=NATIVE_GRID_CAPACITY))  # warm-up
     (gnbh, gd), grid_s = on_device(
@@ -1916,6 +2120,7 @@ def check_native_knn(n: int = NATIVE_KNN_N, device: str = "cuda", knn_fn=knn) ->
     bound = NATIVE_KNN_ULPS * 2.0 ** -24 * (sq[:, None] + sq[oidx[:, :k]])
     rows_off = int((np.abs(pd.cpu().numpy() - od[:, :k]) > bound).any(axis=1).sum())
     return {"n": n, "k": k, "grid_knn_host_s": host_s, "knn_card_s": knn_s,
+            "knn_launches": knn_launches,
             "knn_grid_card_s": grid_s, "cell_size": float(cell), "cell_size_card_s": cell_s,
             "knn": oracle_check("knn", nbh.idx, d, oidx, od, sq),
             "knn_grid": oracle_check("knn_grid", gnbh.idx, gd, oidx, od, sq),
@@ -1969,6 +2174,10 @@ def main() -> int:
     say("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     for name in paths:
         build.load_library(name)
+
+    # the kNN kernel against its plain version, before any phase runs it
+    knn_rec = check_knn_kernel()
+    say("knn_kernel", **knn_rec)
 
     # the native host runtime (g++), before anything reads an OBJ
     say("native", **check_native(smi))
@@ -2079,7 +2288,8 @@ def main() -> int:
     say("fused", **check_fused(cfg))
 
     # the dense (N, k) pipeline and the rest of the CLI's routes
-    say("dense", **check_dense())
+    dense_rec = check_dense()
+    say("dense", **dense_rec)
 
     # the mesh cascade (plain torch, no kernel)
     say("mesh", **check_mesh())
@@ -2125,6 +2335,18 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    # KNN replaces a jitted XLA program (a lax.map over query chunks around a
+    # lax.scan over point tiles), not a pallas_call; its launches are those
+    # of the dense route's denoise, its own path.
+    timed = knn_rec["timed"]
+    kernels.append({
+        "name": "KNN", "route": "cuda", "source": "ngpd_tpu_torch/kernels/csrc/knn.cu",
+        "replaces": "ngpd_tpu/ops/knn.py:112",
+        "launches": dense_rec["denoise"]["knn_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in knn_rec["cases"]),
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

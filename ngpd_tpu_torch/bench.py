@@ -106,14 +106,18 @@ def make_corner_cloud(n: int, side: int = 8, seed: int = 0):
     return noisy, normals, clean
 
 
+def gate_sample(n: int, subsample: int = 20_000) -> np.ndarray:
+    """The rows of an n-point cloud that ``cd_ratio`` scores: a seeded
+    subsample of at most ``subsample``."""
+    return np.random.default_rng(1).choice(n, size=min(n, subsample), replace=False)
+
+
 def cd_ratio(out: np.ndarray, noisy: np.ndarray, clean: np.ndarray, device,
              subsample: int = 20_000):
     """(ratio, cd_noisy, cd_denoised) on a seeded subsample."""
     from .ops import metrics
 
-    n = len(clean)
-    q = min(n, subsample)
-    sel = np.random.default_rng(1).choice(n, size=q, replace=False)
+    sel = gate_sample(len(clean), subsample)
 
     def cd(x):
         c = torch.as_tensor(clean[sel], device=device)

@@ -1,5 +1,5 @@
-"""Builds of the kernels (K0, K1, K2 and passes A-D and BD) side by side
-on the card: outputs and times.
+"""Builds of the kernels (K0, K1, K2, passes A-D and BD, and the kNN
+kernel) side by side on the card: outputs and times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
@@ -25,7 +25,8 @@ the kernels named (default: all of ``NAMES``).
 At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
 tile 256, window 128, default strategy; ``--window`` and ``--feature-k``
 change the window and feature_k, e.g. the CLI's 512 and 16, or K0's
-shared-memory kernel at 1024 and 2048) it prints one JSON line a build
+shared-memory kernel at 1024 and 2048; the kNN kernel searches the
+cloud's feature_k nearest of every point) it prints one JSON line a build
 and kernel: ptxas registers and spills, blocks an SM, whether every output
 equals the tree build's bit for bit (rows that differ and the largest
 difference otherwise), and the launch time, median of 25 CUDA-event-timed
@@ -54,11 +55,12 @@ from .config import DenoiseConfig
 from .core import hybrid_stages as hs
 from .core.cuda_fused import passes_prologue, prologue
 from .kernels import build
+from .kernels import knn as kknn
 from .kernels import passes as kp
 from .kernels import window as kw
 from .utils.cache import cache_dir
 
-NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
+NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn")
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
@@ -186,28 +188,59 @@ def bd_call(n: int, cloud, strategy, cfg, window: int = 128):
     return lambda: kp.pass_bd(gq2, gr2, lag, win, cfg, strategy, nd)
 
 
+def knn_call(n: int, cloud, strategy, cfg, window: int = 128):
+    from .ops.knn import knn
+
+    pts = torch.as_tensor(cloud(n)[0], device="cuda")
+
+    def call():
+        nbh, d = knn(pts, cfg.feature_k)
+        return nbh.idx, d
+    return call
+
+
+def _k0_entry(wt_c: int, feature_k: int) -> tuple:
+    """K0's register kernel takes its columns a lane; past 2,048 columns
+    its shared-memory kernel runs."""
+    lanes = kw.k0_lanes(wt_c)
+    return ("k0_kernel", (lanes,)) if lanes <= 64 else ("k0_wide_kernel", ())
+
+
+def _knn_entry(wt_c: int, feature_k: int) -> tuple:
+    """The kNN kernel's variant follows k (feature_k)."""
+    v = kknn.variant(feature_k)
+    return ("knn_kernel", (v,)) if v else ("knn_row_kernel", ())
+
+
+def _window(*extra):
+    """``ngpd_<name>_blocks_per_sm``'s arguments: the tile, the window
+    columns, then ``extra``."""
+    return lambda tile, wt_c, feature_k: (tile, wt_c, *extra)
+
+
 # Each kernel's call at the main shapes, its entry function in the ptxas
 # report (the template arguments of the variant the main shapes launch;
-# K0's follow the window, ``entry_of``) and the arguments of its
-# ``ngpd_<name>_blocks_per_sm`` after the tile and the window columns.
+# SHAPED_ENTRIES picks the variant of kernels whose variant follows the
+# window or k, ``entry_of``) and the arguments of its
+# ``ngpd_<name>_blocks_per_sm`` as a function of (tile, window columns, k).
 CALLS = {"k0": k0_call, "k1": k1_call, "k2": k2_call, "pass_a": a_call, "pass_b": b_call,
-         "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call}
+         "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call, "knn": knn_call}
 ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
            "k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
            "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
-           "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,))}
-GEOMETRY = {"k0": (), "k1": (), "k2": (1, 1, 0), "pass_a": (), "pass_b": (), "pass_c": (),
-            "pass_d": (), "pass_bd": ()}
+           "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,)),
+           "knn": ("knn_kernel", (32,))}
+SHAPED_ENTRIES = {"k0": _k0_entry, "knn": _knn_entry}
+GEOMETRY = {"k0": _window(), "k1": _window(), "k2": _window(1, 1, 0), "pass_a": _window(),
+            "pass_b": _window(), "pass_c": _window(), "pass_d": _window(),
+            "pass_bd": _window(), "knn": lambda tile, wt_c, feature_k: (feature_k,)}
 
 
-def entry_of(kernel: str, wt_c: int = 512) -> tuple:
+def entry_of(kernel: str, wt_c: int = 512, feature_k: int = 32) -> tuple:
     """The entry function and template arguments ``kernel`` launches at
-    ``wt_c`` window columns: K0's register kernel takes its columns a lane,
-    past 2,048 columns its shared-memory kernel runs."""
-    if kernel != "k0":
-        return ENTRIES[kernel]
-    lanes = kw.k0_lanes(wt_c)
-    return ("k0_kernel", (lanes,)) if lanes <= 64 else ("k0_wide_kernel", ())
+    ``wt_c`` window columns and k ``feature_k``."""
+    shaped = SHAPED_ENTRIES.get(kernel)
+    return shaped(wt_c, feature_k) if shaped else ENTRIES[kernel]
 
 
 def compare(got, want) -> dict:
@@ -223,18 +256,19 @@ def compare(got, want) -> dict:
     return {"equal": not rows, "differing_rows": rows, "max_abs_diff": worst}
 
 
-def ptxas_of(kernel: str, library: Path, wt_c: int = 512) -> dict:
+def ptxas_of(kernel: str, library: Path, wt_c: int = 512, feature_k: int = 32) -> dict:
     report = build.ptxas_report(library)
-    name, flags = entry_of(kernel, wt_c)
+    name, flags = entry_of(kernel, wt_c, feature_k)
     # Older sources may build the kernel without its template flags.
     entry = build.template_entry(report, name, *flags) or next(
         (r for r in report if name in r["function"]), {})
     return {k: v for k, v in entry.items() if k != "function"}
 
 
-def blocks_per_sm(kernel: str, lib, tile: int = 256, wt_c: int = 512) -> int | None:
+def blocks_per_sm(kernel: str, lib, tile: int = 256, wt_c: int = 512,
+                  feature_k: int = 32) -> int | None:
     fn = getattr(lib, f"ngpd_{kernel}_blocks_per_sm", None)
-    return None if fn is None else fn(tile, wt_c, *GEOMETRY[kernel])
+    return None if fn is None else fn(*GEOMETRY[kernel](tile, wt_c, feature_k))
 
 
 def main(argv=None) -> None:
@@ -278,16 +312,17 @@ def main(argv=None) -> None:
             print(json.dumps({"kernel": kernel, "build": b, "flags": variants.get(b, []),
                               "n": args.n, "window": args.window,
                               "feature_k": args.feature_k,
-                              **ptxas_of(kernel, libs[kernel][1], wt_c),
-                              "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0], 256, wt_c),
+                              **ptxas_of(kernel, libs[kernel][1], wt_c, args.feature_k),
+                              "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0], 256, wt_c,
+                                                             args.feature_k),
                               **outs[b], "ms_min": min(times[b]),
                               "ms_median": statistics.median(times[b])}), flush=True)
 
     if args.corner:
         for strategy in STRATEGIES:
             for kernel in names:
-                if kernel in ("k0", "k1") and strategy != STRATEGIES[0]:
-                    continue  # the strategy does not reach K0's or K1's inputs
+                if kernel in ("k0", "k1", "knn") and strategy != STRATEGIES[0]:
+                    continue  # the strategy does not reach K0's, K1's or kNN's inputs
                 call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg,
                                      args.window)
                 if call is None:  # pass C of a strategy without a delta class

@@ -29,7 +29,7 @@ from ..utils.cache import cache_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd")
+SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn")
 HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh",
            "pass_walk.cuh")
 NVCC_FLAGS = (
@@ -52,6 +52,7 @@ ARGTYPES = {
                _F, _F, _F, _I, _I, _I, _VP),
     "pass_bd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F,
                 _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _VP),
+    "knn": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
 }
 
 

@@ -1,8 +1,11 @@
 """k-nearest-neighbour search (torch), as ``ngpd_tpu/ops/knn.py``.
 
-``knn`` is the exact brute-force search: query chunks against point
-tiles with a running top-k, so one ``(query_tile, point_tile)`` distance
-block is live at a time. ``knn_grid`` is the voxel-hash search for large
+``knn`` is the exact brute-force search. On CUDA tensors it is one
+launch of the hand-written kernel ``kernels/csrc/knn.cu``
+(``kernels/knn.py``); on CPU tensors it runs its plain version,
+``knn_plain``: query chunks against point tiles with a running top-k, so
+one ``(query_tile, point_tile)`` distance block is live at a time. The
+two return the same bits. ``knn_grid`` is the voxel-hash search for large
 clouds: each query scans the 27 cells around it. ``nn_distances`` (the
 primitive behind the Chamfer-family metrics) is ``knn`` with k = 1.
 
@@ -24,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels import knn as _card
 from .neighbors import Neighborhood
 
 _INF = float("inf")
@@ -93,6 +97,42 @@ def _finish(d, i):
     return Neighborhood(idx=idx, mask=mask), torch.where(mask, d, _INF)
 
 
+def _operands(points, queries, exclude_self: bool):
+    if exclude_self and queries is not None:
+        raise ValueError("exclude_self requires queries drawn from `points`")
+    points = torch.as_tensor(points, dtype=torch.float32).contiguous()
+    q = points if queries is None else torch.as_tensor(
+        queries, dtype=torch.float32).to(points.device).contiguous()
+    return points, q
+
+
+def knn_plain(
+    points: torch.Tensor,
+    k: int,
+    queries: Optional[torch.Tensor] = None,
+    *,
+    exclude_self: bool = False,
+    num_valid: Optional[int] = None,
+    point_tile: int = 2048,
+    query_tile: int = 1024,
+):
+    """``knn``'s plain version on any device: the tile loop, one
+    ``(query_tile, point_tile)`` block at a time. ``knn`` runs it on CPU
+    tensors; the tests and ``chip_smoke.py`` hold the kernel to it."""
+    points, q = _operands(points, queries, exclude_self)
+    n, nq = points.shape[0], q.shape[0]
+    nv = n if num_valid is None else int(num_valid)
+    ds, idxs = [], []
+    for q0 in range(0, nq, query_tile):
+        qc = q[q0 : q0 + query_tile]
+        ex = (q0 + torch.arange(qc.shape[0], dtype=torch.int64, device=points.device)
+              if exclude_self else None)
+        d, i = _knn_chunk(qc, points, k, point_tile, nv, ex)
+        ds.append(d)
+        idxs.append(i)
+    return _finish(torch.cat(ds), torch.cat(idxs))
+
+
 def knn(
     points: torch.Tensor,
     k: int,
@@ -110,25 +150,22 @@ def knn(
     ``points`` is its own first neighbour (scipy ``KDTree.query``
     semantics); with ``exclude_self=True`` (requires ``queries is None``)
     the self match is masked. Rows of ``points`` at or past ``num_valid``
-    are ignored; slots that found no neighbour are masked out.
+    are ignored; slots that found no neighbour are masked out. Equal
+    distances keep the lower index.
+
+    On CUDA tensors one launch of ``kernels/csrc/knn.cu`` computes it,
+    for every k; ``point_tile`` and ``query_tile`` are the plain
+    version's tiles (``knn_plain``, which CPU tensors run) and the kernel
+    ignores them. Any other device raises.
     """
-    self_query = queries is None
-    if exclude_self and not self_query:
-        raise ValueError("exclude_self requires queries drawn from `points`")
-    points = torch.as_tensor(points, dtype=torch.float32)
-    q = points if self_query else torch.as_tensor(
-        queries, dtype=torch.float32).to(points.device)
-    n, nq = points.shape[0], q.shape[0]
-    nv = n if num_valid is None else int(num_valid)
-    ds, idxs = [], []
-    for q0 in range(0, nq, query_tile):
-        qc = q[q0 : q0 + query_tile]
-        ex = (q0 + torch.arange(qc.shape[0], dtype=torch.int64, device=points.device)
-              if exclude_self else None)
-        d, i = _knn_chunk(qc, points, k, point_tile, nv, ex)
-        ds.append(d)
-        idxs.append(i)
-    return _finish(torch.cat(ds), torch.cat(idxs))
+    points, q = _operands(points, queries, exclude_self)
+    if not _card._check(points, q):
+        return knn_plain(points, k, None if queries is None else q,
+                         exclude_self=exclude_self,
+                         num_valid=num_valid, point_tile=point_tile,
+                         query_tile=query_tile)
+    nv = points.shape[0] if num_valid is None else int(num_valid)
+    return _finish(*_card.search(points, q, k, nv, exclude_self))
 
 
 def nn_distances(
@@ -142,7 +179,8 @@ def nn_distances(
     """1-NN squared distance from each point of ``a`` into cloud ``b``.
 
     Returns ``(sqdist (Qa,), idx (Qa,) int64)`` on ``a``'s device; rows
-    of ``b`` at or past ``num_valid_b`` are ignored.
+    of ``b`` at or past ``num_valid_b`` are ignored. ``knn`` with k = 1:
+    one kernel launch on CUDA tensors, the tiles only on the CPU.
     """
     a = torch.as_tensor(a, dtype=torch.float32)
     b = torch.as_tensor(b, dtype=torch.float32).to(a.device)

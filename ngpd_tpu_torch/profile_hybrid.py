@@ -1,7 +1,8 @@
 """Where the time goes in one hybrid-denoise run on the card.
 
     python -m ngpd_tpu_torch.profile_hybrid [--n 1000000] [--iters 20] [--k 32]
-                                            [--passes | --lagged]
+                                            [--passes | --lagged | --mesh | --point
+                                             | --train | --dense]
 
 Runs the bench workload (``bench.make_cloud``, lagged_nvt1) once to warm
 up, then once under ``torch.profiler`` with CPU and CUDA activities, and
@@ -24,7 +25,12 @@ learned model at full width after a warm-up step, grouped as ``--mesh`` is
 (gathers with their scatter-add backward under ``gather_scatter``): the
 Patch2Normal at batch 64 on ``make_cloud(4096)``'s patches, then the DGCNN
 (emb_dims 1024) at batch 256 on a noisy ``cad_suite`` box's patches; one
-JSON line each. Needs a card.
+JSON line each. ``--dense`` profiles the dense (N, k) pipeline, the CLI's
+route under 100k points: ``core/pipeline.py::denoise`` on
+``make_cloud(--n)`` (32,768 points, 2 iterations, feature_k 16, step_k 8
+unless given), grouped as ``--mesh`` is. In every torch-grouped profile the
+kNN kernel (``knn_kernel``, ``knn_row_kernel``) is a group of its own,
+``knn``. Needs a card.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ def _group(name: str) -> str:
 
 
 # Kernel-name fragments of torch's CUDA kernels, first match wins.
-_MESH_GROUPS = (("matmul", ("gemm", "cutlass", "cublas", "xmma")),
+_MESH_GROUPS = (("knn", ("knn_kernel", "knn_row_kernel")),
+                ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
                 ("topk_sort", ("topk", "sort", "radix", "bitonic")),
                 ("gather_scatter", ("index", "gather", "scatter")),
                 ("reduce", ("reduce",)))
@@ -89,13 +96,15 @@ def _train_step(engine: str, dev):
 
 def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
     """``engine``: "hybrid", "passes" (exact delta), "passes_lagged",
-    "mesh" (the bench's cascade; n, iters and k unused) or "point"
-    (``predict_cloud_normals`` on n points; iters and k unused)."""
+    "mesh" (the bench's cascade; n, iters and k unused), "point"
+    (``predict_cloud_normals`` on n points; iters and k unused) or "dense"
+    (``denoise`` on n points, iters iterations, feature_k k, step_k 8)."""
     from torch.profiler import ProfilerActivity, profile
 
     from .bench import make_cloud, mesh_cascade, mesh_workload
     from .config import DenoiseConfig
     from .core.cuda_fused import denoise_hybrid, denoise_passes
+    from .core.pipeline import denoise
     from .device import resolve_device
     from .learn.predict import predict_cloud_normals
     from .models.patch2normal import init_patch2normal
@@ -124,6 +133,8 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
             cascade(mesh)
         elif engine == "point":
             predict_cloud_normals(model, pts, device=dev)
+        elif engine == "dense":
+            denoise(pts, nr, cfg, iterations=iters, device=dev)
         elif engine != "hybrid":
             denoise_passes(pts, nr, cfg, iterations=iters, device=dev,
                            delta_mode="lagged" if engine == "passes_lagged" else "exact")
@@ -174,9 +185,9 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.profile_hybrid")
     ap.add_argument("--n", type=int, default=None,
-                    help="points (1,000,000; 100,000 with --point)")
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--k", type=int, default=32)
+                    help="points (1,000,000; 100,000 with --point, 32,768 with --dense)")
+    ap.add_argument("--iters", type=int, default=None, help="iterations (20; 2 with --dense)")
+    ap.add_argument("--k", type=int, default=None, help="feature_k (32; 16 with --dense)")
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--passes", action="store_const", dest="engine", const="passes",
                        help="profile the pass engine (exact delta) instead of the hybrid")
@@ -188,13 +199,18 @@ def main(argv=None):
                        help="profile predict_cloud_normals (the learned point track)")
     which.add_argument("--train", action="store_const", dest="engine", const="train",
                        help="profile one training step of Patch2Normal and of the DGCNN")
+    which.add_argument("--dense", action="store_const", dest="engine", const="dense",
+                       help="profile the dense (N, k) pipeline's denoise")
     args = ap.parse_args(argv)
     if args.engine == "train":
         for engine in ("train_point", "train_mesh"):
             print(json.dumps(profile_run(0, 0, 0, engine)), flush=True)
         return
-    n = args.n or (100_000 if args.engine == "point" else 1_000_000)
-    print(json.dumps(profile_run(n, args.iters, args.k, args.engine or "hybrid")))
+    dense = args.engine == "dense"
+    n = args.n or {"point": 100_000, "dense": 32_768}.get(args.engine, 1_000_000)
+    iters = args.iters or (2 if dense else 20)
+    k = args.k or (16 if dense else 32)
+    print(json.dumps(profile_run(n, iters, k, args.engine or "hybrid")))
 
 
 if __name__ == "__main__":

@@ -599,3 +599,65 @@ def test_card_knn_against_the_native_oracle(cuda_device):
     for name in ("knn", "knn_grid"):
         assert rec[name]["wrong_clear_indices"] == 0
         assert rec[name]["max_err_over_bound"] <= 1.0
+
+
+# The kNN kernel (kernels/csrc/knn.cu): ``knn`` and ``nn_distances`` on
+# CUDA tensors launch it once a call, for every k, and it returns the
+# plain tile loop's bits.
+def test_card_knn_kernel_matches_plain_on_the_smoke_cases(cuda_device):
+    """chip_smoke ``knn_kernel``'s cases at a smaller size: the point
+    track's cloud (plain, exclude_self, num_valid n - 50), mesh centroids
+    at k 64, k 1 through nn_distances (the Chamfer gate's subsample and the
+    whole cloud), the dense route's k 6, 8 and 16 and k 24, an integer
+    lattice, separate queries, k past the valid count and past the
+    register variants; each torch.equal to knn_plain on the card, one
+    launch a call."""
+    import chip_smoke as cs
+
+    rec = cs.check_knn_kernel(cases=cs.knn_kernel_cases(
+        n=20_000, mesh_subdiv=4, nn_points=100_000, nn_queries=4_000, lattice_side=20,
+        dense_n=8_192))
+    assert all(r["equal"] and r["launches"] == 1 for r in rec["cases"])
+    assert rec["timed"]["ms"] > 0 and rec["timed"]["bound_by"] in ("bytes", "operations")
+    assert rec["build"]["knn_row_kernel"]["registers"] > 0
+
+
+@pytest.mark.parametrize("k", [1, 2, 6, 8, 9, 12, 16, 17, 32, 33, 64, 65, 130, 300])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_card_knn_kernel_every_variant(cuda_device, k, exclude_self):
+    """Every register variant (k up to 1, 8, 16, 32, 64) at and past its
+    size, and the row kernel past the largest, on a cloud that holds
+    duplicated points, with num_valid: one launch, the plain loop's
+    bits."""
+    from ngpd_tpu_torch.kernels import knn as kknn
+    from ngpd_tpu_torch.ops.knn import knn, knn_plain
+
+    pts = torch.as_tensor(make_cloud(5_000)[0]).to(cuda_device)
+    kknn.reset_launch_counts()
+    got, gd = knn(pts, k, exclude_self=exclude_self, num_valid=4_900)
+    assert kknn.LAUNCHES["knn"] == 1
+    want, wd = knn_plain(pts, k, exclude_self=exclude_self, num_valid=4_900)
+    assert torch.equal(gd, wd) and torch.equal(got.idx, want.idx)
+    assert torch.equal(got.mask, want.mask)
+    assert got.idx.dtype == torch.int64 and gd.device.type == "cuda"
+
+
+def test_card_knn_never_runs_the_plain_loop(cuda_device, monkeypatch):
+    """On CUDA tensors ``knn`` and ``nn_distances`` go to the kernel alone,
+    one launch each, queries of another cloud and k past the valid count
+    included."""
+    from ngpd_tpu_torch.kernels import knn as kknn
+    from ngpd_tpu_torch.ops import knn as ops_knn
+
+    pts = torch.as_tensor(make_cloud(4_096)[0]).to(cuda_device)
+    q = pts[::3] + 0.001
+    want = [ops_knn.knn_plain(pts, 16, q, num_valid=9), ops_knn.knn_plain(pts, 1, q)]
+    monkeypatch.setattr(ops_knn, "knn_plain", lambda *a, **k: pytest.fail("ran the loop"))
+    kknn.reset_launch_counts()
+    nbh, d = ops_knn.knn(pts, 16, q, num_valid=9)
+    assert kknn.LAUNCHES["knn"] == 1
+    assert torch.equal(d, want[0][1]) and torch.equal(nbh.idx, want[0][0].idx)
+    assert not nbh.mask[:, 9:].any()
+    nd, ni = ops_knn.nn_distances(q, pts)
+    assert kknn.LAUNCHES["knn"] == 2
+    assert torch.equal(nd, want[1][1][:, 0]) and torch.equal(ni, want[1][0].idx[:, 0])

@@ -1,0 +1,243 @@
+"""The contract the kNN kernel (``ngpd_tpu_torch/kernels/csrc/knn.cu``)
+has to meet, pinned where no card exists.
+
+On CUDA tensors ``ops/knn.py::knn`` and ``::nn_distances`` launch the
+kernel once a call; on CPU tensors they run the plain tile loop,
+``knn_plain``, which the card tests and ``chip_smoke.py`` hold the kernel
+to with ``torch.equal``. The kernel tiles the points and queries unlike
+the loop, so the loop's result must not depend on its tiles: here it
+equals a one-shot selection, a stable sort of the whole int64 key block
+(distance bits above the point index), at tiles of 1, 7, 64 and 2,048.
+The same cases go through ``ngpd_tpu`` at ``tests/test_torch_knn.py``'s
+tolerances (distances to 1e-6, indices where the gap to the neighbouring
+slots is clear; everywhere on an integer lattice, where the two sides'
+distances are exact). ``chip_smoke``'s ``knn_kernel`` check must refuse a
+kNN that breaks ties by the higher index and one that drops
+``num_valid``.
+"""
+
+import importlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import knn as kknn
+from ngpd_tpu_torch.ops import knn as tknn
+
+jknn = importlib.import_module("ngpd_tpu.ops.knn")  # ngpd_tpu.ops.knn is the function
+
+torch.set_num_threads(2)
+
+D_TOL = 1e-6  # tests/test_torch_knn.py: an ulp of the largest term on unit-scale clouds
+INF = float("inf")
+
+
+def _cloud(n, seed=0, dup=0.2):
+    """Gaussian points, the last ``dup`` share copies of earlier ones."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    m = int(n * dup)
+    if m:
+        pts[n - m:] = pts[rng.integers(0, n - m, m)]
+    return pts
+
+
+def _lattice(side):
+    g = np.arange(side, dtype=np.float32)
+    return np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3)
+
+
+def _cases(n):
+    """(name, points, k, queries, exclude_self, num_valid, exact): every k
+    the callers pass and one past the largest register variant, the masks,
+    separate queries, exact ties, duplicated points, k past the valid
+    count."""
+    pts = _cloud(n)
+    side = round(n ** (1 / 3))
+    q = _cloud(n // 3, seed=1, dup=0.0)
+    return [
+        ("k1", pts, 1, None, False, None, False),
+        ("k6_exclude_self", pts, 6, None, True, None, False),
+        ("k12_num_valid_queries", pts, 12, q, False, n - 17, False),
+        ("k16_lattice_ties", _lattice(side), 16, None, True, None, True),
+        ("k16_lattice_num_valid", _lattice(side), 16, None, False, side**3 - 5, True),
+        ("k64_duplicates", pts, 64, None, False, None, False),
+        ("k130_row_variant", pts, 130, None, True, n - 3, False),
+        ("k_past_valid", pts, 16, q, False, 5, False),
+    ]
+
+
+CASE_NAMES = [c[0] for c in _cases(150)]
+
+
+def _one_shot(points, k, queries=None, exclude_self=False, num_valid=None):
+    """The selection with no tiles: the whole (nq, n) block's int64 keys,
+    distance bits above the point index, stably sorted; slots past the
+    points hold (inf, 0)."""
+    p = torch.as_tensor(points)
+    q = p if queries is None else torch.as_tensor(queries)
+    n, nq = p.shape[0], q.shape[0]
+    d = tknn.pairwise_sqdist(q, p)
+    cols = torch.arange(n)
+    d = torch.where(cols[None, :] >= (n if num_valid is None else num_valid), INF, d)
+    if exclude_self:
+        d = torch.where(cols[None, :] == torch.arange(nq)[:, None], INF, d)
+    key = ((d + 0.0).view(torch.int32).to(torch.int64) << 32) | cols[None, :]
+    pos = torch.sort(key, dim=1, stable=True).indices[:, :k]
+    dk = torch.full((nq, k), INF)
+    ik = torch.zeros((nq, k), dtype=torch.int64)
+    dk[:, : pos.shape[1]] = torch.gather(d, 1, pos)
+    ik[:, : pos.shape[1]] = pos
+    return tknn._finish(dk, ik)
+
+
+def _equal(a, b):
+    (na, da), (nb, db) = a, b
+    return (torch.equal(da, db) and torch.equal(na.idx, nb.idx)
+            and torch.equal(na.mask, nb.mask))
+
+
+# Every tile size on both axes; a tile of one point (or one query) runs
+# against the other axis untiled or at 7.
+TILES = [(1, 2048), (2048, 1), (7, 7), (7, 64), (64, 7), (64, 64), (2048, 2048), (1, 7)]
+
+
+@pytest.mark.parametrize("point_tile,query_tile", TILES)
+def test_the_plain_loop_is_the_one_shot_selection(point_tile, query_tile):
+    """The running top-k over tiles keeps exactly the (distance bits,
+    index) order of one stable sort of the whole key block, whatever the
+    tiles: the kernel, which tiles otherwise, is held to the same bits."""
+    for name, pts, k, q, ex, nv, _ in _cases(150):
+        got = tknn.knn_plain(torch.as_tensor(pts), k,
+                             None if q is None else torch.as_tensor(q), exclude_self=ex,
+                             num_valid=nv, point_tile=point_tile, query_tile=query_tile)
+        assert _equal(got, _one_shot(pts, k, q, ex, nv)), name
+
+
+def test_the_lattice_has_ties_and_short_rows():
+    """The cases reach what they are for: equal distances inside the kept
+    k and across its edge, and masked slots where k passes the valid
+    count."""
+    cases = {c[0]: c for c in _cases(150)}
+    _, pts, k, q, ex, nv, _ = cases["k16_lattice_ties"]
+    nbh, d = _one_shot(pts, k + 1, q, ex, nv)
+    assert (d[:, 1:] == d[:, :-1]).float().mean() > 0.5
+    assert bool((d[:, k] == d[:, k - 1]).any())  # a tie across the k-th slot
+    _, pts, k, q, ex, nv, _ = cases["k_past_valid"]
+    nbh, d = tknn.knn(torch.as_tensor(pts), k, torch.as_tensor(q), num_valid=nv)
+    assert nbh.mask[:, :nv].all() and not nbh.mask[:, nv:].any()
+    assert torch.isinf(d[:, nv:]).all() and (nbh.idx[:, nv:] == 0).all()
+
+
+def _against_reference(name, pts, k, q, ex, nv, exact):
+    jq = None if q is None else jnp.asarray(q)
+    jn, jd = jknn.knn(jnp.asarray(pts), k, jq, exclude_self=ex,
+                      num_valid=None if nv is None else jnp.asarray(nv))
+    tn, td = tknn.knn(torch.as_tensor(pts), k, None if q is None else torch.as_tensor(q),
+                      exclude_self=ex, num_valid=nv)
+    jd, td_np = np.asarray(jd), td.numpy()
+    ji, ti = np.asarray(jn.idx), tn.idx.numpy()
+    np.testing.assert_array_equal(np.asarray(jn.mask), tn.mask.numpy(), err_msg=name)
+    finite = np.isfinite(jd)
+    np.testing.assert_array_equal(finite, np.isfinite(td_np), err_msg=name)
+    if exact:
+        np.testing.assert_array_equal(td_np, jd, err_msg=name)
+        np.testing.assert_array_equal(ti, ji, err_msg=name)
+        return
+    np.testing.assert_allclose(td_np[finite], jd[finite], atol=D_TOL, rtol=0, err_msg=name)
+    gap = np.diff(np.where(finite, jd, 1e30), axis=1) > 4 * D_TOL
+    clear = finite.copy()
+    clear[:, 1:] &= gap
+    clear[:, :-1] &= gap
+    np.testing.assert_array_equal(ti[clear], ji[clear], err_msg=name)
+    assert clear.sum() > 0.5 * finite.sum() or not finite.any(), name
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_the_cases_match_the_reference(name):
+    """Each case through ``knn`` on the CPU against ``ngpd_tpu.ops.knn.knn``
+    at 1,000-1,728 points."""
+    case = {c[0]: c for c in _cases(1200)}[name]
+    _against_reference(*case)
+
+
+def test_nn_distances_matches_the_reference():
+    a, b = _cloud(600, seed=3, dup=0.0), _cloud(2048, seed=4)
+    jd, ji = jknn.nn_distances(jnp.asarray(a), jnp.asarray(b), num_valid_b=jnp.asarray(2000))
+    td, ti = tknn.nn_distances(torch.as_tensor(a), torch.as_tensor(b), num_valid_b=2000)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=D_TOL, rtol=0)
+    assert np.mean(ti.numpy() == np.asarray(ji)) > 0.99
+    assert int(ti.max()) < 2000
+    # The plain selection of k 1 is knn_plain's, at nn_distances' tiles.
+    nbh, d = tknn.knn_plain(torch.as_tensor(b), 1, torch.as_tensor(a), num_valid=2000,
+                            point_tile=16384, query_tile=2048)
+    assert torch.equal(d[:, 0], td) and torch.equal(nbh.idx[:, 0], ti)
+
+
+def test_the_launch_arguments_match_the_kernel_source():
+    """One ctypes type per parameter of ``ngpd_knn_launch``, and the
+    register variants that ``variant`` names are the ones the source
+    launches, the row kernel past the largest."""
+    src = (build.CSRC / "knn.cu").read_text()
+    sig = src[src.index('extern "C" int ngpd_knn_launch('):]
+    params = sig[sig.index("(") + 1 : sig.index(")")].split(",")
+    assert len(params) == len(build.ARGTYPES["knn"])
+    for text, ctype in zip(params, build.ARGTYPES["knn"]):
+        want = build._VP if "*" in text else build._F if "float" in text else build._I
+        assert ctype is want, text
+    launched = sorted(int(v) for v in re.findall(r"case (\d+): knn_kernel<\1><<<", src))
+    assert tuple(launched) == kknn.REGISTER_KS
+    assert f"KNN_MAX_REGISTER_K = {kknn.REGISTER_KS[-1]};" in src
+    assert [kknn.variant(k) for k in (1, 2, 6, 8, 12, 16, 17, 32, 33, 64, 65, 130)] == \
+        [1, 8, 8, 8, 16, 16, 32, 32, 64, 64, 0, 0]
+    for word in ("mma", "wgmma", "TF32"):  # the header says why they are not used
+        assert word in src
+    assert "__fmul_rn" in src and "-fmad=false" in " ".join(build.NVCC_FLAGS)
+
+
+def _small_cases():
+    return cs.knn_kernel_cases(n=2048, mesh_subdiv=2, nn_points=4096, nn_queries=512,
+                               lattice_side=10, dense_n=1024)
+
+
+def test_the_smoke_check_passes_the_plain_version():
+    rec = cs.check_knn_kernel(device="cpu", cases=_small_cases())
+    variants = {r["case"]: r["variant"] for r in rec["cases"]}
+    assert variants == {
+        "cloud": 16, "cloud_exclude_self": 16, "cloud_num_valid": 16, "mesh_centroids": 64,
+        "chamfer_gate": 1, "nn_whole_cloud": 1, "dense_k6": 8, "dense_k8": 8,
+        "dense_k16": 16, "dense_k6_exclude_self": 8, "dense_k24_exclude_self": 32,
+        "lattice_ties": 16, "separate_queries": 16, "k_past_valid": 16, "row_kernel": 0}
+    assert set(variants.values()) == {0, *kknn.REGISTER_KS}  # every variant
+    assert all(r["equal"] and r["max_abs_err"] == 0.0 for r in rec["cases"])
+    gate = rec["cases"][4]
+    assert (gate["n"], gate["queries"]) == (512, 512)  # the gate's subsample on both sides
+
+
+def _higher_index_ties(points, k, queries=None, *, exclude_self=False, num_valid=None):
+    """A kNN whose equal distances keep the higher index."""
+    n = points.shape[0]
+    q = points if queries is None else queries
+    d = tknn.pairwise_sqdist(q, points)
+    cols = torch.arange(n)
+    d = torch.where(cols[None, :] >= (n if num_valid is None else num_valid), INF, d)
+    if exclude_self:
+        d = torch.where(cols[None, :] == torch.arange(q.shape[0])[:, None], INF, d)
+    pos = n - 1 - torch.sort(d.flip(1), dim=1, stable=True).indices[:, :k]
+    return tknn._finish(torch.gather(d, 1, pos), pos)
+
+
+def _without_num_valid(points, k, queries=None, *, num_valid=None, **kw):
+    return tknn.knn_plain(points, k, queries, **kw)
+
+
+@pytest.mark.parametrize("wrong", [_higher_index_ties, _without_num_valid],
+                         ids=["higher_index_ties", "drops_num_valid"])
+def test_the_smoke_check_refuses_a_wrong_knn(wrong):
+    with pytest.raises(SystemExit):
+        cs.check_knn_kernel(device="cpu", knn_fn=wrong, cases=_small_cases())

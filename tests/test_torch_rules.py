@@ -11,6 +11,7 @@ from ngpd_tpu_torch.core.cuda_fused import padded_size
 from ngpd_tpu_torch.device import resolve_device
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
 
@@ -277,7 +278,10 @@ def _small_pack():
 
 def test_cuda_wrapper_raises_instead_of_falling_back(monkeypatch):
     """Operands that pass as CUDA reach the kernel build and launch: with
-    no nvcc that raises, and no plain result comes back."""
+    no nvcc that raises, and no plain result comes back. ``knn`` and
+    ``nn_distances`` never run the plain tile loop for them."""
+    from ngpd_tpu_torch.ops import knn as ops_knn
+
     try:
         build.find_nvcc()
         pytest.skip("nvcc is present; the missing-compiler path cannot be observed")
@@ -285,18 +289,31 @@ def test_cuda_wrapper_raises_instead_of_falling_back(monkeypatch):
         pass
     pack, win = _small_pack()
     monkeypatch.setattr(kw, "_check", lambda *a: True)
+    monkeypatch.setattr(kknn, "_check", lambda *a: True)
+    monkeypatch.setattr(ops_knn, "knn_plain", lambda *a, **k: pytest.fail("ran the loop"))
     monkeypatch.setattr(build, "_LIBS", {})
-    before = dict(kw.LAUNCHES)
+    before = {**kw.LAUNCHES, **kknn.LAUNCHES}
+    pts = torch.rand((300, 3))
     for call in (lambda: kw.k0(pack, win, 16, 8),
                  lambda: kw.k1(pack, win, 1.0),
                  lambda: kw.k2(pack, torch.zeros((8, 128)), win, 1.0,
-                               ("flat", "edge", "feature"), 1)):
+                               ("flat", "edge", "feature"), 1),
+                 lambda: ops_knn.knn(pts, 16, exclude_self=True),
+                 lambda: ops_knn.knn(pts, 130, pts[:40], num_valid=250),
+                 lambda: ops_knn.nn_distances(pts[:50], pts)):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert kw.LAUNCHES == before
+    assert {**kw.LAUNCHES, **kknn.LAUNCHES} == before
 
 
 def test_wrappers_reject_other_devices_and_bad_operands():
+    from ngpd_tpu_torch.ops.knn import knn
+
+    pts = torch.rand((64, 3))
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        knn(pts.to("meta"), 4)
+    with pytest.raises(ValueError, match="queries on"):
+        kknn._check(pts, pts.to("meta"))
     pack, win = _small_pack()
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         kw.k1(pack.to("meta"), win._replace(starts=win.starts.to("meta")), 1.0)
@@ -310,12 +327,24 @@ def test_wrappers_reject_other_devices_and_bad_operands():
 
 def test_cpu_wrappers_use_plain_versions():
     """On CPU tensors the wrappers return the plain versions' results and
-    count no launch."""
+    count no launch; ``knn`` and ``nn_distances`` return the tile loop's."""
+    from ngpd_tpu_torch.ops.knn import knn, knn_plain, nn_distances
+
     pack, win = _small_pack()
-    before = dict(kw.LAUNCHES)
+    before = {**kw.LAUNCHES, **kknn.LAUNCHES}
     assert torch.equal(kw.k0(pack, win, 16, 8), kw.k0_plain(pack, win, 16, 8))
     assert torch.equal(kw.k1(pack, win, 1.0), kw.k1_plain(pack, win, kw.cos_f32(1.0)))
-    assert kw.LAUNCHES == before
+    pts = torch.rand((300, 3))
+    for args, kwargs in (((pts, 16), {"exclude_self": True}),
+                         ((pts, 70, pts[:40]), {"num_valid": 250})):
+        (got, gd), (want, wd) = knn(*args, **kwargs), knn_plain(*args, **kwargs)
+        assert torch.equal(gd, wd) and torch.equal(got.idx, want.idx)
+        assert torch.equal(got.mask, want.mask)
+    d, idx = nn_distances(pts[:50], pts, num_valid_b=280)
+    nbh, want_d = knn_plain(pts, 1, pts[:50], num_valid=280, point_tile=16384,
+                            query_tile=2048)
+    assert torch.equal(d, want_d[:, 0]) and torch.equal(idx, nbh.idx[:, 0])
+    assert {**kw.LAUNCHES, **kknn.LAUNCHES} == before
 
 
 def test_k0_launches_windows_past_2048_columns(monkeypatch):
@@ -465,10 +494,10 @@ def test_pass_bd_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
 
 def test_build_lists_every_kernel_with_its_argument_types():
     assert build.SOURCES == ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d",
-                             "pass_bd")
+                             "pass_bd", "knn")
     assert set(build.ARGTYPES) == set(build.SOURCES)
     for name in build.SOURCES:
-        assert name in {**kw.LAUNCHES, **kp.LAUNCHES}
+        assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES}
         # One ctypes type per parameter of the C launch function.
         src = (build.CSRC / f"{name}.cu").read_text()
         sig = src[src.index(f"ngpd_{name}_launch("):]
@@ -609,7 +638,9 @@ def test_kernel_sources_target_sm90a():
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int ngpd_{name}_launch' in src
-        assert "Replaces: ngpd_tpu/core/pallas_fused.py" in src
+        # The kNN kernel replaces a jitted XLA program, the others pallas_calls.
+        replaced = "ngpd_tpu/ops/knn.py" if name == "knn" else "ngpd_tpu/core/pallas_fused.py"
+        assert f"Replaces: {replaced}" in src
         assert "What bounds it on the H100" in src
     assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "/build/" in (ROOT / ".gitignore").read_text().split()
