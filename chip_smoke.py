@@ -7,9 +7,9 @@ Phases, one output line each; any failure ends the run with a non-zero
 exit code and no result line:
 
   card       the card's name and power limit (nvidia-smi), CUDA version
-  build      nvcc builds K0/K1/K2, passes A-D, the fused pass BD and the
-             kNN kernel from ``ngpd_tpu_torch/kernels/csrc``; ptxas
-             registers and spills
+  build      nvcc builds K0/K1/K2, passes A-D, the fused pass BD, the
+             kNN kernel, the feature kNN and the edge block from
+             ``ngpd_tpu_torch/kernels/csrc``; ptxas registers and spills
   knn_kernel the kNN kernel (``csrc/knn.cu``, behind ``ops/knn.py::knn``
              and ``::nn_distances`` on the card) against its plain version,
              the tile loop ``knn_plain``, on the card, ``torch.equal`` on
@@ -98,11 +98,30 @@ exit code and no result line:
              normals, dense route) and with ``--until-min --gt``; three
              steps of ``denoise_until_minimum_error_windowed`` at 100k
              points, K0/K1/K2 launched once a step
-  mesh       the mesh cascade (plain torch over the kNN kernel): ``bench.run_mesh``,
+  dgcnn_kernels  the learned models' two graph kernels against their plain
+             versions on the card: the feature kNN (``csrc/feature_knn.cu``,
+             behind ``models/dgcnn.py::feature_knn``) at the mesh cell's
+             shapes (batch 2,048, 64 nodes, k 8, C 128 and 256) on
+             small-integer features whose last 24 rows a patch are equal,
+             ``torch.equal``; then on the activations that feed conv4-conv6
+             in one batch of the mesh cell's patches, equal on every row
+             whose first k + 1 plain distances are clearly separated (each
+             gap above 2 C 2^-24 times the larger), the other rows
+             counted; the edge block (``csrc/edge_block.cu``, behind
+             ``models/edge.py::edge_block``) at every width and K of both
+             forwards (the DGCNN's at batch 2,048, EdgeConv's at 1,024),
+             ``torch.equal``; each kernel's time (median of 25
+             CUDA-event-timed launches), bound, plain time, registers,
+             spills and blocks an SM, and for the feature kNN the library
+             composition's time (``torch.cdist`` then ``torch.topk``)
+  mesh       the mesh cascade (over the kNN, feature-kNN and edge-block
+             kernels): ``bench.run_mesh``,
              icosphere subdivision 6 (81,920 faces), noise 0.3, two passes
              of the full-width DGCNN with the committed checkpoints, batch
              2048; faces/s, the Ea gate (ratio <= 0.35), no window or pass
-             kernel launched, the kNN kernel's launches; then one pass's
+             kernel launched, the kNN kernel's launches, the feature kNN 3
+             and the edge block 6 launches a DGCNN batch (240 and 480 a
+             run) and their plain versions never called; then one pass's
              stages, each synchronized (the
              host's adjacency build, centroid kNN, patch extraction, DGCNN
              forward, guided filter), and the peak of allocated device memory
@@ -114,14 +133,16 @@ exit code and no result line:
              --pass2 4:0.12:2 --gt``, then with ``--auto``: Ea must fall
              both times; prints the recipe it picked; the cascade's run also
              writes ``--html`` (the viewer, with error-map colours)
-  point_normals  the learned point track (plain torch over the kNN kernel):
+  point_normals  the learned point track (over the kNN and edge-block kernels):
              ``predict_cloud_normals`` on the noisy ``make_cloud(100_000)``
              with normals estimated, the full-width Patch2Normal (seeded),
              batch 1,024; points/s (best of 2 after a warm-up), each stage
              synchronized (normal estimation, ``md_selection``'s two kNN,
              the patch build, the model forward, the un-rotation), the
              model's TFLOP/s and peak allocated memory; unit normals, no
-             window or pass kernel launched, the kNN kernel's launches a run
+             window or pass kernel launched, the kNN kernel's launches a run,
+             the edge block 6 launches a batch (588 a run) and its plain
+             version never called
   point_normals_reference  card against CPU on 1,024 points (768 held
              once and 256 twice, each copy with its own noisy normal), the
              full-width model with its BatchNorm statistics refreshed by one
@@ -184,8 +205,8 @@ exit code and no result line:
              cell's 81,920 faces against the unsharded call (Ea within
              MESH_EA_TOL, the normals within their own one-ulp spread)
 
-The second-to-last line is the ``kernels`` JSON record (nine kernels: K0,
-K1, K2, passes A-D and BD, KNN), the last line
+The second-to-last line is the ``kernels`` JSON record (eleven kernels:
+K0, K1, K2, passes A-D and BD, KNN, FEATURE_KNN, EDGE_BLOCK), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
 """
 
@@ -219,6 +240,7 @@ from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_wi
 from ngpd_tpu_torch.io.obj import load_obj, read_obj, save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import graph as kgraph
 from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -239,6 +261,7 @@ from ngpd_tpu_torch.meshproc.synthetic import box, cad_suite, icosphere
 from ngpd_tpu_torch import native
 from ngpd_tpu_torch.meshproc.trimesh import add_mesh_noise
 from ngpd_tpu_torch.models import dgcnn as dgcnn_mod
+from ngpd_tpu_torch.models import edge as edge_mod
 from ngpd_tpu_torch.models.dgcnn import DGCNN, EDGE_CHANNELS, dgcnn_from_state_dict
 from ngpd_tpu_torch.models.patch2normal import Patch2NormalModel, flax_init_, init_patch2normal
 from ngpd_tpu_torch.io.sampling import sample_mesh
@@ -353,6 +376,19 @@ KNN_N, KNN_K, KNN_NN_QUERIES, KNN_LATTICE_SIDE = 100_000, 16, 20_000, 40
 # The library composition is timed on one query tile (KNN_LIBRARY_REPS
 # runs) and scaled by the tile count: every tile does the same work.
 KNN_REPS, KNN_LIBRARY_TILE, KNN_LIBRARY_REPS = 10, 4_096, 3
+# The learned models' graph kernels (csrc/feature_knn.cu, csrc/edge_block.cu)
+# against their plain versions: the feature kNN at the mesh cell's batch and
+# k on small-integer features whose last FKNN_EQUAL_ROWS rows a patch are
+# equal (every distance exact, ties everywhere), then on real activations;
+# the edge block at every width and K of both forwards.
+FKNN_K, FKNN_WIDTHS, FKNN_EQUAL_ROWS = 8, (128, 256), 24
+# A sum of C float32 terms taken in two orders differs by at most about
+# C 2^-24 of itself each way, so a row whose sorted plain distances keep
+# gaps above FKNN_SEPARATION x C x the larger one is clearly separated: the
+# kernel must rank it as the plain version does.
+FKNN_SEPARATION = 2 * 2.0 ** -24
+GRAPH_REPS, GRAPH_PLAIN_REPS = 25, 3
+MESH_RUNS = 3  # bench.run_mesh: a warm-up, then the best of two
 
 
 T_START = time.perf_counter()
@@ -1000,13 +1036,17 @@ def dgcnn_flop_per_patch(p: int = 64, k: int = 8, emb: int = 1024) -> int:
 
 def check_mesh() -> dict:
     """The mesh cascade at full size on the card (bench.run_mesh), with no
-    kernel launched; then one pass's stages timed one by one and the peak
-    of allocated device memory."""
+    window or pass kernel launched, the feature kNN and the edge block on
+    every DGCNN forward and their plain versions never called; then one
+    pass's stages timed one by one and the peak of allocated device
+    memory."""
     kw.reset_launch_counts()
     kp.reset_launch_counts()
     kknn.reset_launch_counts()
+    kgraph.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    rec = bench.run_mesh(MESH_SUBDIV, "cuda")
+    with plain_graph_calls() as plain:
+        rec = bench.run_mesh(MESH_SUBDIV, "cuda")
     rec["kernel_launches"] = {**kw.LAUNCHES, **kp.LAUNCHES}
     rec["knn_launches_three_runs"] = kknn.LAUNCHES["knn"]
     if not rec["knn_launches_three_runs"]:
@@ -1018,6 +1058,16 @@ def check_mesh() -> dict:
         fail(f"the mesh cascade launched a window or pass kernel: {rec['kernel_launches']}")
 
     _, noisy = bench.mesh_workload(MESH_SUBDIV)
+    # Two passes of the DGCNN over every face, MESH_BATCH patches a forward:
+    # three feature kNN and six edge blocks a forward.
+    batches = 2 * -(-noisy.num_faces // bench.MESH_BATCH)
+    want = {"feature_knn": (len(EDGE_CHANNELS) - dgcnn_mod.NUM_FIXED) * batches,
+            "edge_block": len(EDGE_CHANNELS) * batches}
+    rec["graph_launches_one_run"] = {k: v // MESH_RUNS for k, v in kgraph.LAUNCHES.items()}
+    rec["graph_plain_calls"] = dict(plain)
+    if kgraph.LAUNCHES != {k: MESH_RUNS * v for k, v in want.items()} or any(plain.values()):
+        fail(f"the mesh cascade's graph kernels: {kgraph.LAUNCHES} launches in {MESH_RUNS} "
+             f"runs, {want} expected a run; plain calls {plain}")
     noisy = noisy.to("cuda")
     model = dgcnn_from_state_dict(load_dgcnn_state_dict(bench.ASSETS / "dgcnn_mesh.npz"))
     model = model.to("cuda")
@@ -1145,8 +1195,9 @@ def patch2normal_flop_per_patch(cfg: ModelConfig = ModelConfig()) -> int:
 
 def check_point_normals() -> dict:
     """``predict_cloud_normals`` at 100,000 points on the card: points/s,
-    each stage synchronized, the model's TFLOP/s, peak memory; unit normals
-    and no window or pass kernel launched."""
+    each stage synchronized, the model's TFLOP/s, peak memory; unit normals,
+    no window or pass kernel launched, the edge block on every EdgeConv and
+    its plain version never called."""
     noisy, _, _ = bench.make_cloud(POINT_N)
     pts = torch.as_tensor(noisy).to("cuda")
     model = init_patch2normal(seed=0).to("cuda")
@@ -1171,14 +1222,20 @@ def check_point_normals() -> dict:
     _, unrot_ms = time_once(lambda: unrotate(pred, patches.r_inv))
     del patches, pred
     runs = []
-    for _ in range(2):
-        kknn.reset_launch_counts()
-        runs.append(time_once(lambda: predict_cloud_normals(model, pts, batch_size=POINT_BATCH,
-                                                            device="cuda")))
+    with plain_graph_calls() as plain:
+        for _ in range(2):
+            kknn.reset_launch_counts()
+            kgraph.reset_launch_counts()
+            runs.append(time_once(lambda: predict_cloud_normals(
+                model, pts, batch_size=POINT_BATCH, device="cuda")))
     out, best = runs[-1][0], min(ms for _, ms in runs)
+    cfg = ModelConfig()
+    want = {"feature_knn": 0, "edge_block": (cfg.num_edgeconv + cfg.num_dynamic_edgeconv)
+            * -(-POINT_N // POINT_BATCH)}
     rec = {"n": POINT_N, "seconds": best / 1e3, "points_per_s": POINT_N / (best / 1e3),
            "kernel_launches": {**kw.LAUNCHES, **kp.LAUNCHES},
            "knn_launches_one_run": kknn.LAUNCHES["knn"],
+           "graph_launches_one_run": dict(kgraph.LAUNCHES), "graph_plain_calls": dict(plain),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     norm_err = float((out.norm(dim=1) - 1.0).abs().max())
     rec["finite"], rec["unit_norm_max_err"] = bool(torch.isfinite(out).all()), norm_err
@@ -1189,6 +1246,9 @@ def check_point_normals() -> dict:
         fail(f"point_normals launched a window or pass kernel: {rec['kernel_launches']}")
     if not rec["knn_launches_one_run"]:
         fail("point_normals did not launch the kNN kernel")
+    if kgraph.LAUNCHES != want or any(plain.values()):
+        fail(f"point_normals' graph kernels: {kgraph.LAUNCHES} launches a run, {want} "
+             f"expected; plain calls {plain}")
     flop = POINT_N * patch2normal_flop_per_patch()
     rec["stages_ms"] = {"normal_estimation": est_ms, "md_selection_knn": sel_ms,
                         "patch_build": patch_ms, "model_forward": fwd_ms,
@@ -2147,6 +2207,180 @@ def check_native(smi: str) -> dict:
             "parse": parse, "knn": check_native_knn()}
 
 
+def edge_block_shapes(mesh_batch: int = bench.MESH_BATCH,
+                      point_batch: int = POINT_BATCH) -> list[dict]:
+    """Every (width, K, order) of the two forwards' edge blocks, once each:
+    the DGCNN's six convs (input widths 17 and the first five conv widths;
+    K 3 on the fixed graph, then the feature kNN's k) at the mesh cell's
+    batch, and Patch2Normal's EdgeConvs (the input width and the hidden
+    widths before the last; K patch_k) at the point track's."""
+    p = PatchConfig().num_nodes
+    dims = (17,) + EDGE_CHANNELS[:-1]
+    mesh = [(c, 3 if i < dgcnn_mod.NUM_FIXED else FKNN_K) for i, c in enumerate(dims)]
+    cfg = ModelConfig()
+    point = [(c, cfg.patch_k) for c in (cfg.input_size,) + cfg.hidden[:cfg.num_edgeconv - 1]]
+    return ([{"model": "dgcnn", "order": "dgcnn", "batch": mesh_batch, "p": p, "c": c, "k": k}
+             for c, k in dict.fromkeys(mesh)]
+            + [{"model": "patch2normal", "order": "edgeconv", "batch": point_batch,
+                "p": cfg.patch_size, "c": c, "k": k} for c, k in dict.fromkeys(point)])
+
+
+def int_features(b: int, p: int, c: int, generator: torch.Generator) -> torch.Tensor:
+    """Features 0, 1 or 2, the last FKNN_EQUAL_ROWS rows of each patch 0."""
+    x = torch.randint(0, 3, (b, p, c), generator=generator).float()
+    x[:, p - FKNN_EQUAL_ROWS:] = 0.0
+    return x
+
+
+def mesh_activations(device: str, subdiv: int, batch: int) -> list[torch.Tensor]:
+    """The inputs of the DGCNN's feature kNN (conv4 to conv6) in one forward
+    of the committed pass-1 model over the mesh cell's first ``batch``
+    patches."""
+    _, noisy = bench.mesh_workload(subdiv)
+    inputs = extract_mesh_patches(noisy.to(device), device=device).inputs[:batch]
+    model = dgcnn_from_state_dict(load_dgcnn_state_dict(bench.ASSETS / "dgcnn_mesh.npz"))
+    seen, knn_of = [], dgcnn_mod.feature_knn
+
+    def capture(x, k):
+        seen.append(x.clone())
+        return knn_of(x, k)
+
+    dgcnn_mod.feature_knn = capture
+    try:
+        gcn.run_dgcnn(model.to(device), inputs, batch)
+    finally:
+        dgcnn_mod.feature_knn = knn_of
+    return seen
+
+
+def check_feature_knn(x: torch.Tensor, knn_fn, integer: bool) -> dict:
+    """``knn_fn`` against feature_knn_plain on ``x``: equal everywhere on
+    integer features, on the clearly separated rows otherwise. The error is
+    the largest gap between the plain distance of the neighbour each
+    chose."""
+    b, p, c = x.shape
+    got, want = knn_fn(x, FKNN_K), dgcnn_mod.feature_knn_plain(x, FKNN_K)
+    d = dgcnn_mod.feature_sqdist(x)
+    err = float((d.gather(-1, got) - d.gather(-1, want)).abs().max())
+    differ = (got != want).any(dim=-1)
+    rec = {"batch": b, "p": p, "c": c, "k": FKNN_K, "max_abs_err": err}
+    if integer:
+        rec["equal"] = torch.equal(got, want)
+        if not rec["equal"]:
+            fail(f"dgcnn_kernels: the feature kNN differs from its plain version on "
+                 f"integer features: {rec}")
+        return rec
+    s = torch.sort(d, dim=-1).values[..., : FKNN_K + 1]
+    clear = ((s[..., 1:] - s[..., :-1]) > FKNN_SEPARATION * c * s[..., 1:]).all(dim=-1)
+    rec.update(rows=clear.numel(), not_clearly_separated=int((~clear).sum()),
+               differing_clear_rows=int((differ & clear).sum()),
+               differing_other_rows=int((differ & ~clear).sum()))
+    if rec["differing_clear_rows"]:
+        fail(f"dgcnn_kernels: the feature kNN differs from its plain version on clearly "
+             f"separated rows: {rec}")
+    return rec
+
+
+def check_dgcnn_kernels(device: str = "cuda", knn_fn=None, edge_fn=None,
+                        mesh_subdiv: int = MESH_SUBDIV, mesh_batch: int = bench.MESH_BATCH,
+                        point_batch: int = POINT_BATCH) -> dict:
+    """``feature_knn`` and ``edge_block`` (or stand-ins ``knn_fn`` and
+    ``edge_fn``) against their plain versions on ``device``: the feature
+    kNN on integer features at FKNN_WIDTHS and on the mesh cell's
+    activations, the edge block at every shape of ``edge_block_shapes``.
+    On the card also each kernel's time, bound, plain and library time and
+    its build's registers, spills and blocks an SM."""
+    knn_fn = knn_fn or dgcnn_mod.feature_knn
+    edge_fn = edge_fn or edge_mod.edge_block
+    on_card = device == "cuda"
+    g = torch.Generator().manual_seed(0)
+    p = PatchConfig().num_nodes
+    fknn = [check_feature_knn(int_features(mesh_batch, p, c, g).to(device), knn_fn, True)
+            for c in FKNN_WIDTHS]
+    acts = mesh_activations(device, mesh_subdiv, mesh_batch)
+    if [x.shape[2] for x in acts] != list(EDGE_CHANNELS[dgcnn_mod.NUM_FIXED - 1:-1]):
+        fail(f"dgcnn_kernels: the DGCNN ran its feature kNN on widths "
+             f"{[x.shape[2] for x in acts]}")
+    fknn += [check_feature_knn(x, knn_fn, False) for x in acts]
+    edges = []
+    for shape in edge_block_shapes(mesh_batch, point_batch):
+        b, p, c, k = shape["batch"], shape["p"], shape["c"], shape["k"]
+        x = torch.randn((b, p, c), generator=g).to(device)
+        idx = torch.randint(0, p, (b, p, k), generator=g).to(device)
+        got, want = edge_fn(x, idx, shape["order"]), edge_mod.edge_block_plain(x, idx,
+                                                                               shape["order"])
+        rec = {**shape, "equal": torch.equal(got, want),
+               "max_abs_err": float((got - want).abs().nan_to_num(float("inf")).max())}
+        edges.append(rec)
+        if not rec["equal"]:
+            fail(f"dgcnn_kernels: the edge block differs from its plain version: {rec}")
+        if on_card:
+            rec.update(time_edge_block(x, idx, shape["order"]))
+        del x, idx, got, want
+    if on_card:
+        for rec, x in zip(fknn[len(FKNN_WIDTHS):], acts):
+            rec.update(time_feature_knn(x))
+    return {"feature_knn": fknn, "edge_block": edges}
+
+
+def time_feature_knn(x: torch.Tensor) -> dict:
+    """The feature kNN's kernel, plain and library times on ``x`` (the
+    library composition: ``torch.cdist`` without the matrix-product form,
+    then ``torch.topk``; the port never calls it), its bound, and its
+    build's figures."""
+    b, p, c = x.shape
+    k = FKNN_K
+    b_ms, by = bound(x.numel() * 4 + b * p * k * 8, 3 * b * p * p * c + b * p * p)
+    return {
+        "ms": time_launches(lambda: kgraph.feature_knn(x, k), reps=GRAPH_REPS),
+        "plain_ms": time_launches(lambda: dgcnn_mod.feature_knn_plain(x, k),
+                                  reps=GRAPH_PLAIN_REPS),
+        "library_ms": time_launches(lambda: torch.topk(
+            torch.cdist(x, x, compute_mode="donot_use_mm_for_euclid_dist"), k, dim=-1,
+            largest=False), reps=GRAPH_PLAIN_REPS),
+        "bound_ms": b_ms, "bound_by": by,
+        "build": build_facts("feature_knn", "feature_knn_kernel",
+                             (kgraph.feature_knn_variant(k),), (p, c, k)),
+    }
+
+
+def time_edge_block(x: torch.Tensor, idx: torch.Tensor, order: str) -> dict:
+    """The edge block's kernel and plain times, its bound (the block's
+    writes, x and idx read once; one subtraction an element of the
+    difference half) and its build's figures; no PyTorch call builds it."""
+    b, p, c = x.shape
+    k = idx.shape[2]
+    b_ms, by = bound(b * p * k * 2 * c * 4 + x.numel() * 4 + idx.numel() * 8, b * p * k * c)
+    return {
+        "ms": time_launches(lambda: kgraph.edge_block(x, idx, order), reps=GRAPH_REPS),
+        "plain_ms": time_launches(lambda: edge_mod.edge_block_plain(x, idx, order),
+                                  reps=GRAPH_PLAIN_REPS),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+        "build": build_facts("edge_block", "edge_block_kernel", (c % 4 == 0,), (c,)),
+    }
+
+
+@contextlib.contextmanager
+def plain_graph_calls():
+    """Counts of the calls of the graph kernels' plain versions made inside
+    the block."""
+    calls = {"feature_knn_plain": 0, "edge_block_plain": 0}
+    saved = dgcnn_mod.feature_knn_plain, edge_mod.edge_block_plain
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    dgcnn_mod.feature_knn_plain = counting("feature_knn_plain", saved[0])
+    edge_mod.edge_block_plain = counting("edge_block_plain", saved[1])
+    try:
+        yield calls
+    finally:
+        dgcnn_mod.feature_knn_plain, edge_mod.edge_block_plain = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2291,13 +2525,19 @@ def main() -> int:
     dense_rec = check_dense()
     say("dense", **dense_rec)
 
-    # the mesh cascade (plain torch, no kernel)
-    say("mesh", **check_mesh())
+    # the learned models' graph kernels against their plain versions
+    graph_rec = check_dgcnn_kernels()
+    say("dgcnn_kernels", **graph_rec)
+
+    # the mesh cascade (over the kNN, feature-kNN and edge-block kernels)
+    mesh_rec = check_mesh()
+    say("mesh", **mesh_rec)
     say("mesh_reference", **check_mesh_reference())
     say("mesh_cli", **check_mesh_cli())
 
-    # the learned point track (plain torch, no kernel)
-    say("point_normals", **check_point_normals())
+    # the learned point track (over the kNN and edge-block kernels)
+    point_rec = check_point_normals()
+    say("point_normals", **point_rec)
     say("point_normals_reference", **check_point_normals_reference())
     say("point_cli", **check_point_cli())
 
@@ -2347,6 +2587,29 @@ def main() -> int:
         "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
     })
+    # The graph kernels replace jitted XLA programs of the learned models, not
+    # pallas_calls. The feature kNN is timed at the mesh cell's widest
+    # activations (C 256) and counted on the mesh cascade's run; the edge
+    # block at the point track's widest block (C 256, K 12) and counted on
+    # its run (the mesh cascade's count beside it).
+    fk = next(r for r in graph_rec["feature_knn"] if "ms" in r and r["c"] == 256)
+    eb = next(r for r in graph_rec["edge_block"]
+              if r["model"] == "patch2normal" and r["c"] == 256)
+    for name, src, replaces, r, err, launches in (
+            ("FEATURE_KNN", "feature_knn", "ngpd_tpu/models/dgcnn.py:41", fk,
+             max(x["max_abs_err"] for x in graph_rec["feature_knn"]),
+             {"mesh": mesh_rec["graph_launches_one_run"]["feature_knn"]}),
+            ("EDGE_BLOCK", "edge_block", "ngpd_tpu/models/edgeconv.py:85", eb,
+             max(x["max_abs_err"] for x in graph_rec["edge_block"]),
+             {"point_normals": point_rec["graph_launches_one_run"]["edge_block"],
+              "mesh": mesh_rec["graph_launches_one_run"]["edge_block"]})):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"ngpd_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "launches": next(iter(launches.values())),
+            "launches_by_path": launches, "max_abs_err": err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

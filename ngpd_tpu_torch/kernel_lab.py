@@ -1,5 +1,6 @@
-"""Builds of the kernels (K0, K1, K2, passes A-D and BD, and the kNN
-kernel) side by side on the card: outputs and times.
+"""Builds of the kernels (K0, K1, K2, passes A-D and BD, the kNN kernel,
+the feature kNN and the edge block) side by side on the card: outputs and
+times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
@@ -26,7 +27,8 @@ At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
 tile 256, window 128, default strategy; ``--window`` and ``--feature-k``
 change the window and feature_k, e.g. the CLI's 512 and 16, or K0's
 shared-memory kernel at 1024 and 2048; the kNN kernel searches the
-cloud's feature_k nearest of every point) it prints one JSON line a build
+cloud's feature_k nearest of every point; the feature kNN and the edge
+block run on seeded features at the mesh cell's widest shapes) it prints one JSON line a build
 and kernel: ptxas registers and spills, blocks an SM, whether every output
 equals the tree build's bit for bit (rows that differ and the largest
 difference otherwise), and the launch time, median of 25 CUDA-event-timed
@@ -55,12 +57,14 @@ from .config import DenoiseConfig
 from .core import hybrid_stages as hs
 from .core.cuda_fused import passes_prologue, prologue
 from .kernels import build
+from .kernels import graph as kgraph
 from .kernels import knn as kknn
 from .kernels import passes as kp
 from .kernels import window as kw
 from .utils.cache import cache_dir
 
-NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn")
+NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn",
+         "feature_knn", "edge_block")
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
@@ -199,6 +203,28 @@ def knn_call(n: int, cloud, strategy, cfg, window: int = 128):
     return call
 
 
+# The graph kernels at the mesh cell's widest shapes: a DGCNN batch of
+# patches (64 nodes, C 256), the feature kNN's k 8, the edge block's K 8.
+GRAPH_P, GRAPH_C, GRAPH_K = 64, 256, 8
+
+
+def _graph_features(seed: int = 0) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((bench.MESH_BATCH, GRAPH_P, GRAPH_C), generator=g).to("cuda")
+
+
+def feature_knn_call(n: int, cloud, strategy, cfg, window: int = 128):
+    x = _graph_features()
+    return lambda: (kgraph.feature_knn(x, GRAPH_K),)
+
+
+def edge_block_call(n: int, cloud, strategy, cfg, window: int = 128):
+    x = _graph_features()
+    g = torch.Generator().manual_seed(1)
+    idx = torch.randint(0, GRAPH_P, (bench.MESH_BATCH, GRAPH_P, GRAPH_K), generator=g).to("cuda")
+    return lambda: (kgraph.edge_block(x, idx, "dgcnn"),)
+
+
 def _k0_entry(wt_c: int, feature_k: int) -> tuple:
     """K0's register kernel takes its columns a lane; past 2,048 columns
     its shared-memory kernel runs."""
@@ -224,16 +250,20 @@ def _window(*extra):
 # window or k, ``entry_of``) and the arguments of its
 # ``ngpd_<name>_blocks_per_sm`` as a function of (tile, window columns, k).
 CALLS = {"k0": k0_call, "k1": k1_call, "k2": k2_call, "pass_a": a_call, "pass_b": b_call,
-         "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call, "knn": knn_call}
+         "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call, "knn": knn_call,
+         "feature_knn": feature_knn_call, "edge_block": edge_block_call}
 ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
            "k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
            "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
            "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,)),
-           "knn": ("knn_kernel", (32,))}
+           "knn": ("knn_kernel", (32,)), "feature_knn": ("feature_knn_kernel", (8,)),
+           "edge_block": ("edge_block_kernel", (True,))}
 SHAPED_ENTRIES = {"k0": _k0_entry, "knn": _knn_entry}
 GEOMETRY = {"k0": _window(), "k1": _window(), "k2": _window(1, 1, 0), "pass_a": _window(),
             "pass_b": _window(), "pass_c": _window(), "pass_d": _window(),
-            "pass_bd": _window(), "knn": lambda tile, wt_c, feature_k: (feature_k,)}
+            "pass_bd": _window(), "knn": lambda tile, wt_c, feature_k: (feature_k,),
+            "feature_knn": lambda tile, wt_c, feature_k: (GRAPH_P, GRAPH_C, GRAPH_K),
+            "edge_block": lambda tile, wt_c, feature_k: (GRAPH_C,)}
 
 
 def entry_of(kernel: str, wt_c: int = 512, feature_k: int = 32) -> tuple:
@@ -321,8 +351,9 @@ def main(argv=None) -> None:
     if args.corner:
         for strategy in STRATEGIES:
             for kernel in names:
-                if kernel in ("k0", "k1", "knn") and strategy != STRATEGIES[0]:
-                    continue  # the strategy does not reach K0's, K1's or kNN's inputs
+                if kernel in ("k0", "k1", "knn", "feature_knn", "edge_block") \
+                        and strategy != STRATEGIES[0]:
+                    continue  # the strategy does not reach these kernels' inputs
                 call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg,
                                      args.window)
                 if call is None:  # pass C of a strategy without a delta class

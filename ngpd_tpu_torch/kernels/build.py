@@ -29,7 +29,8 @@ from ..utils.cache import cache_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn")
+SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn",
+           "feature_knn", "edge_block")
 HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh",
            "pass_walk.cuh")
 NVCC_FLAGS = (
@@ -53,6 +54,8 @@ ARGTYPES = {
     "pass_bd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F,
                 _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _VP),
     "knn": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    "feature_knn": (_VP, _VP, _I, _I, _I, _I, _VP),
+    "edge_block": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
 }
 
 

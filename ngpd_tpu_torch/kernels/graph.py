@@ -1,0 +1,122 @@
+"""The learned models' graph kernels: their wrappers.
+
+``csrc/feature_knn.cu`` is the DGCNN's feature-space kNN (its plain
+version is ``models/dgcnn.py::feature_knn_plain``), ``csrc/edge_block.cu``
+the edge-feature block of the DGCNN and of EdgeConv (its plain version is
+``models/edge.py::edge_block_plain``). ``feature_knn`` and ``edge_block``
+launch their kernel once on CUDA tensors, on the current stream, and add
+one to ``LAUNCHES``. The ``check_*`` functions tell the card from the CPU,
+where the callers run the plain versions, and raise on any other device
+or on operands the kernels do not take. There is no fallback from a
+kernel to its plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"feature_knn": 0, "edge_block": 0}
+# csrc/feature_knn.cu: one thread a node, the k nearest in a register
+# list of 8 or 16 keys, the patch transposed in shared memory (P rounded up
+# to 16, times C, times 4 bytes).
+FEATURE_KNN_MAX_P, FEATURE_KNN_MAX_K = 256, 16
+FEATURE_KNN_SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
+# The launch's order argument: [x_j - x_i, x_i] and [x_i, x_j - x_i].
+EDGE_ORDERS = {"dgcnn": 0, "edgeconv": 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def feature_knn_variant(k: int) -> int:
+    """The register list's size a k runs with (``fknn_variant``)."""
+    return 8 if k <= 8 else 16
+
+
+def feature_knn_smem_bytes(p: int, c: int) -> int:
+    return -(-p // 16) * 16 * c * 4
+
+
+def _device(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda or cpu, not {t.device}")
+    return True
+
+
+def check_feature_knn(x: torch.Tensor, k: int) -> bool:
+    """True when ``x`` lies on a CUDA device and the kernel takes it with
+    ``k``; False on the CPU; raises on any other device or on operands the
+    kernel does not take."""
+    if not _device(x, "feature_knn"):
+        return False
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise TypeError(f"feature_knn takes a (B, P, C) float32 tensor, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("feature_knn: x must be contiguous")
+    b, p, c = x.shape
+    if not 1 <= p <= FEATURE_KNN_MAX_P or c < 1 or b >= 2**31:
+        raise ValueError(f"feature_knn takes 1 <= P <= FEATURE_KNN_MAX_P "
+                         f"({FEATURE_KNN_MAX_P}), C >= 1 and B < 2^31, got {tuple(x.shape)}")
+    if not 1 <= k <= min(FEATURE_KNN_MAX_K, p):
+        raise ValueError(f"feature_knn takes 1 <= k <= min(FEATURE_KNN_MAX_K "
+                         f"({FEATURE_KNN_MAX_K}), P), got k {k} at P {p}")
+    if feature_knn_smem_bytes(p, c) > FEATURE_KNN_SMEM_LIMIT:
+        raise ValueError(f"feature_knn: a patch of P {p}, C {c} takes "
+                         f"{feature_knn_smem_bytes(p, c)} bytes of shared memory, over "
+                         f"FEATURE_KNN_SMEM_LIMIT ({FEATURE_KNN_SMEM_LIMIT})")
+    return True
+
+
+def feature_knn(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, P, k) int64 indices of the kernel, on the card; operands as
+    ``check_feature_knn`` takes them."""
+    from .window import launch
+
+    b, p, c = x.shape
+    out = torch.empty((b, p, k), dtype=torch.int64, device=x.device)
+    if b:
+        launch("feature_knn", LAUNCHES, x.data_ptr(), out.data_ptr(), b, p, c, int(k))
+    return out
+
+
+def check_edge_block(x: torch.Tensor, idx: torch.Tensor, order: str) -> bool:
+    """True when ``x`` and ``idx`` lie on a CUDA device and the kernel takes
+    them; False on the CPU; raises on an unknown order, on any other device
+    or on operands the kernel does not take."""
+    if order not in EDGE_ORDERS:
+        raise ValueError(f"edge_block: order {order!r} is none of {tuple(EDGE_ORDERS)}")
+    if idx.device != x.device:
+        raise ValueError(f"idx on {idx.device}, x on {x.device}")
+    if not _device(x, "edge_block"):
+        return False
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise TypeError(f"edge_block takes x as a (B, P, C) float32 tensor, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if idx.dtype != torch.int64 or idx.dim() != 3 or idx.shape[:2] != x.shape[:2]:
+        raise TypeError(f"edge_block takes idx as a (B, P, K) int64 tensor, got {idx.dtype} "
+                        f"{tuple(idx.shape)} beside x {tuple(x.shape)}")
+    if not (x.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("edge_block: x and idx must be contiguous")
+    if max(x.shape[0], x.shape[1], x.shape[2], idx.shape[2]) >= 2**31:
+        raise ValueError("edge_block: every dimension must be below 2^31")
+    return True
+
+
+def edge_block(x: torch.Tensor, idx: torch.Tensor, order: str) -> torch.Tensor:
+    """(B, P, K, 2C) float32 edge features of the kernel in ``order``
+    ("dgcnn" or "edgeconv"), on the card; operands as ``check_edge_block``
+    takes them."""
+    from .window import launch
+
+    b, p, c = x.shape
+    kk = idx.shape[2]
+    out = torch.empty((b, p, kk, 2 * c), dtype=torch.float32, device=x.device)
+    if out.numel():
+        launch("edge_block", LAUNCHES, x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, p, kk,
+               c, EDGE_ORDERS[order])
+    return out

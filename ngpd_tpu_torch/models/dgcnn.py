@@ -43,15 +43,17 @@ import torch
 from torch import nn
 
 from ..collectives import sum_across
+from ..kernels import graph
 from ..ops.knn import _topk_smallest
 from .dropout import apply_dropout, draw_keep_masks, dropout_sites
+from .edge import edge_block
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 LEAKY_SLOPE = 0.2
 EDGE_CHANNELS = (64, 64, 128, 256, 256, 256)
 NUM_FIXED = 3  # fixed-graph convs; the rest take the feature kNN
-# Bytes of one (chunk, P, P, C) difference block of feature_knn; at batch
+# Bytes of one (chunk, P, P, C) difference block of feature_sqdist; at batch
 # 2048, 64 nodes and 256 channels the whole batch would take 8.6 GB.
 KNN_BLOCK_BYTES = 1 << 30
 
@@ -63,25 +65,37 @@ def feature_knn(x: torch.Tensor, k: int) -> torch.Tensor:
     The distance is the sum of squared differences, as the reference
     computes it; among equal distances the lower index comes first, as
     ``jax.lax.top_k`` keeps it (masked patch nodes carry equal features,
-    so the ties are real)."""
+    so the ties are real). On CUDA tensors one launch of
+    ``kernels/csrc/feature_knn.cu``; on CPU tensors ``feature_knn_plain``."""
+    if not graph.check_feature_knn(x, k):
+        return feature_knn_plain(x, k)
+    return graph.feature_knn(x, k)
+
+
+@torch.no_grad()
+def feature_knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``feature_knn``'s plain version on any device: ``feature_sqdist``,
+    then the k smallest of each row on the int64 key of ``ops/knn.py``."""
+    b, p, _ = x.shape
+    d = feature_sqdist(x).reshape(-1, p)
+    _, idx = _topk_smallest(d, torch.arange(p, device=x.device).expand(d.shape[0], p), k)
+    return idx.reshape(b, p, k)
+
+
+@torch.no_grad()
+def feature_sqdist(x: torch.Tensor) -> torch.Tensor:
+    """(B, P, C) -> (B, P, P) sums of squared feature differences, summed
+    by ``torch.sum`` over difference blocks of at most KNN_BLOCK_BYTES."""
     b, p, c = x.shape
     chunk = max(1, KNN_BLOCK_BYTES // (p * p * c * x.element_size()))
-    cols = torch.arange(p, device=x.device).expand(p, p)
-    out = []
-    for xc in torch.split(x, chunk):
-        diff = xc[:, :, None, :] - xc[:, None, :, :]
-        d = torch.sum(diff.square_(), dim=-1)
-        _, idx = _topk_smallest(d.reshape(-1, p), cols.repeat(xc.shape[0], 1), k)
-        out.append(idx.reshape(xc.shape[0], p, k))
-    return torch.cat(out)
+    return torch.cat([torch.sum((xc[:, :, None, :] - xc[:, None, :, :]).square_(), dim=-1)
+                      for xc in torch.split(x, chunk)])
 
 
 def _edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """cat(x_j - x_i, x_i): (B, P, C), (B, P, K) -> (B, P, K, 2C)."""
-    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
-    xj = x[b, idx]
-    xi = x[:, :, None, :].expand_as(xj)
-    return torch.cat([xj - xi, xi], dim=-1)
+    """cat(x_j - x_i, x_i): (B, P, C), (B, P, K) -> (B, P, K, 2C)
+    (``models/edge.py``: the edge-block kernel on CUDA tensors)."""
+    return edge_block(x, idx, "dgcnn")
 
 
 def batch_stats(h: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:

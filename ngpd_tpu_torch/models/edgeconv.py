@@ -30,6 +30,7 @@ from torch import nn
 
 from ..collectives import sum_across
 from ..core.patches import masked_pair_knn
+from .edge import edge_block
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -70,11 +71,9 @@ class MaskedBatchNorm(nn.Module):
 
 
 def _edge_block(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """cat(x_i, x_j - x_i): (B, P, F), (B, P, K) -> (B, P, K, 2F)."""
-    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
-    xj = x[b, idx]
-    xi = x[:, :, None, :].expand_as(xj)
-    return torch.cat([xi, xj - xi], dim=-1)
+    """cat(x_i, x_j - x_i): (B, P, F), (B, P, K) -> (B, P, K, 2F)
+    (``models/edge.py``: the edge-block kernel on CUDA tensors)."""
+    return edge_block(x, idx, "edgeconv")
 
 
 class EdgeConv(nn.Module):

@@ -15,7 +15,7 @@ pass engine (``denoise_passes``, exact delta) on the same cloud instead,
 grouped by pass A-D and torch (prologue, packs, delta state, sort);
 ``--lagged`` its lagged-delta mode (pass A, the fused pass BD, torch).
 ``--mesh`` profiles the two-pass mesh cascade of ``bench.run_mesh`` (plain
-torch, no kernel of the port; 81,920 faces), grouped by
+torch over the kNN, feature-kNN and edge-block kernels; 81,920 faces), grouped by
 what torch's kernels do (matrix products, top-k and sorts, gathers and
 scatters, reductions, the rest). ``--point`` profiles the learned point
 track, ``predict_cloud_normals`` with the seeded full-width Patch2Normal on
@@ -30,7 +30,8 @@ route under 100k points: ``core/pipeline.py::denoise`` on
 ``make_cloud(--n)`` (32,768 points, 2 iterations, feature_k 16, step_k 8
 unless given), grouped as ``--mesh`` is. In every torch-grouped profile the
 kNN kernel (``knn_kernel``, ``knn_row_kernel``) is a group of its own,
-``knn``. Needs a card.
+``knn``, and so are the feature kNN (``feature_knn``) and the edge block
+(``edge_block``). Needs a card.
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ def _group(name: str) -> str:
 
 
 # Kernel-name fragments of torch's CUDA kernels, first match wins.
-_MESH_GROUPS = (("knn", ("knn_kernel", "knn_row_kernel")),
+_MESH_GROUPS = (("feature_knn", ("feature_knn_kernel",)),
+                ("edge_block", ("edge_block_kernel",)),
+                ("knn", ("knn_kernel", "knn_row_kernel")),
                 ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
                 ("topk_sort", ("topk", "sort", "radix", "bitonic")),
                 ("gather_scatter", ("index", "gather", "scatter")),

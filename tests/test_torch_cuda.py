@@ -661,3 +661,126 @@ def test_card_knn_never_runs_the_plain_loop(cuda_device, monkeypatch):
     nd, ni = ops_knn.nn_distances(q, pts)
     assert kknn.LAUNCHES["knn"] == 2
     assert torch.equal(nd, want[1][1][:, 0]) and torch.equal(ni, want[1][0].idx[:, 0])
+
+
+# The graph kernels (kernels/csrc/feature_knn.cu, edge_block.cu): the DGCNN's
+# feature kNN and both models' edge blocks launch them on CUDA tensors and
+# return their plain versions' bits.
+def _int_features(b, p, c, seed=0, equal_rows=24):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 3, (b, p, c), generator=g).float()
+    x[:, max(1, p - equal_rows):] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("b,p,c,k", [(1, 64, 17, 8), (256, 64, 17, 1), (256, 64, 64, 16),
+                                     (2048, 64, 128, 8), (2048, 64, 256, 8), (1, 64, 256, 16),
+                                     (97, 37, 100, 5), (3, 200, 40, 12), (5, 16, 907, 16)])
+def test_card_feature_knn_matches_plain(cuda_device, b, p, c, k):
+    """Small-integer features with repeated rows (every distance exact, ties
+    everywhere): one launch, ``torch.equal`` to ``feature_knn_plain`` on the
+    card. C 256 and 907 take the shared-memory opt-in (64 KB and 58 KB a
+    patch), C 17 and 907 a width that is no multiple of 4, P 37 and 200 a
+    patch that is no multiple of 16, B 1 one block."""
+    from ngpd_tpu_torch.kernels import graph
+    from ngpd_tpu_torch.models import dgcnn
+
+    x = _int_features(b, p, c).to(cuda_device)
+    graph.reset_launch_counts()
+    got = dgcnn.feature_knn(x, k)
+    assert graph.LAUNCHES["feature_knn"] == 1
+    assert got.dtype == torch.int64 and got.shape == (b, p, k)
+    assert torch.equal(got, dgcnn.feature_knn_plain(x, k))
+
+
+def test_card_feature_knn_refuses_past_its_limits(cuda_device):
+    from ngpd_tpu_torch.models import dgcnn
+
+    x = torch.zeros((2, 64, 1024), device=cuda_device)
+    with pytest.raises(ValueError, match="FEATURE_KNN_SMEM_LIMIT"):
+        dgcnn.feature_knn(x, 8)
+    with pytest.raises(ValueError, match="FEATURE_KNN_MAX_K"):
+        dgcnn.feature_knn(x[:, :, :8].contiguous(), 17)
+    with pytest.raises(TypeError):
+        dgcnn.feature_knn(x.double(), 8)
+
+
+@pytest.mark.parametrize("order", ["dgcnn", "edgeconv"])
+@pytest.mark.parametrize("b,c,k", [(1, 17, 3), (2048, 17, 3), (2048, 64, 3), (2048, 128, 8),
+                                   (2048, 256, 8), (1024, 8, 12), (1024, 256, 12), (7, 6, 5)])
+def test_card_edge_block_matches_plain(cuda_device, order, b, c, k):
+    """Every width and K of both forwards, both orders, one launch,
+    ``torch.equal`` to ``edge_block_plain``; C 17 and 6 take the float
+    path, and so does x starting one float past 16 bytes."""
+    from ngpd_tpu_torch.kernels import graph
+    from ngpd_tpu_torch.models import edge
+
+    g = torch.Generator().manual_seed(c * 100 + k)
+    x = torch.randn((b, 64, c), generator=g).to(cuda_device)
+    idx = torch.randint(0, 64, (b, 64, k), generator=g).to(cuda_device)
+    graph.reset_launch_counts()
+    got = edge.edge_block(x, idx, order)
+    assert graph.LAUNCHES["edge_block"] == 1
+    assert torch.equal(got, edge.edge_block_plain(x, idx, order))
+    shifted = torch.randn((b * 64 * c + 1,), generator=g).to(cuda_device)[1:].view(b, 64, c)
+    assert torch.equal(edge.edge_block(shifted, idx, order),
+                       edge.edge_block_plain(shifted, idx, order))
+
+
+def test_card_edge_block_gradient_matches_plain(cuda_device):
+    """The edge block's backward on the card against autograd of the plain
+    expression on the card: the same operations on the same terms (held to
+    1e-6 of the largest, in case the card's accumulation order varies)."""
+    from ngpd_tpu_torch.models import edge
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((64, 64, 32), generator=g).to(cuda_device)
+    idx = torch.randint(0, 64, (64, 64, 8), generator=g).to(cuda_device)
+    w = torch.randn((64, 64, 8, 64), generator=g).to(cuda_device)
+    for order in ("dgcnn", "edgeconv"):
+        a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (edge.edge_block(a, idx, order) * w).sum().backward()
+        (edge.edge_block_plain(b, idx, order) * w).sum().backward()
+        scale = float(b.grad.abs().max())
+        assert float((a.grad - b.grad).abs().max()) <= 1e-6 * scale
+
+
+def test_card_graph_kernels_carry_both_models(cuda_device, monkeypatch):
+    """A DGCNN forward launches the feature kNN three times and the edge
+    block six times, a Patch2Normal forward the edge block six times; the
+    plain versions are never called."""
+    from ngpd_tpu_torch.kernels import graph
+    from ngpd_tpu_torch.models import dgcnn, edge
+    from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+
+    monkeypatch.setattr(dgcnn, "feature_knn_plain", lambda *a: pytest.fail("plain kNN"))
+    monkeypatch.setattr(edge, "edge_block_plain", lambda *a: pytest.fail("plain block"))
+    g = torch.Generator().manual_seed(0)
+    inputs = torch.cat([torch.randn((16, 17, 64), generator=g),
+                        torch.randint(0, 64, (16, 3, 64), generator=g).float()], dim=1)
+    graph.reset_launch_counts()
+    with torch.no_grad():
+        out = dgcnn.DGCNN().eval().to(cuda_device)(inputs.to(cuda_device))
+    assert graph.LAUNCHES == {"feature_knn": 3, "edge_block": 6}
+    assert torch.isfinite(out).all()
+    model = init_patch2normal(seed=0).to(cuda_device)
+    x = torch.randn((8, 64, 8), generator=g).to(cuda_device)
+    nbr = torch.randint(0, 64, (8, 64, 12), generator=g).to(cuda_device)
+    graph.reset_launch_counts()
+    with torch.no_grad():
+        model(x, nbr, torch.ones((8, 64, 12), dtype=torch.bool, device=cuda_device),
+              torch.ones((8, 64), dtype=torch.bool, device=cuda_device))
+    assert graph.LAUNCHES == {"feature_knn": 0, "edge_block": 6}
+
+
+def test_card_dgcnn_kernels_smoke_check(cuda_device):
+    """chip_smoke ``dgcnn_kernels`` at a smaller size: integer features and
+    the mesh cell's activations (icosphere(4), 512 patches), every edge
+    shape at batch 256 and 128."""
+    import chip_smoke as cs
+
+    rec = cs.check_dgcnn_kernels(mesh_subdiv=4, mesh_batch=512, point_batch=128)
+    assert all(r.get("equal", True) and not r.get("differing_clear_rows", 0)
+               for r in rec["feature_knn"])
+    assert all(r["equal"] and r["ms"] > 0 for r in rec["edge_block"])
+    assert rec["feature_knn"][-1]["build"]["registers"] > 0

@@ -1,0 +1,272 @@
+"""The contract the learned models' graph kernels
+(``ngpd_tpu_torch/kernels/csrc/feature_knn.cu``, ``edge_block.cu``) have
+to meet, pinned where no card exists.
+
+On CUDA tensors ``models/dgcnn.py::feature_knn`` and
+``models/edge.py::edge_block`` launch the kernels; on CPU tensors they run
+the plain versions, ``feature_knn_plain`` and ``edge_block_plain``, which
+the card tests and ``chip_smoke.py`` hold the kernels to. Here the plain
+versions are held to ``ngpd_tpu``: the feature kNN equal, ties included, on
+small-integer features with repeated rows, and equal on every clearly
+separated row of real patch features and activations; the edge blocks of
+the DGCNN and of EdgeConv equal bit for bit. The edge block's backward is
+the gradient of the plain expression, bit for bit in float64.
+``chip_smoke``'s ``dgcnn_kernels`` check must refuse a kNN that breaks ties
+by the higher index, one that drops self, and an edge block with its
+halves swapped.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as fnn
+
+import chip_smoke as cs
+from ngpd_tpu.meshproc.patches import extract_mesh_patches
+from ngpd_tpu.meshproc.synthetic import icosphere
+from ngpd_tpu.meshproc.trimesh import add_mesh_noise
+from ngpd_tpu.models import dgcnn as jdg
+from ngpd_tpu.models import edgeconv as jec
+from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import graph as kgraph
+from ngpd_tpu_torch.learn import weights as tw
+from ngpd_tpu_torch.models import dgcnn as tdg
+from ngpd_tpu_torch.models import edge as tedge
+
+torch.set_num_threads(2)
+
+K = 8
+SEPARATION = 2 * 2.0 ** -24  # times C times the larger distance: two summation orders
+
+
+def _int_features(b, p, c, seed):
+    """Features 0, 1 or 2; the last 24 rows of each patch equal."""
+    x = np.random.default_rng(seed).integers(0, 3, size=(b, p, c)).astype(np.float32)
+    x[:, p - 24:] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("c", [17, 128, 256])
+def test_plain_feature_knn_equals_the_reference_ties_included(c):
+    x = _int_features(6, 64, c, seed=c)
+    want = np.asarray(jdg.feature_knn(jnp.asarray(x), K))
+    np.testing.assert_array_equal(tdg.feature_knn_plain(torch.as_tensor(x), K).numpy(), want)
+    # The repeated rows tie at every distance: the cases hold ties.
+    assert (want[:, 40:, 1] < want[:, 40:, 2]).all()
+
+
+@pytest.fixture(scope="module")
+def patch_features():
+    """The 17 input features of 96 patches of a noisy icosphere(2) and the
+    activations that feed the port's conv4-conv6 with the committed
+    weights."""
+    noisy = add_mesh_noise(icosphere(subdiv=2), jax.random.PRNGKey(0), 0.3)
+    inputs = torch.as_tensor(np.array(extract_mesh_patches(noisy).inputs[:96]))
+    model = tdg.dgcnn_from_state_dict(tw.load_dgcnn_state_dict(cs.bench.ASSETS /
+                                                               "dgcnn_mesh.npz"))
+    seen, knn = [inputs[:, :17].transpose(1, 2).contiguous()], tdg.feature_knn
+
+    def capture(x, k):
+        seen.append(x.clone())
+        return knn(x, k)
+
+    tdg.feature_knn = capture
+    try:
+        with torch.no_grad():
+            model(inputs)
+    finally:
+        tdg.feature_knn = knn
+    return seen
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3], ids=["input17", "conv4", "conv5", "conv6"])
+def test_plain_feature_knn_matches_the_reference_on_real_features(patch_features, which):
+    """Equal on every row whose first k + 1 sorted distances keep each gap
+    above 2 C 2^-24 times the larger one (XLA and torch sum in other
+    orders); most rows are such rows."""
+    x = patch_features[which]
+    c = x.shape[2]
+    got = tdg.feature_knn_plain(x, K).numpy()
+    want = np.asarray(jdg.feature_knn(jnp.asarray(x.numpy()), K))
+    s = np.sort(tdg.feature_sqdist(x).numpy(), axis=-1)[..., : K + 1]
+    clear = ((s[..., 1:] - s[..., :-1]) > SEPARATION * c * s[..., 1:]).all(axis=-1)
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got[clear], want[clear])
+
+
+def _ref_edgeconv_features(x, idx, dynamic=False):
+    """The block that ngpd_tpu's EdgeConv (or DynamicEdgeConv) feeds its
+    Dense layer, captured at the Dense's input."""
+    b, p, f = x.shape
+    seen = []
+
+    def capture(next_fun, args, kwargs, context):
+        if isinstance(context.module, fnn.Dense) and context.method_name == "__call__":
+            seen.append(np.asarray(args[0]))
+        return next_fun(*args, **kwargs)
+
+    if dynamic:
+        mod = jec.DynamicEdgeConv(features=4, k=idx.shape[2], train=False)
+        args = (jnp.asarray(x), jnp.ones((b, p), bool))
+    else:
+        mod = jec.EdgeConv(features=4, train=False)
+        args = (jnp.asarray(x), jnp.asarray(idx), jnp.ones(idx.shape, bool),
+                jnp.ones((b, p), bool))
+    variables = mod.init(jax.random.PRNGKey(0), *args)
+    with fnn.intercept_methods(capture):
+        mod.apply(variables, *args)
+    return seen[-1]
+
+
+@pytest.mark.parametrize("k", [3, 8, 12])
+def test_plain_edge_block_equals_the_reference(k):
+    """Both orders, bit for bit: the DGCNN's ``_edge_features`` and
+    EdgeConv's concatenation (at the input of its Dense layer)."""
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(5, 64, 17)).astype(np.float32)
+    idx = rng.integers(0, 64, size=(5, 64, k))
+    tx, tidx = torch.as_tensor(x), torch.as_tensor(idx)
+    want = np.asarray(jdg._edge_features(jnp.asarray(x), jnp.asarray(idx)))
+    np.testing.assert_array_equal(tedge.edge_block_plain(tx, tidx, "dgcnn").numpy(), want)
+    np.testing.assert_array_equal(tdg._edge_features(tx, tidx).numpy(), want)
+    want = _ref_edgeconv_features(x, idx)
+    np.testing.assert_array_equal(tedge.edge_block_plain(tx, tidx, "edgeconv").numpy(), want)
+    np.testing.assert_array_equal(tedge.edge_block(tx, tidx, "edgeconv").numpy(), want)
+
+
+def test_dynamic_edgeconv_block_equals_the_reference():
+    """DynamicEdgeConv's block over its own masked kNN, self excluded."""
+    from ngpd_tpu_torch.core.patches import masked_pair_knn
+
+    x = np.random.default_rng(7).normal(size=(3, 64, 16)).astype(np.float32)
+    idx, _ = masked_pair_knn(torch.as_tensor(x), torch.ones((3, 64), dtype=torch.bool), K)
+    want = _ref_edgeconv_features(x, idx.numpy(), dynamic=True)
+    np.testing.assert_array_equal(tedge.edge_block(torch.as_tensor(x), idx, "edgeconv").numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("order", ["dgcnn", "edgeconv"])
+def test_edge_block_gradient_is_the_plain_expressions(order):
+    """The autograd.Function's gradient to x equals autograd's of the plain
+    expression bit for bit in float64 (repeated and negative indices
+    included), and passes gradcheck."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 20, 6), generator=g, dtype=torch.float64)
+    idx = torch.randint(0, 20, (3, 20, 5), generator=g)
+    idx[0, 0] = torch.tensor([-1, 3, 3, 0, -20])
+    w = torch.randn((3, 20, 5, 12), generator=g, dtype=torch.float64)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (tedge.edge_block(a, idx, order) * w).sum().backward()
+    (tedge.edge_block_plain(b, idx, order) * w).sum().backward()
+    assert torch.equal(a.grad, b.grad)
+    small = torch.randn((2, 6, 3), generator=g, dtype=torch.float64, requires_grad=True)
+    sidx = torch.randint(0, 6, (2, 6, 4), generator=g)
+    assert torch.autograd.gradcheck(lambda t: tedge.edge_block(t, sidx, order), (small,))
+
+
+def test_edge_block_takes_a_non_contiguous_view_without_a_gradient():
+    """The DGCNN's first conv takes x and idx as transposed views of its
+    inputs, which need no gradient."""
+    inputs = torch.randn((4, 20, 64))
+    inputs[:, 17:] = torch.randint(0, 64, (4, 3, 64)).float()
+    x = inputs[:, :17].transpose(1, 2)
+    idx = inputs[:, 17:].to(torch.int64).transpose(1, 2)
+    out = tdg._edge_features(x, idx)
+    assert not out.requires_grad
+    assert torch.equal(out, tedge.edge_block_plain(x.contiguous(), idx.contiguous(), "dgcnn"))
+
+
+def _launch_params(name):
+    src = (build.CSRC / f"{name}.cu").read_text()
+    sig = src[src.index(f'extern "C" int ngpd_{name}_launch('):]
+    return src, sig[sig.index("(") + 1 : sig.index(")")].split(",")
+
+
+@pytest.mark.parametrize("name", ["feature_knn", "edge_block"])
+def test_the_launch_arguments_match_the_kernel_source(name):
+    """One ctypes type per parameter of the launch function; the limits and
+    variants the wrapper names are the source's; the note says why no
+    tensor core is used and what it replaces."""
+    src, params = _launch_params(name)
+    assert len(params) == len(build.ARGTYPES[name])
+    for text, ctype in zip(params, build.ARGTYPES[name]):
+        want = build._VP if "*" in text else build._F if "float" in text else build._I
+        assert ctype is want, text
+    assert f'extern "C" int ngpd_{name}_blocks_per_sm(' in src
+    assert "Replaces: ngpd_tpu/models/dgcnn.py" in src and "What bounds it on the H100" in src
+    assert "cudaGetLastError" in src and "__fsub_rn" in src
+    if name == "feature_knn":
+        assert f"FKNN_MAX_P = {kgraph.FEATURE_KNN_MAX_P};" in src
+        assert f"FKNN_MAX_K = {kgraph.FEATURE_KNN_MAX_K};" in src
+        assert f"FKNN_SMEM_LIMIT = {kgraph.FEATURE_KNN_SMEM_LIMIT};" in src
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+        for word in ("mma", "wgmma", "TF32", "__fmul_rn", "__fadd_rn"):
+            assert word in src
+        launched = sorted(int(v) for v in re.findall(r"feature_knn_kernel<(\d+)><<<", src))
+        assert launched == [8, 16]
+        assert [kgraph.feature_knn_variant(k) for k in (1, 8, 9, 16)] == [8, 8, 16, 16]
+    else:
+        assert "edgeconv.py" in src
+        assert sorted(re.findall(r"edge_block_kernel<(\w+)><<<", src)) == ["false", "true"]
+        assert kgraph.EDGE_ORDERS == {"dgcnn": 0, "edgeconv": 1}
+
+
+def _small_check(**kwargs):
+    return cs.check_dgcnn_kernels(device="cpu", mesh_subdiv=1, mesh_batch=32,
+                                  point_batch=4, **kwargs)
+
+
+def test_the_smoke_check_passes_the_plain_versions():
+    rec = _small_check()
+    fk, eb = rec["feature_knn"], rec["edge_block"]
+    assert [r["c"] for r in fk] == [128, 256, 128, 256, 256]
+    assert all(r.get("equal", True) and r["max_abs_err"] == 0.0 for r in fk)
+    assert all(r["differing_clear_rows"] == 0 and r["rows"] == 32 * 64 for r in fk[2:])
+    shapes = [(r["model"], r["c"], r["k"], r["order"]) for r in eb]
+    assert shapes == [("dgcnn", 17, 3, "dgcnn"), ("dgcnn", 64, 3, "dgcnn"),
+                      ("dgcnn", 128, 8, "dgcnn"), ("dgcnn", 256, 8, "dgcnn"),
+                      ("patch2normal", 8, 12, "edgeconv"), ("patch2normal", 64, 12, "edgeconv"),
+                      ("patch2normal", 128, 12, "edgeconv"),
+                      ("patch2normal", 256, 12, "edgeconv")]
+    assert all(r["equal"] for r in eb)
+
+
+def _higher_index_ties(x, k):
+    """A feature kNN whose equal distances keep the higher index."""
+    p = x.shape[1]
+    return p - 1 - tdg.feature_knn_plain(torch.flip(x, [1]), k)
+
+
+def _drops_self(x, k):
+    """A feature kNN that leaves each node out of its own list."""
+    d = tdg.feature_sqdist(x)
+    d = d + torch.diag(torch.full((x.shape[1],), float("inf")))
+    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+
+
+def _halves_swapped(x, idx, order):
+    return tedge.edge_block_plain(x, idx, "edgeconv" if order == "dgcnn" else "dgcnn")
+
+
+@pytest.mark.parametrize("wrong", [{"knn_fn": _higher_index_ties}, {"knn_fn": _drops_self},
+                                   {"edge_fn": _halves_swapped}],
+                         ids=["higher_index_ties", "drops_self", "halves_swapped"])
+def test_the_smoke_check_refuses_a_wrong_kernel(wrong):
+    with pytest.raises(SystemExit):
+        _small_check(**wrong)
+
+
+def test_profiles_group_the_graph_kernels_apart_from_the_knn_kernel():
+    """``feature_knn_kernel`` holds ``knn_kernel`` in its name; the profile
+    groups it with neither the kNN kernel nor torch's kernels."""
+    from ngpd_tpu_torch import profile_hybrid as ph
+
+    assert ph._mesh_group("void ngpd::feature_knn_kernel<8>(float const*, long long*, int, "
+                          "int, int)") == "feature_knn"
+    assert ph._mesh_group("void ngpd::edge_block_kernel<true>(float const*)") == "edge_block"
+    assert ph._mesh_group("void ngpd::knn_kernel<16>(float const*)") == "knn"
+    assert ph._mesh_group("void at::native::index_elementwise_kernel") == "gather_scatter"

@@ -11,6 +11,7 @@ from ngpd_tpu_torch.core.cuda_fused import padded_size
 from ngpd_tpu_torch.device import resolve_device
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import graph as kgraph
 from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -347,6 +348,110 @@ def test_cpu_wrappers_use_plain_versions():
     assert {**kw.LAUNCHES, **kknn.LAUNCHES} == before
 
 
+def _graph_operands():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 64, 24), generator=g)
+    return x, torch.randint(0, 64, (3, 64, 5), generator=g)
+
+
+def _graph_calls(x, idx):
+    """The model-level calls that reach the graph kernels."""
+    from ngpd_tpu_torch.models import dgcnn, edge
+
+    return (lambda: dgcnn.feature_knn(x, 8),
+            lambda: dgcnn._edge_features(x, idx),
+            lambda: edge.edge_block(x, idx, "edgeconv"))
+
+
+def test_graph_wrappers_raise_instead_of_falling_back(monkeypatch):
+    """Operands that pass as CUDA reach the kernel build and launch: with no
+    nvcc that raises, and the plain versions never run for them."""
+    from ngpd_tpu_torch.models import dgcnn, edge
+
+    try:
+        build.find_nvcc()
+        pytest.skip("nvcc is present; the missing-compiler path cannot be observed")
+    except RuntimeError:
+        pass
+    monkeypatch.setattr(kgraph, "check_feature_knn", lambda *a: True)
+    monkeypatch.setattr(kgraph, "check_edge_block", lambda *a: True)
+    monkeypatch.setattr(dgcnn, "feature_knn_plain", lambda *a: pytest.fail("ran the plain kNN"))
+    monkeypatch.setattr(edge, "edge_block_plain", lambda *a: pytest.fail("ran the plain block"))
+    monkeypatch.setattr(build, "_LIBS", {})
+    before = dict(kgraph.LAUNCHES)
+    for call in _graph_calls(*_graph_operands()):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert kgraph.LAUNCHES == before
+
+
+def test_graph_wrappers_reject_other_devices_and_bad_operands():
+    """The checks refuse a device other than cuda or cpu, another type,
+    shape or layout, and every shape past the kernels' limits, naming the
+    limit."""
+    from ngpd_tpu_torch.models import dgcnn, edge
+
+    x, idx = _graph_operands()
+    for call in _graph_calls(x.to("meta"), idx.to("meta")):
+        with pytest.raises(RuntimeError, match="cuda or cpu"):
+            call()
+    with pytest.raises(ValueError, match="idx on"):
+        kgraph.check_edge_block(x, idx.to("meta"), "dgcnn")
+    with pytest.raises(ValueError, match="order"):
+        edge.edge_block(x, idx, "pointnet")
+    with pytest.raises(ValueError, match="order"):
+        kgraph.check_edge_block(x, idx, 1)
+    cuda = torch.device("cuda")
+
+    def on_card(t):  # a tensor that reports a CUDA device, for the checks alone
+        class Fake:
+            device, dtype, shape = cuda, t.dtype, t.shape
+            dim = t.dim
+            is_contiguous = t.is_contiguous
+        return Fake()
+
+    with pytest.raises(TypeError):
+        kgraph.check_feature_knn(on_card(x.double()), 8)
+    with pytest.raises(TypeError):
+        kgraph.check_feature_knn(on_card(x[0]), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kgraph.check_feature_knn(on_card(x.transpose(1, 2)), 8)
+    with pytest.raises(ValueError, match="FEATURE_KNN_MAX_K"):
+        kgraph.check_feature_knn(on_card(x), 17)
+    with pytest.raises(ValueError, match="FEATURE_KNN_MAX_K"):
+        kgraph.check_feature_knn(on_card(x[:, :6].contiguous()), 8)
+    with pytest.raises(ValueError, match="FEATURE_KNN_MAX_P"):
+        kgraph.check_feature_knn(on_card(torch.zeros((1, 257, 4))), 8)
+    with pytest.raises(ValueError, match="FEATURE_KNN_SMEM_LIMIT"):
+        kgraph.check_feature_knn(on_card(torch.zeros((1, 64, 1024))), 8)
+    assert kgraph.check_feature_knn(on_card(torch.zeros((1, 64, 907))), 16)
+    assert kgraph.feature_knn_smem_bytes(64, 256) == 65_536
+    assert kgraph.check_edge_block(on_card(x), on_card(idx), "edgeconv")
+    with pytest.raises(TypeError):
+        kgraph.check_edge_block(on_card(x), on_card(idx.int()), "dgcnn")
+    with pytest.raises(TypeError):
+        kgraph.check_edge_block(on_card(x.half()), on_card(idx), "dgcnn")
+    with pytest.raises(TypeError):
+        kgraph.check_edge_block(on_card(x), on_card(idx[:2]), "dgcnn")
+    with pytest.raises(ValueError, match="contiguous"):
+        kgraph.check_edge_block(on_card(x), on_card(idx.transpose(1, 2).contiguous()
+                                                    .transpose(1, 2)), "dgcnn")
+    assert not kgraph.check_feature_knn(x, 8) and not kgraph.check_edge_block(x, idx, "dgcnn")
+
+
+def test_cpu_graph_wrappers_use_plain_versions():
+    """On CPU tensors the feature kNN and both edge-block orders return the
+    plain versions' results and count no launch."""
+    from ngpd_tpu_torch.models import dgcnn, edge, edgeconv
+
+    x, idx = _graph_operands()
+    before = dict(kgraph.LAUNCHES)
+    assert torch.equal(dgcnn.feature_knn(x, 8), dgcnn.feature_knn_plain(x, 8))
+    assert torch.equal(dgcnn._edge_features(x, idx), edge.edge_block_plain(x, idx, "dgcnn"))
+    assert torch.equal(edgeconv._edge_block(x, idx), edge.edge_block_plain(x, idx, "edgeconv"))
+    assert kgraph.LAUNCHES == before == {"feature_knn": 0, "edge_block": 0}
+
+
 def test_k0_launches_windows_past_2048_columns(monkeypatch):
     """K0 takes every window whose shared-memory rows fit: wt_c 2,304 (the
     CLI's --window 1024 at tile 256) and 4,352 reach the launch. The
@@ -494,10 +599,10 @@ def test_pass_bd_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
 
 def test_build_lists_every_kernel_with_its_argument_types():
     assert build.SOURCES == ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d",
-                             "pass_bd", "knn")
+                             "pass_bd", "knn", "feature_knn", "edge_block")
     assert set(build.ARGTYPES) == set(build.SOURCES)
     for name in build.SOURCES:
-        assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES}
+        assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES, **kgraph.LAUNCHES}
         # One ctypes type per parameter of the C launch function.
         src = (build.CSRC / f"{name}.cu").read_text()
         sig = src[src.index(f"ngpd_{name}_launch("):]
@@ -638,8 +743,11 @@ def test_kernel_sources_target_sm90a():
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int ngpd_{name}_launch' in src
-        # The kNN kernel replaces a jitted XLA program, the others pallas_calls.
-        replaced = "ngpd_tpu/ops/knn.py" if name == "knn" else "ngpd_tpu/core/pallas_fused.py"
+        # The kNN and graph kernels replace jitted XLA programs, the others
+        # pallas_calls.
+        replaced = {"knn": "ngpd_tpu/ops/knn.py", "feature_knn": "ngpd_tpu/models/dgcnn.py",
+                    "edge_block": "ngpd_tpu/models/dgcnn.py"}.get(
+                        name, "ngpd_tpu/core/pallas_fused.py")
         assert f"Replaces: {replaced}" in src
         assert "What bounds it on the H100" in src
     assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
