@@ -13,22 +13,28 @@ exit code and no result line:
   knn_kernel the kNN kernel (``csrc/knn.cu``, behind ``ops/knn.py::knn``
              and ``::nn_distances`` on the card) against its plain version,
              the tile loop ``knn_plain``, on the card, ``torch.equal`` on
-             distances, indices and masks, one launch a call: the noisy
-             ``make_cloud(100_000)`` with k 16, plain, with exclude_self and
-             with num_valid n - 50; the mesh cell's 81,920 face centroids
-             with k 64; k 1 through ``nn_distances`` at the Chamfer gate's
-             shape (``bench.cd_ratio``: 20,000 clean against 20,000 noisy
-             points of the 1M-point main cloud) and with 20,000 clean points
-             against the whole main cloud; the dense cell's
-             ``make_cloud(32_768)`` at the dense route's k 6, 8 and 16 and
-             at k 6 and 24 with exclude_self; a 40^3 integer lattice (exact
-             ties); separate queries; k past the valid count; k 65, past the
-             largest register variant (the row kernel). Each case's kernel
-             and plain time (one call); the first case's median of 10
-             launches, its bound and the library composition's time
-             (``torch.cdist`` then ``torch.topk``, one 4,096-query tile
-             timed and scaled by n / 4,096); registers, spills and blocks
-             an SM of every variant
+             distances, indices and masks, one launch of the search kernel
+             a call and one of the merge kernel where the points are split:
+             the noisy ``make_cloud(100_000)`` with k 16, plain, with
+             exclude_self and with num_valid n - 50, and with k 64
+             (``md_selection``'s patch membership); the mesh cell's 81,920
+             face centroids with k 64; k 1 through ``nn_distances`` at the
+             Chamfer gate's shape (``bench.cd_ratio``: 20,000 clean against
+             20,000 noisy points of the 1M-point main cloud) and with 20,000
+             clean points against the whole main cloud; 2,000 clean points
+             at k 16 against the whole main cloud (the split at its most
+             slices); the dense cell's ``make_cloud(32_768)`` at the dense
+             route's k 6, 8 and 16 and at k 6 and 24 with exclude_self; a
+             40^3 integer lattice (exact ties); separate queries; k past the
+             valid count; k 65 and 128 (lists in device memory). Each case's
+             kernel time (median of 10 launches), plain time (one call),
+             bound and slices; the first case's library composition
+             (``torch.cdist`` then ``torch.topk``, one 4,096-query tile timed
+             and scaled by n / 4,096); the merge kernel alone on the partial
+             rows of the dense route's k 8 (the shape of its launches on the
+             dense route) and of the split case, against ``merge_plain``
+             (error, time, plain and ``torch.topk`` times, bound);
+             registers, spills and blocks an SM of every variant
   native     the native host runtime (``ngpd_tpu_torch/native``, host code,
              no kernel): g++ builds it (the flags that built it, seconds);
              an OBJ of icosphere(8) with vertex normals (655,362 vertices,
@@ -205,8 +211,8 @@ exit code and no result line:
              cell's 81,920 faces against the unsharded call (Ea within
              MESH_EA_TOL, the normals within their own one-ulp spread)
 
-The second-to-last line is the ``kernels`` JSON record (eleven kernels:
-K0, K1, K2, passes A-D and BD, KNN, FEATURE_KNN, EDGE_BLOCK), the last line
+The second-to-last line is the ``kernels`` JSON record (twelve kernels:
+K0, K1, K2, passes A-D and BD, KNN, KNN_MERGE, FEATURE_KNN, EDGE_BLOCK), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
 """
 
@@ -272,12 +278,14 @@ from ngpd_tpu_torch.parallel import (chamfer_distance_sharded, denoise_sharded,
 from ngpd_tpu_torch.parallel.fused_sharded import TILES_A_BATCH
 from ngpd_tpu_torch.parallel.halo import fused_denoise_halo
 from ngpd_tpu_torch.parallel.mesh import init_group
+from ngpd_tpu_torch.smoke_cases import (DENSE_N, FKNN_K, FKNN_WIDTHS, MAIN_N, MESH_SUBDIV,
+                                        int_features, knn_kernel_cases, mesh_activations,
+                                        run_knn_case)
 
 ROOT = Path(__file__).resolve().parent
-MAIN_N, MAIN_K, MAIN_ITERS = 1_000_000, 32, 20
+MAIN_K, MAIN_ITERS = 32, 20
 VARIANT_N = 65_536
 CLI_N = 100_000
-DENSE_N = 32_768  # under the CLI's 100k route to the hybrid engine
 # fused_denoise maps its tiles in groups of 16, the reference bench's
 # fused setting (bench.py:246-250): a fourth of the default's launches.
 FUSED_N, FUSED_ITERS, FUSED_GROUP = 65_536, 20, 16
@@ -306,7 +314,7 @@ PASS_TOL, FLIP_SHARE, FLIP_MAX = 1e-5, 1e-3, 2e-2
 MIN_CLASS_POINTS = 100  # pass_variants: points each class must have
 # The mesh cascade: the reference bench's workload (bench.py:143-173) and
 # a small mesh whose CPU run stays within seconds (~0.5 GFLOP a face).
-MESH_SUBDIV, MESH_REF_SUBDIV = 6, 3
+MESH_REF_SUBDIV = 3
 # The learned point track: the CLI cell's cloud, the reference's batch
 # (learn/predict.py); the card-against-CPU cloud, its points held twice, and
 # the patches whose train-mode step refreshes the BatchNorm statistics.
@@ -362,26 +370,14 @@ NATIVE_SUBDIV, NATIVE_KNN_N, NATIVE_KNN_K, NATIVE_KNN_ULPS = 8, 100_000, 16, 8
 # the check runs at 256; the pipeline's own capacity (``denoise``'s
 # grid_capacity, 96) is run too and its rows off the oracle are counted.
 NATIVE_GRID_CAPACITY = 256
-# The kNN kernel (csrc/knn.cu) against its plain version on the card, held
-# with torch.equal: the point track's cloud (k 16, plain, exclude_self,
-# num_valid n - 50), the mesh cell's centroids (k 64), k 1 through
-# nn_distances at the Chamfer gate's shape (bench.cd_ratio: KNN_NN_QUERIES
-# clean points against as many noisy ones of the main cloud) and with
-# KNN_NN_QUERIES clean points against the whole main cloud (few queries,
-# many points), the dense cell's cloud at the dense route's k (6, 8, 16)
-# and at a k of the 32-list variant, an integer lattice (exact ties),
-# separate queries, k past the valid count and one k past the largest
-# register variant (the row kernel).
-KNN_N, KNN_K, KNN_NN_QUERIES, KNN_LATTICE_SIDE = 100_000, 16, 20_000, 40
 # The library composition is timed on one query tile (KNN_LIBRARY_REPS
 # runs) and scaled by the tile count: every tile does the same work.
 KNN_REPS, KNN_LIBRARY_TILE, KNN_LIBRARY_REPS = 10, 4_096, 3
 # The learned models' graph kernels (csrc/feature_knn.cu, csrc/edge_block.cu)
 # against their plain versions: the feature kNN at the mesh cell's batch and
-# k on small-integer features whose last FKNN_EQUAL_ROWS rows a patch are
+# k on small-integer features whose last rows a patch are
 # equal (every distance exact, ties everywhere), then on real activations;
 # the edge block at every width and K of both forwards.
-FKNN_K, FKNN_WIDTHS, FKNN_EQUAL_ROWS = 8, (128, 256), 24
 # A sum of C float32 terms taken in two orders differs by at most about
 # C 2^-24 of itself each way, so a row whose sorted plain distances keep
 # gaps above FKNN_SEPARATION x C x the larger one is clearly separated: the
@@ -976,11 +972,13 @@ def check_dense() -> dict:
     (out, out_n, cls), ms = time_once(
         lambda: denoise(noisy, nrm, cfg, iterations=2, device="cuda"))
     knn_launches = kknn.LAUNCHES["knn"]
+    merge_launches = kknn.LAUNCHES["knn_merge"]
     # The step threshold's 6-NN, then feature_k and step_k an iteration.
     if knn_launches != 1 + 2 * 2:
         fail(f"dense denoise launched the kNN kernel {knn_launches} times, not 5")
     ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
     rec["denoise"] = {"seconds": ms / 1e3, "knn_launches": knn_launches,
+                      "knn_merge_launches": merge_launches,
                       "cd_noisy": cd_noisy, "cd_denoised": cd_out,
                       "classes": torch.bincount(cls.long(), minlength=3).tolist()}
     if not (torch.isfinite(out).all() and torch.isfinite(out_n).all() and cd_out < cd_noisy):
@@ -2011,62 +2009,6 @@ def oracle_check(name: str, idx: torch.Tensor, d: torch.Tensor, oidx: np.ndarray
     return rec
 
 
-def knn_kernel_cases(n: int = KNN_N, mesh_subdiv: int = MESH_SUBDIV,
-                     nn_points: int = MAIN_N, nn_queries: int = KNN_NN_QUERIES,
-                     lattice_side: int = KNN_LATTICE_SIDE,
-                     dense_n: int = DENSE_N) -> list[dict]:
-    """The knn_kernel phase's cases on the CPU: each names its points, its
-    queries (None for the points themselves), k and the masks; ``nn`` marks
-    the cases that go through ``nn_distances``."""
-    noisy = torch.as_tensor(bench.make_cloud(n)[0])
-    cents = bench.mesh_workload(mesh_subdiv)[1].face_data()[2]
-    main_noisy, _, main_clean = bench.make_cloud(nn_points)
-    gate = bench.gate_sample(nn_points, nn_queries)
-    stride = max(1, nn_points // nn_queries)
-    dense = torch.as_tensor(bench.make_cloud(dense_n)[0])
-    g = torch.arange(lattice_side, dtype=torch.float32)
-    lattice = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1).reshape(-1, 3)
-    top = kknn.REGISTER_KS[-1]
-
-    def case(name, points, k, queries=None, exclude_self=False, num_valid=None, nn=False):
-        return {"case": name, "points": points, "queries": queries, "k": k,
-                "exclude_self": exclude_self, "num_valid": num_valid, "nn": nn}
-
-    return [
-        case("cloud", noisy, KNN_K),
-        case("cloud_exclude_self", noisy, KNN_K, exclude_self=True),
-        case("cloud_num_valid", noisy, KNN_K, num_valid=n - 50),
-        case("mesh_centroids", cents, 64),
-        case("chamfer_gate", torch.as_tensor(main_noisy[gate]), 1,
-             torch.as_tensor(main_clean[gate]), nn=True),
-        case("nn_whole_cloud", torch.as_tensor(main_noisy), 1,
-             torch.as_tensor(main_clean[::stride][:nn_queries]), nn=True),
-        # core/pipeline.py's threshold 6-NN, step_k and feature_k, then
-        # core/process.py's 6-NN and a k of the 32-list variant.
-        case("dense_k6", dense, 6, num_valid=dense_n),
-        case("dense_k8", dense, 8, num_valid=dense_n),
-        case("dense_k16", dense, 16),
-        case("dense_k6_exclude_self", dense, 6, exclude_self=True),
-        case("dense_k24_exclude_self", dense, 24, exclude_self=True),
-        case("lattice_ties", lattice, KNN_K, exclude_self=True),
-        case("separate_queries", noisy, 12, noisy[::5] + 0.003, num_valid=n - 50),
-        case("k_past_valid", noisy, KNN_K, noisy[:4096], num_valid=10),
-        case("row_kernel", noisy, top + 1, exclude_self=True),
-    ]
-
-
-def _knn_of(case: dict, knn_fn, nn_fn, device: str):
-    """(idx, mask, d) of one case through ``knn_fn`` (or ``nn_fn``)."""
-    pts = case["points"].to(device)
-    q = None if case["queries"] is None else case["queries"].to(device)
-    if case["nn"]:
-        d, idx = nn_fn(q, pts, num_valid_b=case["num_valid"])
-        return idx[:, None], torch.isfinite(d)[:, None], d[:, None]
-    nbh, d = knn_fn(pts, case["k"], q, exclude_self=case["exclude_self"],
-                    num_valid=case["num_valid"])
-    return nbh.idx, nbh.mask, d
-
-
 def _knn_plain_of(case: dict, device: str):
     """The same case through the plain tile loop; k 1 with nn_distances'
     tiles."""
@@ -2090,14 +2032,66 @@ def knn_library_ms(pts: torch.Tensor, k: int) -> float:
     return time_launches(run, reps=KNN_LIBRARY_REPS) * tiles
 
 
+def knn_bound(nq: int, nv: int, k: int) -> tuple[float, str]:
+    """The least time of a search: both clouds read and the (nq, k)
+    outputs written once, DIST_OPS a (query, point) pair."""
+    return bound((nv + nq) * 12 + nq * k * 12, DIST_OPS * nq * nv)
+
+
+def knn_merge_facts(case: dict) -> dict:
+    """The merge kernel alone on the partial rows of ``case`` (a search that
+    splits): held to ``merge_plain``, its largest distance error, its time
+    (median of KNN_REPS launches), the plain version's, ``torch.topk`` over
+    the same keys as the library call, its bound (the partial rows read,
+    the outputs written; S k compares a slot) and its ptxas figures."""
+    pts, k = case["points"].to("cuda"), case["k"]
+    q = pts if case["queries"] is None else case["queries"].to("cuda")
+    nq, n = len(q), len(pts)
+    nv = n if case["num_valid"] is None else max(0, min(case["num_valid"], n))
+    s = kknn.slices(nq, nv, k)
+    if s < 2:
+        fail(f"knn_kernel: {case['case']} does not split ({s} slice)")
+    part = torch.empty((s, nq, k), dtype=torch.int64, device="cuda")
+    kknn._launch("knn_split", "knn", pts.data_ptr(), q.data_ptr(), part.data_ptr(), n, nq,
+                 nv, k, int(case["exclude_self"]), s)
+    d = torch.empty((nq, k), dtype=torch.float32, device="cuda")
+    idx = torch.empty((nq, k), dtype=torch.int64, device="cuda")
+
+    def merge():
+        kknn._launch("knn_merge", "knn_merge", part.data_ptr(), d.data_ptr(), idx.data_ptr(),
+                     nq, k, s)
+
+    merge()
+    pd, pidx = kknn.merge_plain(part)
+    if not (torch.equal(d, pd) and torch.equal(idx, pidx)):
+        fail(f"knn_kernel: the merge kernel differs from merge_plain on {case['case']}")
+    finite = torch.isfinite(pd) & torch.isfinite(d)
+    keys = part.permute(1, 0, 2).reshape(nq, s * k).contiguous()
+    b_ms, by = bound(part.numel() * 8 + nq * k * 12, nq * k * s)
+    entry = build.template_entry(build.ptxas_report(build.library_path("knn")),
+                                 "knn_merge_kernel")
+    return {"case": case["case"], "slices": s, "queries": nq, "k": k,
+            "max_abs_err": float((d - pd)[finite].abs().max()) if finite.any() else 0.0,
+            "ms": time_launches(merge, reps=KNN_REPS),
+            "plain_ms": time_launches(lambda: kknn.merge_plain(part), reps=3),
+            "library_ms": time_launches(lambda: torch.topk(keys, k, dim=1, largest=False),
+                                        reps=KNN_REPS),
+            "library_note": "torch.topk of each query's S k partial keys (the merge's "
+                            "selection without its conversion to distances and indices)",
+            "bound_ms": b_ms, "bound_by": by,
+            "registers": entry.get("registers"), "spill_stores": entry.get("spill_stores")}
+
+
 def check_knn_kernel(device: str = "cuda", knn_fn=knn, nn_fn=nn_distances,
                      cases=None) -> dict:
     """``knn`` (or a stand-in ``knn_fn``) against the plain tile loop on
     every case of ``knn_kernel_cases``, on ``device``: distances, indices
-    and masks ``torch.equal``; on the card one launch a call. Then, on the
-    card, the first case's kernel time (median of KNN_REPS launches), plain
-    and library time, bound, and the registers, spills and blocks an SM
-    of every variant."""
+    and masks ``torch.equal``; on the card one launch of the search kernel
+    a call and, where the points are split into slices, one of the merge
+    kernel. On the card also each case's kernel time (median of KNN_REPS
+    launches), plain time and bound, the first case's library time, the
+    merge kernel alone on the dense route's k 8 and on the split case, and
+    the registers, spills and blocks an SM of every variant."""
     on_card = device == "cuda"
 
     def timer(fn):
@@ -2110,41 +2104,52 @@ def check_knn_kernel(device: str = "cuda", knn_fn=knn, nn_fn=nn_distances,
     records = []
     for case in cases:
         kknn.reset_launch_counts()
-        (idx, mask, d), ms = timer(lambda: _knn_of(case, knn_fn, nn_fn, device))
-        launches = kknn.LAUNCHES["knn"]
+        (idx, mask, d), ms = timer(lambda: run_knn_case(case, knn_fn, nn_fn, device))
+        launches = dict(kknn.LAUNCHES)
         (pidx, pmask, pd), plain_ms = timer(lambda: _knn_plain_of(case, device))
         finite = torch.isfinite(pd) & torch.isfinite(d)
-        rec = {"case": case["case"], "n": len(case["points"]),
-               "queries": len(case["points"] if case["queries"] is None else case["queries"]),
+        nq = len(case["points"] if case["queries"] is None else case["queries"])
+        nv = len(case["points"]) if case["num_valid"] is None else case["num_valid"]
+        rec = {"case": case["case"], "n": len(case["points"]), "queries": nq,
                "k": case["k"], "exclude_self": case["exclude_self"],
-               "num_valid": case["num_valid"], "variant": kknn.variant(case["k"]),
-               "launches": launches, "ms": ms, "plain_ms": plain_ms,
+               "num_valid": case["num_valid"], "variant": list(kknn.variant(case["k"])),
+               "launches": launches["knn"], "merge_launches": launches["knn_merge"],
+               "ms": ms, "plain_ms": plain_ms,
                "max_abs_err": float((d - pd)[finite].abs().max()) if finite.any() else 0.0,
                "equal": (torch.equal(d, pd) and torch.equal(idx, pidx)
                          and torch.equal(mask, pmask))}
         records.append(rec)
         if not rec["equal"]:
             fail(f"knn_kernel: {case['case']} differs from the plain version: {rec}")
-        if on_card and launches != 1:
-            fail(f"knn_kernel: {case['case']} launched the kernel {launches} times")
+        if on_card and knn_fn is knn:
+            rec["slices"] = kknn.slices(nq, max(0, min(nv, rec["n"])), case["k"])
+            want = {"knn": 1, "knn_merge": int(rec["slices"] > 1)}
+            if launches != want:
+                fail(f"knn_kernel: {case['case']} launched {launches}, not {want} (the "
+                     f"search kernel once, the merge once where it splits)")
+            rec["ms"] = time_launches(lambda: run_knn_case(case, knn_fn, nn_fn, device),
+                                      reps=KNN_REPS)
+            rec["bound_ms"], rec["bound_by"] = knn_bound(nq, nv, case["k"])
     out = {"cases": records}
     if not on_card:
         return out
     first = cases[0]
     pts, k = first["points"].to(device), first["k"]
-    nq = nv = len(pts)
-    b_ms, by = bound((nv + nq) * 12 + nq * k * 12, DIST_OPS * nq * nv)
-    out["timed"] = {"case": first["case"], "ms": time_launches(lambda: knn(pts, k),
-                                                               reps=KNN_REPS),
-                    "plain_ms": records[0]["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+    out["timed"] = {"case": first["case"], "ms": records[0]["ms"],
+                    "plain_ms": records[0]["plain_ms"], "bound_ms": records[0]["bound_ms"],
+                    "bound_by": records[0]["bound_by"],
                     "library_ms": knn_library_ms(pts, k),
                     "library_note": "torch.cdist (donot_use_mm_for_euclid_dist) then "
                                     "torch.topk, two calls a 4,096-query tile; one tile "
                                     "timed, times the tiles"}
-    out["build"] = {f"knn_kernel<{v}>": build_facts("knn", "knn_kernel", (v,), (v,))
-                    for v in kknn.REGISTER_KS}
-    out["build"]["knn_row_kernel"] = build_facts("knn", "knn_row_kernel", (),
-                                                 (kknn.REGISTER_KS[-1] + 1,))
+    # The merge alone at the dense route's k 8, the shape of its launches on
+    # the main path, and on the forced split.
+    by_name = {c["case"]: c for c in cases}
+    out["merge"] = knn_merge_facts(by_name["dense_k8"])
+    out["merge_split"] = knn_merge_facts(by_name["split"])
+    variants = {tuple(kknn.variant(c["k"])): c["k"] for c in cases}
+    out["build"] = {f"knn_kernel<{','.join(map(str, v))}>":
+                    build_facts("knn", "knn_kernel", v, (k,)) for v, k in variants.items()}
     return out
 
 
@@ -2223,34 +2228,6 @@ def edge_block_shapes(mesh_batch: int = bench.MESH_BATCH,
              for c, k in dict.fromkeys(mesh)]
             + [{"model": "patch2normal", "order": "edgeconv", "batch": point_batch,
                 "p": cfg.patch_size, "c": c, "k": k} for c, k in dict.fromkeys(point)])
-
-
-def int_features(b: int, p: int, c: int, generator: torch.Generator) -> torch.Tensor:
-    """Features 0, 1 or 2, the last FKNN_EQUAL_ROWS rows of each patch 0."""
-    x = torch.randint(0, 3, (b, p, c), generator=generator).float()
-    x[:, p - FKNN_EQUAL_ROWS:] = 0.0
-    return x
-
-
-def mesh_activations(device: str, subdiv: int, batch: int) -> list[torch.Tensor]:
-    """The inputs of the DGCNN's feature kNN (conv4 to conv6) in one forward
-    of the committed pass-1 model over the mesh cell's first ``batch``
-    patches."""
-    _, noisy = bench.mesh_workload(subdiv)
-    inputs = extract_mesh_patches(noisy.to(device), device=device).inputs[:batch]
-    model = dgcnn_from_state_dict(load_dgcnn_state_dict(bench.ASSETS / "dgcnn_mesh.npz"))
-    seen, knn_of = [], dgcnn_mod.feature_knn
-
-    def capture(x, k):
-        seen.append(x.clone())
-        return knn_of(x, k)
-
-    dgcnn_mod.feature_knn = capture
-    try:
-        gcn.run_dgcnn(model.to(device), inputs, batch)
-    finally:
-        dgcnn_mod.feature_knn = knn_of
-    return seen
 
 
 def check_feature_knn(x: torch.Tensor, knn_fn, integer: bool) -> dict:
@@ -2340,7 +2317,8 @@ def time_feature_knn(x: torch.Tensor) -> dict:
             largest=False), reps=GRAPH_PLAIN_REPS),
         "bound_ms": b_ms, "bound_by": by,
         "build": build_facts("feature_knn", "feature_knn_kernel",
-                             (kgraph.feature_knn_variant(k),), (p, c, k)),
+                             (kgraph.feature_knn_variant(k), c % 4 == 0,
+                              kgraph.feature_knn_shape(p)["rounds"] == 1), (p, c, k)),
     }
 
 
@@ -2524,6 +2502,8 @@ def main() -> int:
     # the dense (N, k) pipeline and the rest of the CLI's routes
     dense_rec = check_dense()
     say("dense", **dense_rec)
+    if not dense_rec["denoise"]["knn_merge_launches"]:
+        fail("dense denoise never split a search: the merge kernel ran no time on its path")
 
     # the learned models' graph kernels against their plain versions
     graph_rec = check_dgcnn_kernels()
@@ -2578,7 +2558,7 @@ def main() -> int:
     # KNN replaces a jitted XLA program (a lax.map over query chunks around a
     # lax.scan over point tiles), not a pallas_call; its launches are those
     # of the dense route's denoise, its own path.
-    timed = knn_rec["timed"]
+    timed, merge = knn_rec["timed"], knn_rec["merge"]
     kernels.append({
         "name": "KNN", "route": "cuda", "source": "ngpd_tpu_torch/kernels/csrc/knn.cu",
         "replaces": "ngpd_tpu/ops/knn.py:112",
@@ -2586,6 +2566,17 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in knn_rec["cases"]),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
+    })
+    # The split path's merge of the slices' partial rows, a kernel of its own
+    # in knn.cu; counted on the dense route's run, whose searches split, and
+    # timed at that run's k 8.
+    kernels.append({
+        "name": "KNN_MERGE", "route": "cuda", "source": "ngpd_tpu_torch/kernels/csrc/knn.cu",
+        "replaces": "ngpd_tpu/ops/knn.py:112",
+        "launches": dense_rec["denoise"]["knn_merge_launches"],
+        "max_abs_err": merge["max_abs_err"], "ms": merge["ms"], "plain_ms": merge["plain_ms"],
+        "bound_ms": merge["bound_ms"], "bound_by": merge["bound_by"],
+        "library_ms": merge["library_ms"],
     })
     # The graph kernels replace jitted XLA programs of the learned models, not
     # pallas_calls. The feature kNN is timed at the mesh cell's widest

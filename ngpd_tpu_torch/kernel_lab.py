@@ -5,6 +5,7 @@ times.
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
         [--rounds 3] [--n 1000000] [--window 128] [--feature-k 32]
+        [--smoke-cases] [--sass]
 
 Builds ``k0.cu``, ``k1.cu``, ``k2.cu``, ``pass_a.cu`` ... ``pass_d.cu`` and
 ``pass_bd.cu`` of this checkout as they are (the ``tree`` build), once
@@ -28,8 +29,10 @@ tile 256, window 128, default strategy; ``--window`` and ``--feature-k``
 change the window and feature_k, e.g. the CLI's 512 and 16, or K0's
 shared-memory kernel at 1024 and 2048; the kNN kernel searches the
 cloud's feature_k nearest of every point; the feature kNN and the edge
-block run on seeded features at the mesh cell's widest shapes) it prints one JSON line a build
-and kernel: ptxas registers and spills, blocks an SM, whether every output
+block run on seeded features at the mesh cell's widest shapes; ``--smoke-cases`` runs the kNN
+kernel at every case of ``smoke_cases.knn_kernel_cases`` and the feature kNN at every input
+of chip_smoke's ``dgcnn_kernels`` phase instead) it prints one
+JSON line a build and kernel (and case): ptxas registers and spills, blocks an SM, whether every output
 equals the tree build's bit for bit (rows that differ and the largest
 difference otherwise), and the launch time, median of 25 CUDA-event-timed
 launches, least and median over ``--rounds`` rounds that take the builds
@@ -37,7 +40,13 @@ in turn. Each pass kernel is fed the plain outputs of the passes before
 it, as ``chip_smoke.check_passes`` feeds it. ``--corner`` adds the output
 comparison on the 65,536-point corner cloud for all four strategies.
 Builds with a timing switch compute something else by design; their
-``equal`` is false. Needs a card.
+``equal`` is false. ``--sass`` adds, for each build and kernel, the
+instruction counts of the entry function's hottest loop (the one with the
+most float32 arithmetic) from ``cuobjdump -sass``: its instructions, float
+arithmetic and shared-memory loads an iteration, the numerator of the
+card's issue ceiling. A kNN library from before the split path (no
+``ngpd_knn_slices``) runs every case in one launch, as it did. Needs a
+card.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 from contextlib import contextmanager
@@ -53,6 +63,7 @@ from pathlib import Path
 import torch
 
 from . import bench
+from . import smoke_cases as sc
 from .config import DenoiseConfig
 from .core import hybrid_stages as hs
 from .core.cuda_fused import passes_prologue, prologue
@@ -69,6 +80,20 @@ STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
 
+class _PreSplit:
+    """A kNN library from before the split path: one launch a search."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    @staticmethod
+    def ngpd_knn_slices(nq: int, nv: int, k: int) -> int:
+        return 1
+
+
 def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
     """{build name: {kernel name: (CDLL, library path)}}, all compiled in
     one round of nvcc processes."""
@@ -82,8 +107,13 @@ def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
     out = {}
     for (b, k), p in paths.items():
         lib = ctypes.CDLL(str(p))
-        fn = getattr(lib, f"ngpd_{k}_launch")
-        fn.argtypes, fn.restype = build.ARGTYPES[k], ctypes.c_int
+        entries = {f"ngpd_{k}_launch": build.ARGTYPES[k], **build.ENTRY_ARGTYPES.get(k, {})}
+        for entry, argtypes in entries.items():
+            if hasattr(lib, entry):
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        if k == "knn" and not hasattr(lib, "ngpd_knn_slices"):
+            lib = _PreSplit(lib)
         out.setdefault(b, {})[k] = (lib, p)
     return out
 
@@ -225,6 +255,29 @@ def edge_block_call(n: int, cloud, strategy, cfg, window: int = 128):
     return lambda: (kgraph.edge_block(x, idx, "dgcnn"),)
 
 
+def smoke_runs() -> list:
+    """(kernel, case, k, call maker) for every input chip_smoke holds the kNN
+    kernels to (``smoke_cases``): every case of its ``knn_kernel`` phase,
+    then the feature kNN's integer features at C 128 and 256 and the mesh
+    cell's activations."""
+    from .config import PatchConfig
+    from .models import dgcnn
+    from .ops.knn import knn, nn_distances
+
+    runs = [("knn", c["case"], c["k"],
+             (lambda c=c: lambda: sc.run_knn_case(c, knn, nn_distances, "cuda")))
+            for c in sc.knn_kernel_cases()]
+    g = torch.Generator().manual_seed(0)
+    p = PatchConfig().num_nodes
+    xs = [(f"int_c{c}", sc.int_features(bench.MESH_BATCH, p, c, g).to("cuda"))
+          for c in sc.FKNN_WIDTHS]
+    xs += [(f"conv{4 + i}_c{x.shape[2]}", x) for i, x in enumerate(
+        sc.mesh_activations("cuda", sc.MESH_SUBDIV, bench.MESH_BATCH))]
+    return runs + [("feature_knn", name, sc.FKNN_K,
+                    (lambda x=x: lambda: (dgcnn.feature_knn(x, sc.FKNN_K),)))
+                   for name, x in xs]
+
+
 def _k0_entry(wt_c: int, feature_k: int) -> tuple:
     """K0's register kernel takes its columns a lane; past 2,048 columns
     its shared-memory kernel runs."""
@@ -233,9 +286,9 @@ def _k0_entry(wt_c: int, feature_k: int) -> tuple:
 
 
 def _knn_entry(wt_c: int, feature_k: int) -> tuple:
-    """The kNN kernel's variant follows k (feature_k)."""
-    v = kknn.variant(feature_k)
-    return ("knn_kernel", (v,)) if v else ("knn_row_kernel", ())
+    """The kNN kernel's variant follows k (feature_k): its queries a
+    thread and whether its list is one key."""
+    return "knn_kernel", kknn.variant(feature_k)
 
 
 def _window(*extra):
@@ -256,7 +309,8 @@ ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
            "k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
            "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
            "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,)),
-           "knn": ("knn_kernel", (32,)), "feature_knn": ("feature_knn_kernel", (8,)),
+           "knn": ("knn_kernel", kknn.variant(32)),
+           "feature_knn": ("feature_knn_kernel", (8, True, True)),
            "edge_block": ("edge_block_kernel", (True,))}
 SHAPED_ENTRIES = {"k0": _k0_entry, "knn": _knn_entry}
 GEOMETRY = {"k0": _window(), "k1": _window(), "k2": _window(1, 1, 0), "pass_a": _window(),
@@ -271,6 +325,53 @@ def entry_of(kernel: str, wt_c: int = 512, feature_k: int = 32) -> tuple:
     ``wt_c`` window columns and k ``feature_k``."""
     shaped = SHAPED_ENTRIES.get(kernel)
     return shaped(wt_c, feature_k) if shaped else ENTRIES[kernel]
+
+
+FP32_OPS = ("FADD", "FMUL", "FMNMX", "FFMA", "FSETP", "FSEL")
+
+
+def sass_hot_loop(library: Path, function_tag: str) -> dict:
+    """The hot loop of ``library``'s first entry function whose name holds
+    ``function_tag``, from ``cuobjdump -sass`` (a loop runs from a backward
+    branch's target to the branch): the smallest loop that holds a warp
+    vote (the kNN kernel's batch loop; ``to_vote`` counts its instructions
+    from the loop head through the vote's branch, the path of a batch that
+    no query takes), else the innermost loop with the most float32
+    instructions. Counts its instructions, float32 instructions and LDS."""
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    body = next((f for f in text.split("Function : ")[1:]
+                 if function_tag in f.split("\n", 1)[0]), "")
+    instr = []  # (address, opcode)
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            words = m.group(2).split()
+            branch = re.search(r"BRA .*?0x([0-9a-f]+)", m.group(2))
+            instr.append((int(m.group(1), 16), words[1] if words[0].startswith("@") else words[0],
+                          int(branch.group(1), 16) if branch else None))
+    loops = [(t, a) for a, _, t in instr if t is not None and t < a]
+
+    def ops(lo, hi):
+        return [o for a, o, _ in instr if lo <= a <= hi]
+
+    voted = [lp for lp in loops if any(o.startswith("VOTE") for o in ops(*lp))]
+    if voted:
+        lo, hi = min(voted, key=lambda lp: lp[1] - lp[0])
+    else:
+        inner = [lp for lp in loops if not any(lp[0] <= t and a < lp[1] for t, a in loops
+                                               if (t, a) != lp)]
+        if not inner:
+            return {}
+        lo, hi = max(inner, key=lambda lp: sum(o.startswith(FP32_OPS) for o in ops(*lp)))
+    loop = ops(lo, hi)
+    rec = {"instructions": len(loop), "fp32": sum(o.startswith(FP32_OPS) for o in loop),
+           "lds": sum(o.startswith("LDS") for o in loop), "from": hex(lo), "to": hex(hi)}
+    if voted:
+        vote = loop.index(next(o for o in loop if o.startswith("VOTE")))
+        rec["to_vote"] = vote + 2  # the vote and its branch
+    return rec
 
 
 def compare(got, want) -> dict:
@@ -311,6 +412,8 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--window", type=int, default=128)
     ap.add_argument("--feature-k", type=int, default=32)
+    ap.add_argument("--smoke-cases", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_lab needs an NVIDIA GPU")
@@ -325,8 +428,14 @@ def main(argv=None) -> None:
     cfg = DenoiseConfig(feature_k=args.feature_k, step_k=8)
     wt_c = 256 + 2 * args.window  # tile 256, sub 8: the hybrid's window columns
 
-    for kernel in names:
-        call = CALLS[kernel](args.n, bench.make_cloud, STRATEGIES[0], cfg, args.window)
+    cased = {"knn", "feature_knn"} if args.smoke_cases else set()
+    runs = [(kernel, None, None, None) for kernel in names if kernel not in cased]
+    if args.smoke_cases:
+        runs += [r for r in smoke_runs() if r[0] in names]
+    for kernel, case, k, make in runs:
+        call = (make() if case else
+                CALLS[kernel](args.n, bench.make_cloud, STRATEGIES[0], cfg, args.window))
+        k = k or args.feature_k
         with using(builds["tree"]):
             want = call()
         outs = {}
@@ -339,14 +448,19 @@ def main(argv=None) -> None:
                 with using(libs):
                     times[b].append(time_launches(call))
         for b, libs in builds.items():
-            print(json.dumps({"kernel": kernel, "build": b, "flags": variants.get(b, []),
+            print(json.dumps({"kernel": kernel, "case": case, "build": b,
+                              "flags": variants.get(b, []),
                               "n": args.n, "window": args.window,
-                              "feature_k": args.feature_k,
-                              **ptxas_of(kernel, libs[kernel][1], wt_c, args.feature_k),
+                              "feature_k": k,
+                              **ptxas_of(kernel, libs[kernel][1], wt_c, k),
                               "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0], 256, wt_c,
-                                                             args.feature_k),
+                                                             k),
                               **outs[b], "ms_min": min(times[b]),
-                              "ms_median": statistics.median(times[b])}), flush=True)
+                              "ms_median": statistics.median(times[b]),
+                              **({"hot_loop": sass_hot_loop(libs[kernel][1], build.template_tag(
+                                  *[entry_of(kernel, wt_c, k)[0]], *entry_of(kernel, wt_c, k)[1]))}
+                                 if args.sass else {})}),
+                  flush=True)
 
     if args.corner:
         for strategy in STRATEGIES:

@@ -57,6 +57,13 @@ ARGTYPES = {
     "feature_knn": (_VP, _VP, _I, _I, _I, _I, _VP),
     "edge_block": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
 }
+# Further C functions of a library beside its ngpd_<name>_launch: the kNN
+# kernel's split launch, its merge and the split's slice count.
+ENTRY_ARGTYPES = {
+    "knn": {"ngpd_knn_split_launch": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
+            "ngpd_knn_merge_launch": (_VP, _VP, _VP, _I, _I, _I, _VP),
+            "ngpd_knn_slices": (_I, _I, _I)},
+}
 
 
 def find_nvcc() -> str:
@@ -155,12 +162,18 @@ def ptxas_report(library: Path) -> list[dict]:
     return out
 
 
-def template_entry(report: list[dict], kernel: str, *flags: bool | int) -> dict:
-    """The record of ``kernel<flags...>`` (bool or int template arguments;
-    none for a kernel that is not a template) in a ``ptxas_report``; empty
-    if it is not there."""
+def template_tag(kernel: str, *flags: bool | int) -> str:
+    """The part of the mangled name of ``kernel<flags...>`` (bool or int
+    template arguments; none for a kernel that is not a template) that
+    tells it from the other instances."""
     args = "".join(f"Lb{int(f)}E" if isinstance(f, bool) else f"Li{f}E" for f in flags)
-    tag = kernel + (f"I{args}" if flags else "") + "E"
+    return kernel + (f"I{args}" if flags else "") + "E"
+
+
+def template_entry(report: list[dict], kernel: str, *flags: bool | int) -> dict:
+    """The record of ``kernel<flags...>`` in a ``ptxas_report``; empty if
+    it is not there."""
+    tag = template_tag(kernel, *flags)
     return next((r for r in report if tag in r["function"]), {})
 
 
@@ -169,8 +182,10 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_kernels()[name]))
-        fn = getattr(lib, f"ngpd_{name}_launch")
-        fn.argtypes = ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        entries = {f"ngpd_{name}_launch": ARGTYPES[name], **ENTRY_ARGTYPES.get(name, {})}
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

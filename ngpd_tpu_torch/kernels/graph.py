@@ -16,11 +16,13 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"feature_knn": 0, "edge_block": 0}
-# csrc/feature_knn.cu: one thread a node, the k nearest in a register
-# list of 8 or 16 keys, the patch transposed in shared memory (P rounded up
-# to 16, times C, times 4 bytes).
+# csrc/feature_knn.cu: one block a patch of at most 256 nodes; the patch
+# streams through shared memory in slabs of 32 channels (rows pitched 36
+# floats, a ring of 3); a warp owns 64 rows and 8 columns at a time; k at
+# most 16, the k nearest of a row in a register list of 8 or 16 keys.
 FEATURE_KNN_MAX_P, FEATURE_KNN_MAX_K = 256, 16
-FEATURE_KNN_SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
+FEATURE_KNN_SLAB, FEATURE_KNN_PITCH, FEATURE_KNN_STAGES = 32, 36, 3
+FEATURE_KNN_COLS, FEATURE_KNN_ROWS, FEATURE_KNN_WARPS = 8, 64, 8
 # The launch's order argument: [x_j - x_i, x_i] and [x_i, x_j - x_i].
 EDGE_ORDERS = {"dgcnn": 0, "edgeconv": 1}
 
@@ -35,8 +37,25 @@ def feature_knn_variant(k: int) -> int:
     return 8 if k <= 8 else 16
 
 
-def feature_knn_smem_bytes(p: int, c: int) -> int:
-    return -(-p // 16) * 16 * c * 4
+def feature_knn_shape(p: int) -> dict:
+    """A patch of ``p`` nodes as the kernel lays it out (``FknnShape``):
+    row groups of 64 nodes, column groups (a warp each a row group),
+    warps, threads, rounds over the chunks of 8 columns, staged rows."""
+    row_groups = -(-p // FEATURE_KNN_ROWS)
+    chunks = -(-p // FEATURE_KNN_COLS)
+    groups = min(chunks, FEATURE_KNN_WARPS // row_groups)
+    warps = row_groups * groups
+    return {"row_groups": row_groups, "groups": groups, "warps": warps,
+            "threads": 32 * warps, "rounds": -(-chunks // groups),
+            "rows": row_groups * FEATURE_KNN_ROWS}
+
+
+def feature_knn_smem_bytes(p: int) -> int:
+    """Shared memory of a block (``fknn_smem_bytes``): the slab ring or a
+    round's keys, whichever is larger; C does not enter."""
+    s = feature_knn_shape(p)
+    ring = FEATURE_KNN_STAGES * s["rows"] * FEATURE_KNN_PITCH * 4
+    return max(ring, s["rows"] * s["groups"] * FEATURE_KNN_COLS * 8)
 
 
 def _device(t: torch.Tensor, name: str) -> bool:
@@ -65,10 +84,6 @@ def check_feature_knn(x: torch.Tensor, k: int) -> bool:
     if not 1 <= k <= min(FEATURE_KNN_MAX_K, p):
         raise ValueError(f"feature_knn takes 1 <= k <= min(FEATURE_KNN_MAX_K "
                          f"({FEATURE_KNN_MAX_K}), P), got k {k} at P {p}")
-    if feature_knn_smem_bytes(p, c) > FEATURE_KNN_SMEM_LIMIT:
-        raise ValueError(f"feature_knn: a patch of P {p}, C {c} takes "
-                         f"{feature_knn_smem_bytes(p, c)} bytes of shared memory, over "
-                         f"FEATURE_KNN_SMEM_LIMIT ({FEATURE_KNN_SMEM_LIMIT})")
     return True
 
 

@@ -2,7 +2,8 @@
 
 ``knn`` is the exact brute-force search. On CUDA tensors it is one
 launch of the hand-written kernel ``kernels/csrc/knn.cu``
-(``kernels/knn.py``); on CPU tensors it runs its plain version,
+(``kernels/knn.py``), and one of its merge where the queries are too few
+to fill the card; on CPU tensors it runs its plain version,
 ``knn_plain``: query chunks against point tiles with a running top-k, so
 one ``(query_tile, point_tile)`` distance block is live at a time. The
 two return the same bits. ``knn_grid`` is the voxel-hash search for large
@@ -153,8 +154,9 @@ def knn(
     are ignored; slots that found no neighbour are masked out. Equal
     distances keep the lower index.
 
-    On CUDA tensors one launch of ``kernels/csrc/knn.cu`` computes it,
-    for every k; ``point_tile`` and ``query_tile`` are the plain
+    On CUDA tensors ``kernels/csrc/knn.cu`` computes it, for every k, in
+    one launch (two where it splits the points); ``point_tile`` and
+    ``query_tile`` are the plain
     version's tiles (``knn_plain``, which CPU tensors run) and the kernel
     ignores them. Any other device raises.
     """
@@ -180,7 +182,7 @@ def nn_distances(
 
     Returns ``(sqdist (Qa,), idx (Qa,) int64)`` on ``a``'s device; rows
     of ``b`` at or past ``num_valid_b`` are ignored. ``knn`` with k = 1:
-    one kernel launch on CUDA tensors, the tiles only on the CPU.
+    the kernel on CUDA tensors, the tiles only on the CPU.
     """
     a = torch.as_tensor(a, dtype=torch.float32)
     b = torch.as_tensor(b, dtype=torch.float32).to(a.device)

@@ -29,7 +29,7 @@ JSON line each. ``--dense`` profiles the dense (N, k) pipeline, the CLI's
 route under 100k points: ``core/pipeline.py::denoise`` on
 ``make_cloud(--n)`` (32,768 points, 2 iterations, feature_k 16, step_k 8
 unless given), grouped as ``--mesh`` is. In every torch-grouped profile the
-kNN kernel (``knn_kernel``, ``knn_row_kernel``) is a group of its own,
+kNN kernel (``knn_kernel``, ``knn_merge_kernel``) is a group of its own,
 ``knn``, and so are the feature kNN (``feature_knn``) and the edge block
 (``edge_block``). Needs a card.
 """
@@ -56,7 +56,7 @@ def _group(name: str) -> str:
 # Kernel-name fragments of torch's CUDA kernels, first match wins.
 _MESH_GROUPS = (("feature_knn", ("feature_knn_kernel",)),
                 ("edge_block", ("edge_block_kernel",)),
-                ("knn", ("knn_kernel", "knn_row_kernel")),
+                ("knn", ("knn_kernel", "knn_merge_kernel")),
                 ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
                 ("topk_sort", ("topk", "sort", "radix", "bitonic")),
                 ("gather_scatter", ("index", "gather", "scatter")),

@@ -618,16 +618,19 @@ def test_card_knn_kernel_matches_plain_on_the_smoke_cases(cuda_device):
         n=20_000, mesh_subdiv=4, nn_points=100_000, nn_queries=4_000, lattice_side=20,
         dense_n=8_192))
     assert all(r["equal"] and r["launches"] == 1 for r in rec["cases"])
+    assert all(r["merge_launches"] == int(r["slices"] > 1) for r in rec["cases"])
     assert rec["timed"]["ms"] > 0 and rec["timed"]["bound_by"] in ("bytes", "operations")
-    assert rec["build"]["knn_row_kernel"]["registers"] > 0
+    assert len(rec["build"]) == 4 and all(b["registers"] > 0 for b in rec["build"].values())
+    assert rec["merge"]["slices"] > 1 and rec["merge"]["ms"] > 0
+    assert rec["merge"]["case"] == "dense_k8" and rec["merge_split"]["slices"] > 1
 
 
-@pytest.mark.parametrize("k", [1, 2, 6, 8, 9, 12, 16, 17, 32, 33, 64, 65, 130, 300])
+@pytest.mark.parametrize("k", [1, 2, 6, 8, 9, 12, 16, 17, 32, 33, 64, 65, 130, 300, 1000])
 @pytest.mark.parametrize("exclude_self", [False, True])
 def test_card_knn_kernel_every_variant(cuda_device, k, exclude_self):
-    """Every register variant (k up to 1, 8, 16, 32, 64) at and past its
-    size, and the row kernel past the largest, on a cloud that holds
-    duplicated points, with num_valid: one launch, the plain loop's
+    """Every variant (a register list of 1, 8 or 16 keys, a row in device
+    memory past 16, up to k 1000) at and past its size, on a cloud that
+    holds duplicated points, with num_valid: one launch, the plain loop's
     bits."""
     from ngpd_tpu_torch.kernels import knn as kknn
     from ngpd_tpu_torch.ops.knn import knn, knn_plain
@@ -663,6 +666,74 @@ def test_card_knn_never_runs_the_plain_loop(cuda_device, monkeypatch):
     assert torch.equal(nd, want[1][1][:, 0]) and torch.equal(ni, want[1][0].idx[:, 0])
 
 
+def test_card_knn_split_path(cuda_device):
+    """Few queries against many points split the points into slices: one
+    launch of the search kernel and one of the merge, the plain loop's
+    bits; the merge kernel alone equals merge_plain on the partial rows."""
+    from ngpd_tpu_torch.kernels import knn as kknn
+    from ngpd_tpu_torch.ops.knn import knn, knn_plain
+
+    noisy, _, clean = make_cloud(200_000)
+    pts = torch.as_tensor(noisy).to(cuda_device)
+    q = torch.as_tensor(clean[::400]).to(cuda_device)
+    for k in (1, 16, 64):
+        assert kknn.slices(len(q), len(pts), k) > 1
+        kknn.reset_launch_counts()
+        got, gd = knn(pts, k, q, num_valid=199_000)
+        assert kknn.LAUNCHES == {"knn": 1, "knn_merge": 1}
+        want, wd = knn_plain(pts, k, q, num_valid=199_000)
+        assert torch.equal(gd, wd) and torch.equal(got.idx, want.idx)
+    s = kknn.slices(len(q), len(pts), 16)
+    part = torch.empty((s, len(q), 16), dtype=torch.int64, device=cuda_device)
+    kknn._launch("knn_split", "knn", pts.data_ptr(), q.data_ptr(), part.data_ptr(), len(pts),
+                 len(q), len(pts), 16, 0, s)
+    d = torch.empty((len(q), 16), device=cuda_device)
+    idx = torch.empty((len(q), 16), dtype=torch.int64, device=cuda_device)
+    kknn._launch("knn_merge", "knn_merge", part.data_ptr(), d.data_ptr(), idx.data_ptr(),
+                 len(q), 16, s)
+    pd, pidx = kknn.merge_plain(part)
+    assert torch.equal(d, pd) and torch.equal(idx, pidx)
+
+
+@pytest.mark.parametrize("k,exclude_self", [(64, False), (128, False), (128, True)])
+def test_card_knn_roof_past_the_register_lists(cuda_device, k, exclude_self):
+    """The point track's cloud at md_selection's k 64 and at k 128, whose
+    lists are rows in device memory fed through the buffers: the plain
+    loop's bits."""
+    from ngpd_tpu_torch.ops.knn import knn, knn_plain
+
+    pts = torch.as_tensor(make_cloud(100_000 if k == 64 else 30_000)[0]).to(cuda_device)
+    got, gd = knn(pts, k, exclude_self=exclude_self)
+    want, wd = knn_plain(pts, k, exclude_self=exclude_self)
+    assert torch.equal(gd, wd) and torch.equal(got.idx, want.idx)
+    assert torch.equal(got.mask, want.mask)
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_card_knn_sweeps_every_k_of_the_row_lists(cuda_device, exclude_self):
+    """Every k from 17 to 128 (rows in device memory fed through the
+    buffers) on a uniform cloud in random index order, where the home tile
+    caps little: each query fills its buffer many times (checked at k 17,
+    the fewest), so every k runs many merges. The plain loop's bits at
+    each k."""
+    from ngpd_tpu_torch.kernels import knn as kknn
+    from ngpd_tpu_torch.ops.knn import knn, knn_plain, pairwise_sqdist
+
+    rng = np.random.default_rng(7)
+    pts = torch.as_tensor(rng.random((16_384, 3)).astype(np.float32)).to(cuda_device)
+    # The first 256 queries' home tile is points [0, TILE): a query takes
+    # every candidate at or below the k-th distance there.
+    d = pairwise_sqdist(pts[:256], pts)
+    if exclude_self:
+        d[torch.arange(256), torch.arange(256)] = float("inf")
+    cap = torch.kthvalue(d[:, : kknn.TILE], 17, dim=1).values
+    assert (d <= cap[:, None]).sum(1).median() >= 4 * kknn.BUF
+    for k in range(17, 129):
+        got, gd = knn(pts, k, exclude_self=exclude_self)
+        want, wd = knn_plain(pts, k, exclude_self=exclude_self)
+        assert torch.equal(gd, wd) and torch.equal(got.idx, want.idx), k
+
+
 # The graph kernels (kernels/csrc/feature_knn.cu, edge_block.cu): the DGCNN's
 # feature kNN and both models' edge blocks launch them on CUDA tensors and
 # return their plain versions' bits.
@@ -694,11 +765,14 @@ def test_card_feature_knn_matches_plain(cuda_device, b, p, c, k):
 
 
 def test_card_feature_knn_refuses_past_its_limits(cuda_device):
+    """P past 256, k past 16 and another type are refused; C sets no limit
+    (the patch streams through shared memory in slabs), so C 1024 runs."""
     from ngpd_tpu_torch.models import dgcnn
 
-    x = torch.zeros((2, 64, 1024), device=cuda_device)
-    with pytest.raises(ValueError, match="FEATURE_KNN_SMEM_LIMIT"):
-        dgcnn.feature_knn(x, 8)
+    x = _int_features(2, 64, 1024).to(cuda_device)
+    assert torch.equal(dgcnn.feature_knn(x, 8), dgcnn.feature_knn_plain(x, 8))
+    with pytest.raises(ValueError, match="FEATURE_KNN_MAX_P"):
+        dgcnn.feature_knn(torch.zeros((1, 257, 4), device=cuda_device), 8)
     with pytest.raises(ValueError, match="FEATURE_KNN_MAX_K"):
         dgcnn.feature_knn(x[:, :, :8].contiguous(), 17)
     with pytest.raises(TypeError):

@@ -202,17 +202,49 @@ def test_the_launch_arguments_match_the_kernel_source(name):
     if name == "feature_knn":
         assert f"FKNN_MAX_P = {kgraph.FEATURE_KNN_MAX_P};" in src
         assert f"FKNN_MAX_K = {kgraph.FEATURE_KNN_MAX_K};" in src
-        assert f"FKNN_SMEM_LIMIT = {kgraph.FEATURE_KNN_SMEM_LIMIT};" in src
-        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+        for const, value in (("SLAB", kgraph.FEATURE_KNN_SLAB),
+                             ("STAGES", kgraph.FEATURE_KNN_STAGES),
+                             ("COLS", kgraph.FEATURE_KNN_COLS), ("ROWS", kgraph.FEATURE_KNN_ROWS),
+                             ("WARPS", kgraph.FEATURE_KNN_WARPS)):
+            assert f"FKNN_{const} = {value};" in src, const
+        assert "FKNN_PITCH = FKNN_SLAB + 4;" in src
+        assert kgraph.FEATURE_KNN_PITCH == kgraph.FEATURE_KNN_SLAB + 4
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src and "cp.async" in src
         for word in ("mma", "wgmma", "TF32", "__fmul_rn", "__fadd_rn"):
             assert word in src
-        launched = sorted(int(v) for v in re.findall(r"feature_knn_kernel<(\d+)><<<", src))
-        assert launched == [8, 16]
+        launched = set(re.findall(r"fn\(feature_knn_kernel<(\d+), (\w+), (\w+)>\)", src))
+        assert launched == {(k, v, o) for k in ("8", "16") for v in ("true", "false")
+                            for o in ("true", "false")}
         assert [kgraph.feature_knn_variant(k) for k in (1, 8, 9, 16)] == [8, 8, 16, 16]
     else:
         assert "edgeconv.py" in src
         assert sorted(re.findall(r"edge_block_kernel<(\w+)><<<", src)) == ["false", "true"]
         assert kgraph.EDGE_ORDERS == {"dgcnn": 0, "edgeconv": 1}
+
+
+# (P, warps, rounds, shared-memory bytes) of the feature kNN's layout: a warp
+# owns 64 rows and 8 columns a round, at most 8 warps a block; the block's
+# shared memory is the larger of the slab ring (3 x rows x 36 floats) and a
+# round's keys (rows x columns x 8 bytes), whatever C.
+FKNN_SHAPES = [(1, 1, 1, 27_648), (16, 2, 1, 27_648), (37, 5, 1, 27_648), (64, 8, 1, 32_768),
+               (65, 8, 3, 55_296), (129, 6, 9, 82_944), (200, 8, 13, 110_592),
+               (256, 8, 16, 110_592)]
+
+
+@pytest.mark.parametrize("p,warps,rounds,smem", FKNN_SHAPES,
+                         ids=[f"P{p}" for p, *_ in FKNN_SHAPES])
+def test_the_feature_knn_layout_is_pinned(p, warps, rounds, smem):
+    """What kernels/graph.py computes of a launch (FknnShape,
+    fknn_smem_bytes): threads, rounds and shared memory by P alone, so C
+    sets no limit; every node has a selecting thread; at the mesh cell's P
+    64 one round of 8 warps in 32 KB."""
+    shape = kgraph.feature_knn_shape(p)
+    assert (shape["warps"], shape["rounds"], kgraph.feature_knn_smem_bytes(p)) == \
+        (warps, rounds, smem)
+    assert shape["threads"] == 32 * warps >= p
+    assert smem <= 232_448  # an H100 block's shared memory
+    # Every round's columns lie inside the staged rows.
+    assert shape["rounds"] * shape["groups"] * kgraph.FEATURE_KNN_COLS <= shape["rows"]
 
 
 def _small_check(**kwargs):

@@ -179,22 +179,47 @@ def test_nn_distances_matches_the_reference():
     assert torch.equal(d[:, 0], td) and torch.equal(nbh.idx[:, 0], ti)
 
 
+def _params(src, fn):
+    sig = src[src.index(f'extern "C" int {fn}('):]
+    return sig[sig.index("(") + 1 : sig.index(")")].split(",")
+
+
 def test_the_launch_arguments_match_the_kernel_source():
-    """One ctypes type per parameter of ``ngpd_knn_launch``, and the
-    register variants that ``variant`` names are the ones the source
-    launches, the row kernel past the largest."""
+    """One ctypes type per parameter of ``ngpd_knn_launch`` and of the
+    split path's C functions; the wrapper's variants, block shapes and
+    shared-memory sizes are the source's (``knn_dispatch``, the static tile
+    and ``knn_buf_bytes``): a register list of 1, 8 or 16 keys up to k 16, a
+    row in device memory above, and no row kernel."""
     src = (build.CSRC / "knn.cu").read_text()
-    sig = src[src.index('extern "C" int ngpd_knn_launch('):]
-    params = sig[sig.index("(") + 1 : sig.index(")")].split(",")
-    assert len(params) == len(build.ARGTYPES["knn"])
-    for text, ctype in zip(params, build.ARGTYPES["knn"]):
-        want = build._VP if "*" in text else build._F if "float" in text else build._I
-        assert ctype is want, text
-    launched = sorted(int(v) for v in re.findall(r"case (\d+): knn_kernel<\1><<<", src))
-    assert tuple(launched) == kknn.REGISTER_KS
-    assert f"KNN_MAX_REGISTER_K = {kknn.REGISTER_KS[-1]};" in src
-    assert [kknn.variant(k) for k in (1, 2, 6, 8, 12, 16, 17, 32, 33, 64, 65, 130)] == \
-        [1, 8, 8, 8, 16, 16, 32, 32, 64, 64, 0, 0]
+    entries = {"ngpd_knn_launch": build.ARGTYPES["knn"], **build.ENTRY_ARGTYPES["knn"]}
+    assert set(entries) == {"ngpd_knn_launch", "ngpd_knn_split_launch",
+                            "ngpd_knn_merge_launch", "ngpd_knn_slices"}
+    for fn, argtypes in entries.items():
+        params = _params(src, fn)
+        assert len(params) == len(argtypes), fn
+        for text, ctype in zip(params, argtypes):
+            want = build._VP if "*" in text else build._F if "float" in text else build._I
+            assert ctype is want, (fn, text)
+    assert "knn_row_kernel" not in src and "RegisterList" not in src
+    launched = set(re.findall(r"fn\(knn_kernel<(\w+), (\w+), (\d+)>\)", src))
+    assert launched == {("KNN_T1", "KNN_Q1", "1"), ("KNN_TS", "KNN_QS", "8"),
+                        ("KNN_TS", "KNN_QS", "16"), ("KNN_TL", "KNN_QL", "0")}
+    assert "NGPD_KNN" not in src  # constants, no compile switches
+    # Each shared buffer is declared with the type it holds.
+    assert "__shared__ float4 tile[KNN_TILE];" in src
+    assert "extern __shared__ Key knn_buf[];" in src
+    for name, value in (("T1", kknn.BLOCKS["one"][0]), ("Q1", kknn.BLOCKS["one"][1]),
+                        ("TS", kknn.BLOCKS["small"][0]), ("QS", kknn.BLOCKS["small"][1]),
+                        ("TL", kknn.BLOCKS["large"][0]), ("QL", kknn.BLOCKS["large"][1]),
+                        ("TILE", kknn.TILE), ("BUF", kknn.BUF)):
+        assert f"KNN_{name} = {value};" in src, name
+    assert f"KNN_SMALL_K = {kknn.SMALL_K};" in src
+    assert f"KNN_MAX_SLICES = {kknn.MAX_SLICES};" in src
+    assert "KNN_MIN_SLICE = 8 * KNN_TILE;" in src and kknn.MIN_SLICE == 8 * kknn.TILE
+    assert [kknn.variant(k) for k in (1, 2, 8, 9, 16, 17, 64, 65, 128, 1000)] == \
+        [(64, 4, 1), (128, 1, 8), (128, 1, 8), (128, 1, 16), (128, 1, 16)] + [(64, 1, 0)] * 5
+    assert [kknn.smem_bytes(k) for k in (1, 8, 16, 17, 300)] == \
+        [8192, 8192, 8192, 8192 + 64 * 32 * 8, 8192 + 64 * 32 * 8]
     for word in ("mma", "wgmma", "TF32"):  # the header says why they are not used
         assert word in src
     assert "__fmul_rn" in src and "-fmad=false" in " ".join(build.NVCC_FLAGS)
@@ -202,21 +227,24 @@ def test_the_launch_arguments_match_the_kernel_source():
 
 def _small_cases():
     return cs.knn_kernel_cases(n=2048, mesh_subdiv=2, nn_points=4096, nn_queries=512,
-                               lattice_side=10, dense_n=1024)
+                               lattice_side=10, dense_n=1024, split_queries=64)
 
 
 def test_the_smoke_check_passes_the_plain_version():
     rec = cs.check_knn_kernel(device="cpu", cases=_small_cases())
-    variants = {r["case"]: r["variant"] for r in rec["cases"]}
+    variants = {r["case"]: r["variant"][2] for r in rec["cases"]}
     assert variants == {
-        "cloud": 16, "cloud_exclude_self": 16, "cloud_num_valid": 16, "mesh_centroids": 64,
-        "chamfer_gate": 1, "nn_whole_cloud": 1, "dense_k6": 8, "dense_k8": 8,
-        "dense_k16": 16, "dense_k6_exclude_self": 8, "dense_k24_exclude_self": 32,
-        "lattice_ties": 16, "separate_queries": 16, "k_past_valid": 16, "row_kernel": 0}
-    assert set(variants.values()) == {0, *kknn.REGISTER_KS}  # every variant
+        "cloud": 16, "cloud_exclude_self": 16, "cloud_num_valid": 16, "roof_k64": 0,
+        "mesh_centroids": 0, "chamfer_gate": 1, "nn_whole_cloud": 1, "split": 16,
+        "dense_k6": 8, "dense_k8": 8, "dense_k16": 16, "dense_k6_exclude_self": 8,
+        "dense_k24_exclude_self": 0, "lattice_ties": 16, "separate_queries": 16,
+        "k_past_valid": 16, "k65": 0, "k128": 0}
+    assert set(variants.values()) == {0, 1, 8, 16}  # every variant
     assert all(r["equal"] and r["max_abs_err"] == 0.0 for r in rec["cases"])
-    gate = rec["cases"][4]
+    gate = rec["cases"][5]
     assert (gate["n"], gate["queries"]) == (512, 512)  # the gate's subsample on both sides
+    split = rec["cases"][7]
+    assert (split["n"], split["queries"], split["k"]) == (4096, 64, 16)
 
 
 def _higher_index_ties(points, k, queries=None, *, exclude_self=False, num_valid=None):
@@ -241,3 +269,86 @@ def _without_num_valid(points, k, queries=None, *, num_valid=None, **kw):
 def test_the_smoke_check_refuses_a_wrong_knn(wrong):
     with pytest.raises(SystemExit):
         cs.check_knn_kernel(device="cpu", knn_fn=wrong, cases=_small_cases())
+
+
+# The split path: the kernel's slices write each query's sorted keys to a
+# partial row and the merge keeps the k smallest. Its plain versions
+# (kernels/knn.py::split_plain, ::merge_plain) are held to the tile loop on
+# splits the kernel's rule would not choose: uneven slices, a slice with
+# fewer valid points than k, +inf pads past num_valid, self at a slice
+# border, exact ties across slices, and k past the register lists.
+def _split_cases():
+    pts, lat = _cloud(1500, seed=5), _lattice(12)
+    return {
+        "uneven_slices": (pts, 16, None, False, None, [(0, 100), (100, 1100), (1100, 1500)]),
+        "slice_short_of_k": (pts, 16, None, False, None, [(0, 7), (7, 1500)]),
+        "inf_pads_past_num_valid": (pts, 16, _cloud(300, seed=6, dup=0.0), False, 1490,
+                                    kknn.slice_bounds(1490, 4)),
+        "exclude_self_at_a_border": (pts, 8, None, True, None, [(0, 500), (500, 501),
+                                                                (501, 1500)]),
+        "lattice_ties": (lat, 16, None, True, None, kknn.slice_bounds(len(lat), 5)),
+        "k65": (pts, 65, None, True, None, kknn.slice_bounds(1500, 3)),
+        "k128": (pts, 128, None, False, 1400, kknn.slice_bounds(1400, 7)),
+    }
+
+
+SPLIT_NAMES = list(_split_cases())
+
+
+def _split_and_merge(pts, k, q, ex, nv, bounds, cap=None):
+    p = torch.as_tensor(pts)
+    qt = None if q is None else torch.as_tensor(q)
+    part = kknn.split_plain(p, k, qt, exclude_self=ex, num_valid=nv, bounds=bounds, cap=cap)
+    return part, tknn._finish(*kknn.merge_plain(part))
+
+
+@pytest.mark.parametrize("name", SPLIT_NAMES)
+def test_the_keyed_merge_of_any_split_is_the_plain_loop(name):
+    """Each slice's k smallest keys, merged by key, are the tile loop's
+    result bit for bit: the union of the slices' k best holds the global k
+    best, and keys are unique, so neither the split nor the order of the
+    candidates matters."""
+    pts, k, q, ex, nv, bounds = _split_cases()[name]
+    part, got = _split_and_merge(pts, k, q, ex, nv, bounds)
+    want = tknn.knn_plain(torch.as_tensor(pts), k, None if q is None else torch.as_tensor(q),
+                          exclude_self=ex, num_valid=nv)
+    assert _equal(got, want)
+    assert part.shape == (len(bounds), len(pts) if q is None else len(q), k)
+    # Each partial row is sorted, its empty slots last.
+    key = torch.where(part == kknn.NONE, torch.iinfo(torch.int64).max, part)
+    assert (key[..., 1:] >= key[..., :-1]).all()
+    if name == "slice_short_of_k":
+        assert (part[0, :, 7:] == kknn.NONE).all() and (part[0, :, :7] != kknn.NONE).all()
+
+
+@pytest.mark.parametrize("name", SPLIT_NAMES)
+def test_a_cap_from_any_k_points_changes_no_merge(name):
+    """The kernel caps every slice by the k-th distance of a home tile; any
+    k points give a cap at or above the true k-th, so the capped partial
+    rows merge to the same result, while a cap below it loses neighbours."""
+    pts, k, q, ex, nv, bounds = _split_cases()[name]
+    p = torch.as_tensor(pts)
+    qt = p if q is None else torch.as_tensor(q)
+    nv_ = len(pts) if nv is None else nv
+    home = kknn.split_plain(p, k, None if q is None else qt, exclude_self=ex, num_valid=nv,
+                            bounds=[(nv_ - min(nv_, 4 * k), nv_)])[0]
+    full = (home != kknn.NONE).all(dim=1)
+    cap = torch.where(full, ((home[:, -1] >> 32).to(torch.int32)).view(torch.float32),
+                      torch.finfo(torch.float32).max)
+    _, got = _split_and_merge(pts, k, q, ex, nv, bounds, cap)
+    _, want = _split_and_merge(pts, k, q, ex, nv, bounds)
+    assert _equal(got, want)
+    d_k = want[1][:, -1]
+    _, short = _split_and_merge(pts, k, q, ex, nv, bounds, torch.nextafter(d_k, -d_k))
+    assert not _equal(short, want)
+
+
+@pytest.mark.parametrize("nv,s", [(1, 1), (7, 3), (100_000, 2), (100_000, 64), (32_768, 4),
+                                  (1_000_000, 64)])
+def test_the_kernel_slices_partition_the_points(nv, s):
+    """ceil(nv / s) points a slice, as knn_kernel cuts them: every point in
+    exactly one slice, in index order; trailing slices may be empty."""
+    bounds = kknn.slice_bounds(nv, s)
+    assert len(bounds) == s and bounds[0][0] == 0 and bounds[-1][1] == nv
+    assert all(a <= b and b == c for (a, b), (c, _) in zip(bounds, bounds[1:]))
+    assert max(b - a for a, b in bounds) == -(-nv // s)

@@ -422,10 +422,11 @@ def test_graph_wrappers_reject_other_devices_and_bad_operands():
         kgraph.check_feature_knn(on_card(x[:, :6].contiguous()), 8)
     with pytest.raises(ValueError, match="FEATURE_KNN_MAX_P"):
         kgraph.check_feature_knn(on_card(torch.zeros((1, 257, 4))), 8)
-    with pytest.raises(ValueError, match="FEATURE_KNN_SMEM_LIMIT"):
-        kgraph.check_feature_knn(on_card(torch.zeros((1, 64, 1024))), 8)
+    # The patch streams through shared memory in slabs of channels: no C is
+    # too wide, and a block's shared memory follows P alone.
+    assert kgraph.check_feature_knn(on_card(torch.zeros((1, 64, 1024))), 8)
     assert kgraph.check_feature_knn(on_card(torch.zeros((1, 64, 907))), 16)
-    assert kgraph.feature_knn_smem_bytes(64, 256) == 65_536
+    assert kgraph.feature_knn_smem_bytes(64) == 32_768
     assert kgraph.check_edge_block(on_card(x), on_card(idx), "edgeconv")
     with pytest.raises(TypeError):
         kgraph.check_edge_block(on_card(x), on_card(idx.int()), "dgcnn")
@@ -612,6 +613,14 @@ def test_build_lists_every_kernel_with_its_argument_types():
             want = (build._VP if "*" in text else
                     build._F if "float" in text else build._I)
             assert ctype is want, (name, text)
+        # The library's further C functions, each with its own types.
+        for entry, argtypes in build.ENTRY_ARGTYPES.get(name, {}).items():
+            sig = src[src.index(f'extern "C" int {entry}('):]
+            params = sig[sig.index("(") + 1 : sig.index(")")].split(",")
+            assert len(params) == len(argtypes), entry
+            for text, ctype in zip(params, argtypes):
+                assert ctype is (build._VP if "*" in text else build._I), (entry, text)
+    assert set(build.ENTRY_ARGTYPES) <= set(build.SOURCES)
 
 
 def test_every_header_is_hashed_into_the_library_names():
