@@ -37,6 +37,7 @@ from ..device import exact_float32, resolve_device
 from ..kernels import passes as kp
 from ..kernels import window as kw
 from ..ops.morton import SortedCloud, morton_sort, unsort
+from ..utils import prof
 from . import hybrid_stages as hs
 from .pipeline import DEFAULT_STRATEGY
 
@@ -132,28 +133,34 @@ def denoise_hybrid(
     iters = cfg.iterations if iterations is None else iterations
     if iters < 1:
         raise ValueError("denoise_hybrid needs at least one iteration")
-    st = prologue(points, normals, cfg, strategy, num_valid, tile, window,
-                  threshold_slack, sub, device)
-    pack, scal, lay, win = st.pack, st.scal, st.lay, st.win
-    t6 = kw.k1(pack, win, cfg.angle) if lagged_nvt1 else None
-    cls = None
-    for _ in range(iters):
-        if not lagged_nvt1:
-            t6 = kw.k1(pack, win, cfg.angle)
-        pack2 = hs.vu_stage(t6, pack, cfg)
-        k2out = kw.k2(pack2, scal, win, cfg.angle, strategy, len(st.needs_delta))
-        pack, scal, cls = hs.update_stage(
-            k2out, pack2, st.d_thr, cfg, strategy, st.needs_delta, lay, win.nv
-        )
-        if lagged_nvt1:
-            # K2's filtered-NVT rows of the post-VU normals are the next
-            # iteration's K1 output (the reference's lagged_nvt1).
-            t6 = k2out[lay["t6"] : lay["t6"] + 6]
+    dev = resolve_device(device)
+    with prof.span("ngpd.hybrid", dev):
+        with prof.span("ngpd.hybrid.prologue", dev):
+            st = prologue(points, normals, cfg, strategy, num_valid, tile, window,
+                          threshold_slack, sub, dev)
+        pack, scal, lay, win = st.pack, st.scal, st.lay, st.win
+        t6 = kw.k1(pack, win, cfg.angle) if lagged_nvt1 else None
+        cls = None
+        for _ in range(iters):
+            if not lagged_nvt1:
+                t6 = kw.k1(pack, win, cfg.angle)
+            with prof.span("ngpd.hybrid.vu_stage", dev):
+                pack2 = hs.vu_stage(t6, pack, cfg)
+            k2out = kw.k2(pack2, scal, win, cfg.angle, strategy, len(st.needs_delta))
+            with prof.span("ngpd.hybrid.update_stage", dev):
+                pack, scal, cls = hs.update_stage(
+                    k2out, pack2, st.d_thr, cfg, strategy, st.needs_delta, lay, win.nv
+                )
+            if lagged_nvt1:
+                # K2's filtered-NVT rows of the post-VU normals are the next
+                # iteration's K1 output (the reference's lagged_nvt1).
+                t6 = k2out[lay["t6"] : lay["t6"] + 6]
 
-    idx, n_in = st.sorted.orig_idx, st.n_in
-    out_pos = unsort(pack[0:3].T, idx)[:n_in]
-    out_nrm = unsort(pack[3:6].T, idx)[:n_in]
-    out_cls = unsort(cls.to(torch.int32)[:, None], idx)[:n_in, 0]
+        with prof.span("ngpd.hybrid.unsort", dev):
+            idx, n_in = st.sorted.orig_idx, st.n_in
+            out_pos = unsort(pack[0:3].T, idx)[:n_in]
+            out_nrm = unsort(pack[3:6].T, idx)[:n_in]
+            out_cls = unsort(cls.to(torch.int32)[:, None], idx)[:n_in, 0]
     return out_pos, out_nrm, out_cls
 
 

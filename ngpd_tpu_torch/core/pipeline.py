@@ -34,6 +34,7 @@ from ..ops import metrics
 from ..ops.knn import estimate_cell_size, knn, knn_grid
 from ..ops.neighbors import Neighborhood
 from ..ops.steps import STEP_NAMES
+from ..utils import prof
 from . import denoise as steps
 from . import voting
 
@@ -109,11 +110,13 @@ def denoise_iteration(
     gathers a rank-local row array into the whole one, and ``axis_name``
     is the process group of the cross-rank reductions. Single-device
     callers leave all four unset."""
-    nvt1 = voting.better_filtered_nvt(points, nbh_feat, normals, angle, src_points, src_normals)
-    f_n = voting.vu_smoothed_normals(nvt1, normals, vu_tau, vu_damping)
-    src_f_n = gather_fn(f_n) if gather_fn is not None else None
-    decomp = voting.better_filtered_nvt(points, nbh_feat, f_n, angle, src_points, src_f_n)
-    cls = voting.classes(decomp, class_scale)
+    with prof.span("ngpd.dense.voting", points.device):
+        nvt1 = voting.better_filtered_nvt(points, nbh_feat, normals, angle, src_points,
+                                          src_normals)
+        f_n = voting.vu_smoothed_normals(nvt1, normals, vu_tau, vu_damping)
+        src_f_n = gather_fn(f_n) if gather_fn is not None else None
+        decomp = voting.better_filtered_nvt(points, nbh_feat, f_n, angle, src_points, src_f_n)
+        cls = voting.classes(decomp, class_scale)
     edge_vectors = decomp.eigvec[..., 0]  # smallest-eigenvalue direction
     src = {"src_points": src_points, "src_normals": src_f_n}
 
@@ -133,11 +136,12 @@ def denoise_iteration(
             return steps.dummy_step(points, nbh_step, f_n, d, alpha)
         raise ValueError(f"unknown step {name!r}; expected one of {STEP_NAMES}")
 
-    new_by_class = [run(strategy[c], c) for c in range(3)]
-    new_pos = torch.where(
-        (cls == 0)[:, None], new_by_class[0],
-        torch.where((cls == 1)[:, None], new_by_class[1], new_by_class[2]),
-    )
+    with prof.span("ngpd.dense.steps", points.device):
+        new_by_class = [run(strategy[c], c) for c in range(3)]
+        new_pos = torch.where(
+            (cls == 0)[:, None], new_by_class[0],
+            torch.where((cls == 1)[:, None], new_by_class[1], new_by_class[2]),
+        )
     return new_pos, f_n, cls
 
 
@@ -179,26 +183,31 @@ def denoise(
     if iters < 1:
         raise ValueError("denoise needs at least one iteration")
     pos, nrm = _on_device(device, points, normals)
+    dev = pos.device
     use_grid = neighbor_method == "grid" or (
         neighbor_method == "auto" and pos.shape[0] >= 100_000)
-    d = cfg.d_scale / 2.0 * step_threshold(pos, num_valid)
-    if use_grid:
-        # Cell sized for the largest k in play, estimated once on the
-        # noisy input (positions only shrink toward the surface).
-        cell = estimate_cell_size(pos, max(cfg.feature_k, cfg.step_k))
+    with prof.span("ngpd.dense", dev):
+        with prof.span("ngpd.dense.step_threshold", dev):
+            d = cfg.d_scale / 2.0 * step_threshold(pos, num_valid)
+        if use_grid:
+            # Cell sized for the largest k in play, estimated once on the
+            # noisy input (positions only shrink toward the surface).
+            cell = estimate_cell_size(pos, max(cfg.feature_k, cfg.step_k))
 
-        def neighbors(p, k):
-            return knn_grid(p, k, cell, capacity=grid_capacity, num_valid=num_valid)[0]
-    else:
+            def neighbors(p, k):
+                return knn_grid(p, k, cell, capacity=grid_capacity, num_valid=num_valid)[0]
+        else:
 
-        def neighbors(p, k):
-            return knn(p, k, num_valid=num_valid)[0]
+            def neighbors(p, k):
+                return knn(p, k, num_valid=num_valid)[0]
 
-    cls = None
-    for _ in range(iters):
-        pos, nrm, cls = denoise_iteration(
-            pos, nrm, neighbors(pos, cfg.feature_k), neighbors(pos, cfg.step_k), d,
-            cfg.alphas, cfg.angle, cfg.class_scale, strategy, cfg.vu_tau, cfg.vu_damping)
+        cls = None
+        for _ in range(iters):
+            with prof.span("ngpd.dense.neighbors", dev):
+                nbh_feat, nbh_step = neighbors(pos, cfg.feature_k), neighbors(pos, cfg.step_k)
+            pos, nrm, cls = denoise_iteration(
+                pos, nrm, nbh_feat, nbh_step, d, cfg.alphas, cfg.angle, cfg.class_scale,
+                strategy, cfg.vu_tau, cfg.vu_damping)
     return pos, nrm, cls
 
 

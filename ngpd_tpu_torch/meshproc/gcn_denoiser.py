@@ -28,6 +28,7 @@ from ..device import exact_float32, resolve_device
 from ..models.dgcnn import DGCNN, dgcnn_from_state_dict
 from ..ops.knn import knn
 from ..parallel.mesh import mesh_axis
+from ..utils import prof
 from .bucketing import pad_mesh
 from .filtering import guided_normal_filter
 from .patches import extract_mesh_patches, unrotate_predictions
@@ -67,18 +68,21 @@ def predict_face_normals(
     reference forwards a shard as one batch; at 81,920 faces one forward
     would not fit a card.)"""
     dev = resolve_device(device)
-    patches = extract_mesh_patches(mesh, cfg=patch_cfg, pre_nbh=pre_nbh, device=dev)
+    with prof.span("ngpd.mesh.patches", dev):
+        patches = extract_mesh_patches(mesh, cfg=patch_cfg, pre_nbh=pre_nbh, device=dev)
     model = model.to(dev)
     if pmesh is None:
-        pred = run_dgcnn(model, patches.inputs, batch_size)
+        with prof.span("ngpd.mesh.dgcnn", dev):
+            pred = run_dgcnn(model, patches.inputs, batch_size)
     else:
         group, d, rank = mesh_axis(pmesh, axis, dev)
         x = patches.inputs
         nf = x.shape[0]
         x = torch.cat([x, x.new_zeros((-nf % (d * 8),) + tuple(x.shape[1:]))])
         rows = x.shape[0] // d
-        pred = all_gather(run_dgcnn(model, x[rank * rows : (rank + 1) * rows], batch_size),
-                          group)[:nf]
+        with prof.span("ngpd.mesh.dgcnn", dev):
+            shard = run_dgcnn(model, x[rank * rows : (rank + 1) * rows], batch_size)
+        pred = all_gather(shard, group)[:nf]
     pred = pred / torch.clamp(torch.linalg.norm(pred, dim=1, keepdim=True), min=1e-12)
     return unrotate_predictions(pred, patches.rotations)
 
@@ -109,26 +113,34 @@ def gcn_denoise_mesh(
     """
     dev = resolve_device(device)
     exact_float32()
-    mesh = mesh.to(dev)
-    model2 = model if variables2 is None else dgcnn_from_state_dict(variables2)
-    face_mask: Optional[torch.Tensor] = None
-    out = mesh
-    if bucketed:
-        padded = pad_mesh(mesh)
-        out, face_mask = padded.mesh, padded.face_mask
-    for p in range(max(1, passes)):
-        # Only when patches and filter agree on k can they share it.
-        pre_nbh = centroid_knn(out, 64) if patch_cfg.num_nodes == 64 else None
-        guidance = predict_face_normals(out, model if p == 0 else model2, patch_cfg,
-                                        batch_size, pre_nbh=pre_nbh, device=dev, pmesh=pmesh)
-        if face_mask is not None:
-            # Sentinel faces guide with their own normals; their
-            # neighbourhoods never touch real faces.
-            own, _, _ = out.face_data()
-            guidance = torch.where(face_mask[:, None], guidance, own)
-        pass_cfg = gnf_cfg if p == 0 or gnf_cfg2 is None else gnf_cfg2
-        out = guided_normal_filter(out, guidance, pass_cfg, face_mask=face_mask,
-                                   pre_nbh=pre_nbh, device=dev)
-    if bucketed:
-        return mesh.with_vertices(out.v[: mesh.num_vertices])
+    with prof.span("ngpd.mesh", dev):
+        mesh = mesh.to(dev)
+        with prof.span("ngpd.mesh.model_build", dev):
+            model = model.to(dev)
+            model2 = model if variables2 is None else dgcnn_from_state_dict(variables2).to(dev)
+        face_mask: Optional[torch.Tensor] = None
+        out = mesh
+        if bucketed:
+            padded = pad_mesh(mesh)
+            out, face_mask = padded.mesh, padded.face_mask
+        for p in range(max(1, passes)):
+            # Only when patches and filter agree on k can they share it.
+            pre_nbh = None
+            if patch_cfg.num_nodes == 64:
+                with prof.span("ngpd.mesh.centroid_knn", dev):
+                    pre_nbh = centroid_knn(out, 64)
+            guidance = predict_face_normals(out, model if p == 0 else model2, patch_cfg,
+                                            batch_size, pre_nbh=pre_nbh, device=dev,
+                                            pmesh=pmesh)
+            if face_mask is not None:
+                # Sentinel faces guide with their own normals; their
+                # neighbourhoods never touch real faces.
+                own, _, _ = out.face_data()
+                guidance = torch.where(face_mask[:, None], guidance, own)
+            pass_cfg = gnf_cfg if p == 0 or gnf_cfg2 is None else gnf_cfg2
+            with prof.span("ngpd.mesh.gnf", dev):
+                out = guided_normal_filter(out, guidance, pass_cfg, face_mask=face_mask,
+                                           pre_nbh=pre_nbh, device=dev)
+        if bucketed:
+            return mesh.with_vertices(out.v[: mesh.num_vertices])
     return out

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core import noise as noise_mod
+from ..utils import prof
 
 
 def face_normals_areas_centroids(v: torch.Tensor, f: torch.Tensor):
@@ -147,13 +148,15 @@ class TriMesh:
 
     def vertex_face_adjacency(self):
         if self._vf is None:
-            self._vf = _on(self.v.device, *_build_vertex_face_adjacency(
-                self.f.cpu().numpy(), self.num_vertices))
+            with prof.span("ngpd.mesh.adjacency", self.v.device):
+                self._vf = _on(self.v.device, *_build_vertex_face_adjacency(
+                    self.f.cpu().numpy(), self.num_vertices))
         return self._vf
 
     def face_face_adjacency(self):
         if self._ff is None:
-            self._ff = _on(self.v.device, *_build_face_face_adjacency(self.f.cpu().numpy()))
+            with prof.span("ngpd.mesh.adjacency", self.v.device):
+                self._ff = _on(self.v.device, *_build_face_face_adjacency(self.f.cpu().numpy()))
         return self._ff
 
     def average_edge_length(self) -> torch.Tensor:

@@ -9,8 +9,11 @@ up, then once under ``torch.profiler`` with CPU and CUDA activities, and
 prints one JSON line: the run's wall time (host clock, ending in a
 synchronize), the device's busy time (union of kernel intervals) and idle
 share, device time and kernel count by group (K0, K1, K2, and every other
-kernel, i.e. the per-point torch stages, Morton sort and unsort), and the
-ten kernels with the most device time. ``--passes`` profiles the
+kernel, i.e. the per-point torch stages, Morton sort and unsort), the
+ten kernels with the most device time, and the port's spans over the run
+(``utils.prof.recorded()``: count, host ms, self host ms and stream ms by
+name, e.g. ``ngpd.hybrid.vu_stage``; the entries without spans, the pass
+engine and the learned track, record none). ``--passes`` profiles the
 pass engine (``denoise_passes``, exact delta) on the same cloud instead,
 grouped by pass A-D and torch (prologue, packs, delta state, sort);
 ``--lagged`` its lagged-delta mode (pass A, the fused pass BD, torch).
@@ -111,6 +114,7 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
     from .device import resolve_device
     from .learn.predict import predict_cloud_normals
     from .models.patch2normal import init_patch2normal
+    from .utils.prof import recorded
 
     dev = resolve_device("cuda")
     if engine in ("train_point", "train_mesh"):
@@ -182,6 +186,7 @@ def profile_run(n: int, iters: int, k: int, engine: str = "hybrid") -> dict:
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
         "groups": groups,
         "top_kernels_ms": [[name[:120], ms] for name, ms in top],
+        "spans": recorded(),
     }
 
 

@@ -1,1 +1,1 @@
-from .prof import Timer, profile_trace, time_fn  # noqa: F401
+from .prof import Timer, profile_trace, recorded, span, time_fn  # noqa: F401

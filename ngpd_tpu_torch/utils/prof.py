@@ -5,7 +5,12 @@
     trace that Perfetto or ``chrome://tracing`` opens;
   * ``time_fn`` — the best wall time over repeats after warm-up calls,
     synchronising the card when the result holds a CUDA tensor;
-  * ``Timer`` — a context-manager stopwatch for host phases.
+  * ``Timer`` — a context-manager stopwatch for host phases;
+  * ``span`` — a named stage of the port's own layers, recorded only while
+    a ``torch.profiler`` session records: on the profiler's clock (a user
+    annotation beside the kernels), in a registry with its parent and its
+    root's call, and on a card as a CUDA event pair; ``recorded()`` sums
+    them by name.
 """
 
 from __future__ import annotations
@@ -17,8 +22,135 @@ from pathlib import Path
 from typing import Callable, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .cache import cache_dir
+
+MAX_RECORDS = 1_000_000  # spans kept; the rest are counted as dropped
+
+
+class _Record:
+    __slots__ = ("name", "parent", "call", "t0", "t1", "child_ns", "events", "device")
+
+    def __init__(self, name: str, parent: Optional["_Record"], call: int):
+        self.name, self.call = name, call
+        self.parent = None if parent is None else parent.name
+        self.t0 = self.t1 = self.child_ns = 0
+        self.events = self.device = None
+
+
+class _Registry:
+    """The spans of the current recording stretch. ``stale``: a span ran
+    while nothing recorded, so the next recorded root starts afresh."""
+
+    def __init__(self):
+        self.records = []  # _Record, in the order they opened
+        self.open = []  # the open spans' records, innermost last
+        self.calls = 0
+        self.dropped = 0
+        self.stale = False
+
+
+_REGISTRY = _Registry()
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "device", "rec", "fn")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        reg = _REGISTRY
+        if reg.stale and not reg.open:
+            reg.stale = False
+            reg.records, reg.dropped = [], 0
+        parent = reg.open[-1] if reg.open else None
+        if parent is None:
+            reg.calls += 1
+        rec = _Record(self.name, parent, reg.calls if parent is None else parent.call)
+        if len(reg.records) < MAX_RECORDS:
+            reg.records.append(rec)
+            dev = None if self.device is None else torch.device(self.device)
+            if dev is not None and dev.type == "cuda":
+                rec.events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                rec.device = dev
+        else:
+            reg.dropped += 1
+        reg.open.append(rec)
+        self.rec = rec
+        self.fn = torch.profiler.record_function(self.name)
+        self.fn.__enter__()
+        if rec.events is not None:
+            rec.events[0].record(torch.cuda.current_stream(rec.device))
+        rec.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.t1 = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record(torch.cuda.current_stream(rec.device))
+        self.fn.__exit__(*exc)
+        reg = _REGISTRY
+        reg.open.pop()
+        if reg.open:
+            reg.open[-1].child_ns += rec.t1 - rec.t0
+        return False
+
+
+def span(name: str, device=None):
+    """A context manager for one stage of the port, named ``name``.
+
+    While no ``torch.profiler`` session records, it does nothing (a flag
+    read and a shared no-op object). While one records, it opens
+    ``torch.profiler.record_function(name)`` and keeps a record (its
+    parent span, its root's call id, host start and end); where
+    ``device`` is a CUDA device, it also records a CUDA event pair on that
+    device's current stream around the stage. The first recorded span
+    after spans that ran unrecorded starts the records afresh. Spans nest
+    on one thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        _REGISTRY.stale = True
+        return _OFF
+    return _Span(name, device)
+
+
+def recorded() -> dict:
+    """Per-name totals of the recorded spans: ``{"spans": {name: {"count",
+    "host_ms", "self_ms", "stream_ms"}}, "dropped": n}``. ``host_ms`` is
+    the host clock's time inside the span, ``self_ms`` that time less its
+    direct children's, ``stream_ms`` the time between its CUDA events (the
+    stage's device time with any idle left inside it; None for spans that
+    recorded no events). Synchronises each card that recorded events,
+    once, to read them."""
+    recs = [r for r in _REGISTRY.records if r.t1]  # the closed ones
+    for dev in {r.device for r in recs if r.device is not None}:
+        torch.cuda.synchronize(dev)
+    out = {}
+    for r in recs:
+        s = out.setdefault(r.name, {"count": 0, "host_ms": 0.0, "self_ms": 0.0,
+                                    "stream_ms": None})
+        s["count"] += 1
+        s["host_ms"] += (r.t1 - r.t0) / 1e6
+        s["self_ms"] += (r.t1 - r.t0 - r.child_ns) / 1e6
+        if r.events is not None:
+            s["stream_ms"] = (s["stream_ms"] or 0.0) + r.events[0].elapsed_time(r.events[1])
+    return {"spans": out, "dropped": _REGISTRY.dropped}
 
 
 class Timer:

@@ -572,6 +572,42 @@ def test_card_time_fn_synchronises_a_cuda_result(cuda_device):
     assert best * 1e3 >= 0.5 * t0.elapsed_time(t1)
 
 
+def test_card_span_times_its_stream_and_adds_no_kernel(cuda_device):
+    """A span on the card records its CUDA event pair around the stage's
+    kernels; its annotation on the card's track is no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ngpd_tpu_torch.utils import prof
+
+    a = torch.randn(4096, 4096, device=cuda_device)
+    with prof.span("ngpd.test.off", cuda_device):  # nothing records: starts afresh
+        pass
+
+    def work(spans):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            if spans:
+                with prof.span("ngpd.test.root", cuda_device):
+                    with prof.span("ngpd.test.mm", cuda_device):
+                        b = a @ a @ a
+            else:
+                b = a @ a @ a
+            torch.cuda.synchronize()
+        return p, b
+
+    work(False)
+    p0, _ = work(False)
+    p1, _ = work(True)
+    kernels = [[e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation] for p in (p0, p1)]
+    assert len(kernels[0]) == len(kernels[1]) > 0
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels[1]) / 1e3
+    spans = prof.recorded()["spans"]
+    assert spans["ngpd.test.mm"]["count"] == 1 and spans["ngpd.test.root"]["count"] == 1
+    assert spans["ngpd.test.mm"]["stream_ms"] >= 0.9 * busy
+    assert spans["ngpd.test.root"]["stream_ms"] >= spans["ngpd.test.mm"]["stream_ms"]
+    assert spans["ngpd.test.root"]["host_ms"] >= spans["ngpd.test.mm"]["host_ms"]
+
+
 def test_card_plot_cloud_takes_cuda_tensors(cuda_device, tmp_path):
     pytest.importorskip("matplotlib")
     import matplotlib.image as mpimg
