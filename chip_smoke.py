@@ -7,8 +7,9 @@ Phases, one output line each; any failure ends the run with a non-zero
 exit code and no result line:
 
   card       the card's name and power limit (nvidia-smi), CUDA version
-  build      nvcc builds K0/K1/K2, passes A-D, the fused pass BD, the
-             kNN kernel, the feature kNN and the edge block from
+  build      nvcc builds K0/K1/K2, the hybrid's two stage kernels, passes
+             A-D, the fused pass BD, the kNN kernel, the feature kNN and
+             the edge block from
              ``ngpd_tpu_torch/kernels/csrc``; ptxas registers and spills
   knn_kernel the kNN kernel (``csrc/knn.cu``, behind ``ops/knn.py::knn``
              and ``::nn_distances`` on the card) against its plain version,
@@ -59,9 +60,17 @@ exit code and no result line:
              blocks an SM; for K0 its candidates' mean and largest count
              and the share of queries that took the counting search (from
              ``k0_model`` on the same tensors, held equal to the kernel);
-             for K2 the share of a warp's 32-column words that it skips
+             for K2 the share of a warp's 32-column words that it skips;
+             the hybrid's stage kernels (``kernels/hybrid.py``, the VU and
+             the update stage) against the eager stages on the same card
+             tensors, the packs and classes ``torch.equal`` and the lag
+             state's centres within 2e-6 of the cloud's extent, at the main
+             shape (timed: kernel, eager stage and bound, registers,
+             spills, blocks an SM), at 65,536 roof points and on 65,536
+             points of tiled cube corners for every strategy
   main       the main path: ``ngpd_tpu_torch.bench.run``, 1M points, k 32,
-             20 iterations, lagged_nvt1; CD gate and launch counts
+             20 iterations, lagged_nvt1; CD gate and launch counts (the
+             stage kernels 20 each)
   fresh_k1   65,536 points, 4 iterations, lagged_nvt1 off: K1 launches 4x
              and the CD ratio is at most 0.35
   reference  card against the CPU path (held against ngpd_tpu by the
@@ -247,6 +256,7 @@ from ngpd_tpu_torch.io.obj import load_obj, read_obj, save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import graph as kgraph
+from ngpd_tpu_torch.kernels import hybrid as khy
 from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -609,6 +619,76 @@ def check_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
     for r in rec[1:]:
         r["library_ms"] = None
         r["library_note"] = "no single PyTorch call computes masked, angle-filtered window sums"
+    return rec
+
+
+# The update stage's reads (kernels/csrc/hybrid_update.cu): each point the
+# t6 rows and the K2 rows of its class's step; a point of a lagged-delta
+# class below nv also the jp (sv), deg and maxd rows of its partials.
+STEP_K2_ROWS = {"flat": {"flat"}, "edge": {"s6", "b_nv", "deg", "q18"},
+                "corner": {"s6", "b_nv"}, "feature": {"s6", "b_nv", "deg", "sv"},
+                "new": {"deg", "new"}, "dummy": set()}
+K2_GROUP_ROWS = {"t6": 6, "s6": 6, "b_nv": 3, "sv": 3, "deg": 1, "q18": 18, "flat": 2,
+                 "new": 12, "maxd": 1}
+STAGE_SCAL_TOL = 2e-6  # the centres, of the cloud's extent: summed per block, then over them
+
+
+def stage_bytes(cls: torch.Tensor, strategy, needs_delta, nv: int) -> tuple[int, int]:
+    """Least bytes of the two stage kernels on these classes. The VU stage
+    reads 6 t6 rows and the 8-row pack and writes 8 rows; the update stage
+    reads what STEP_K2_ROWS says and the pack, and writes the next pack and
+    the class (the partials, a few floats a block, are left out)."""
+    n = cls.shape[0]
+    rows = n * (8 + 8 + 1)
+    for c in range(3):
+        groups = {"t6"} | STEP_K2_ROWS[strategy[c]]
+        rows += int((cls == c).sum()) * sum(K2_GROUP_ROWS[g] for g in groups)
+        if c in needs_delta:
+            extra = {"sv", "deg", "maxd"} - groups
+            rows += int((cls[:nv] == c).sum()) * sum(K2_GROUP_ROWS[g] for g in extra)
+    return 4 * n * (6 + 8 + 8), 4 * rows
+
+
+def check_stage_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
+    """The hybrid's VU and update kernels against the eager stages
+    (``core/hybrid_stages.py`` on the same card tensors), each fed K1's and
+    K2's output of one prologue state: the post-VU pack, the next pack and
+    the classes equal; d_thr and the deltas equal, the centres within
+    STAGE_SCAL_TOL of the cloud's extent."""
+    win, nd, lay = st.win, st.needs_delta, st.lay
+    t6 = kw.k1(st.pack, win, cfg.angle)
+    ref2, plain_vu = time_once(lambda: hs.vu_stage(t6, st.pack, cfg))
+    got2 = khy.vu_stage(t6, st.pack, cfg)
+    if not torch.equal(got2, ref2):
+        fail(f"hybrid_vu {strategy}: {int((got2 != ref2).any(dim=0).sum())} points differ "
+             f"from vu_stage, max {float((got2 - ref2).abs().max())}")
+    k2 = kw.k2(ref2, st.scal, win, cfg.angle, strategy, len(nd))
+    args = (k2, ref2, st.d_thr, cfg, strategy, nd, lay, win.nv)
+    ref, plain_up = time_once(lambda: hs.update_stage(*args))
+    got = khy.update_stage(*args)
+    bad = (got[0] != ref[0]).any(dim=0) | (got[2] != ref[2])
+    if bool(bad.any()):
+        fail(f"hybrid_update {strategy}: {int(bad.sum())} points differ from update_stage, "
+             f"max {float((got[0] - ref[0]).abs().max())}")
+    extent = float(ref2[0:3, : win.nv].abs().max())
+    scal_err = float((got[1] - ref[1]).abs().max())
+    if not torch.equal(got[1][0:4, 0], ref[1][0:4, 0]) or scal_err > STAGE_SCAL_TOL * extent:
+        fail(f"hybrid_update {strategy}: lag state off by {scal_err} (extent {extent})")
+    rec = [{"name": "HYBRID_VU", "max_abs_err": 0.0, "plain_ms": plain_vu},
+           {"name": "HYBRID_UPDATE", "max_abs_err": 0.0, "scal_err": scal_err,
+            "plain_ms": plain_up,
+            "classes": [int((ref[2][: win.nv] == c).sum()) for c in range(3)]}]
+    if not timed:
+        return rec
+    rec[0]["ms"] = time_launches(lambda: khy.vu_stage(t6, st.pack, cfg))
+    rec[1]["ms"] = time_launches(lambda: khy.update_kernel(*args))
+    rec[1]["lag_scal_ms"] = time_launches(lambda: khy.update_stage(*args)) - rec[1]["ms"]
+    for r, name, b in zip(rec, ("hybrid_vu", "hybrid_update"),
+                          stage_bytes(ref[2], strategy, nd, win.nv)):
+        r["bound_ms"], r["bound_by"] = bound(b, 0)
+        r.update(build_facts(name, f"{name}_kernel", (), ()))
+        r["library_ms"] = None
+        r["library_note"] = "no single PyTorch call computes the stage"
     return rec
 
 
@@ -2399,14 +2479,21 @@ def main() -> int:
     noisy, nrm, clean = bench.make_cloud(MAIN_N)
     st = prologue(noisy, nrm, cfg, STRATEGIES[0], device="cuda")
     rec = check_kernels(cfg, st, STRATEGIES[0], timed=True)
+    rec += check_stage_kernels(cfg, st, STRATEGIES[0], timed=True)
     del st
     say("kernels", shape=MAIN_N, tile=256, wt_c=512, records=rec)
     vn, vnrm, _ = bench.make_cloud(VARIANT_N)
+    corners, corner_nrm, _ = bench.make_corner_cloud(VARIANT_N)
     for strat in STRATEGIES:
         st = prologue(vn, vnrm, cfg, strat, device="cuda")
         errs = check_kernels(cfg, st, strat, timed=False)
+        errs += check_stage_kernels(cfg, st, strat, timed=False)
         say("kernel_variants", shape=VARIANT_N, strategy=strat,
             max_abs_err={r["name"]: r["max_abs_err"] for r in errs})
+        st = prologue(corners, corner_nrm, cfg, strat, device="cuda")
+        errs = check_stage_kernels(cfg, st, strat, timed=False)
+        say("stage_variants", shape=VARIANT_N, cloud="cube corners", strategy=strat,
+            classes=errs[1]["classes"], scal_err=errs[1]["scal_err"])
     # The CLI's >= 100k route: window 512 gives wt_c 1280, K0's 64-column-
     # a-lane instantiation, and feature_k 16.
     cli_cfg = DenoiseConfig(feature_k=16, step_k=8)
@@ -2421,7 +2508,8 @@ def main() -> int:
     # main path
     main_rec = bench.run(MAIN_N, MAIN_ITERS, MAIN_K, "cuda", lagged_nvt1=True, repeats=2)
     say("main", **main_rec)
-    want = {"k0": 1, "k1": 1, "k2": MAIN_ITERS}
+    want = {"k0": 1, "k1": 1, "k2": MAIN_ITERS, "hybrid_vu": MAIN_ITERS,
+            "hybrid_update": MAIN_ITERS}
     if main_rec["launches"] != want:
         fail(f"main path launches {main_rec['launches']} != {want}")
     if main_rec["quality_gate"] != "pass" or not np.isfinite(main_rec["value"]):
@@ -2430,7 +2518,7 @@ def main() -> int:
     # fresh K1 every iteration
     fresh = bench.run(VARIANT_N, 4, MAIN_K, "cuda", lagged_nvt1=False, repeats=1)
     say("fresh_k1", **fresh)
-    if fresh["launches"] != {"k0": 1, "k1": 4, "k2": 4}:
+    if fresh["launches"] != {"k0": 1, "k1": 4, "k2": 4, "hybrid_vu": 4, "hybrid_update": 4}:
         fail(f"fresh-K1 launches {fresh['launches']}")
     # Four iterations is a smoke depth, not the gated bench depth (0.25
     # at 20 iterations); on the H100 this cell reads 0.251, so 0.35 holds
@@ -2464,7 +2552,6 @@ def main() -> int:
         records=pass_rec)
     del pst
     # Every step on hundreds of points: the roof above is nearly all flat.
-    corners, corner_nrm, _ = bench.make_corner_cloud(VARIANT_N)
     for strat in PASS_STRATEGIES:
         pst = passes_prologue(corners, corner_nrm, cfg, strat, device="cuda")
         _, checks = check_passes(cfg, pst, strat, timed=False, min_class=MIN_CLASS_POINTS)
@@ -2537,6 +2624,7 @@ def main() -> int:
 
     kernels = []
     sources = {"K0": ("k0", 1670), "K1": ("k1", 1131), "K2": ("k2", 1186),
+               "HYBRID_VU": ("hybrid_vu", 1320), "HYBRID_UPDATE": ("hybrid_update", 1339),
                "PASS_A": ("pass_a", 232), "PASS_B": ("pass_b", 281),
                "PASS_C": ("pass_c", 356), "PASS_D": ("pass_d", 402),
                "PASS_BD": ("pass_bd", 565)}

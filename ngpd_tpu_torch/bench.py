@@ -134,6 +134,7 @@ def run(n: int = 1_000_000, iters: int = 20, k: int = 32, device=None,
     from .config import DenoiseConfig
     from .core.cuda_fused import denoise_hybrid
     from .device import resolve_device
+    from .kernels import hybrid as khy
     from .kernels import window as kw
 
     dev = resolve_device(device)
@@ -153,10 +154,11 @@ def run(n: int = 1_000_000, iters: int = 20, k: int = 32, device=None,
     best = float("inf")
     for _ in range(repeats):
         kw.reset_launch_counts()
+        khy.reset_launch_counts()
         t0 = time.perf_counter()
         out, _, _ = once()
         best = min(best, time.perf_counter() - t0)
-        launches = dict(kw.LAUNCHES)
+        launches = {**kw.LAUNCHES, **khy.LAUNCHES}
     ratio, cd_noisy, cd_out = cd_ratio(out.cpu().numpy(), noisy, clean, dev)
     value = n * iters / best
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -6,8 +6,9 @@ chain is: Morton sort -> K0 (k-th distance thresholds, ``d_thr``) ->
 per iteration: K1 (filtered NVT1; iteration 0 only under
 ``lagged_nvt1``) -> VU stage -> K2 (every window sum of the update) ->
 update stage -> unsort. K0/K1/K2 are CUDA kernels on a card and their
-plain PyTorch versions on the CPU (``kernels/window.py``); the stages
-between them are plain torch (``core/hybrid_stages.py``).
+plain PyTorch versions on the CPU (``kernels/window.py``); so are the
+two per-point stages between them (``kernels/hybrid.py``, plain versions
+``core/hybrid_stages.py``).
 
 Semantics are the reference's: thresholds frozen at the noisy input,
 lagged global deltas, and the same padding to ``tile * sub`` (the last
@@ -34,6 +35,7 @@ import torch
 
 from ..config import DenoiseConfig
 from ..device import exact_float32, resolve_device
+from ..kernels import hybrid as khy
 from ..kernels import passes as kp
 from ..kernels import window as kw
 from ..ops.morton import SortedCloud, morton_sort, unsort
@@ -145,10 +147,10 @@ def denoise_hybrid(
             if not lagged_nvt1:
                 t6 = kw.k1(pack, win, cfg.angle)
             with prof.span("ngpd.hybrid.vu_stage", dev):
-                pack2 = hs.vu_stage(t6, pack, cfg)
+                pack2 = khy.vu_stage(t6, pack, cfg)
             k2out = kw.k2(pack2, scal, win, cfg.angle, strategy, len(st.needs_delta))
             with prof.span("ngpd.hybrid.update_stage", dev):
-                pack, scal, cls = hs.update_stage(
+                pack, scal, cls = khy.update_stage(
                     k2out, pack2, st.d_thr, cfg, strategy, st.needs_delta, lay, win.nv
                 )
             if lagged_nvt1:

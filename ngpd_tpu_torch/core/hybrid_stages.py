@@ -4,6 +4,8 @@ These are ``ngpd_tpu/core/pallas_fused.py``'s ``_xla_vu_stage`` and
 ``_xla_update_stage`` with their component helpers and pack layouts: the
 elementwise math between the window kernels (closed-form eigh, the VU
 filter, guarded 3x3 solves, class dispatch and the lagged-delta state).
+They are the plain versions of the two stage kernels
+(``kernels/hybrid.py``): the CPU runs them, the card the kernels.
 
 Layouts, kept from the reference so the tests compare like with like:
   slim pack (8, N): [p(3), n(3), rk_feat, rk_step]

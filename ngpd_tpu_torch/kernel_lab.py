@@ -1,14 +1,14 @@
-"""Builds of the kernels (K0, K1, K2, passes A-D and BD, the kNN kernel,
-the feature kNN and the edge block) side by side on the card: outputs and
-times.
+"""Builds of the kernels (K0, K1, K2, the hybrid's VU and update stage
+kernels, passes A-D and BD, the kNN kernel, the feature kNN and the edge
+block) side by side on the card: outputs and times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
         [--rounds 3] [--n 1000000] [--window 128] [--feature-k 32]
         [--smoke-cases] [--sass]
 
-Builds ``k0.cu``, ``k1.cu``, ``k2.cu``, ``pass_a.cu`` ... ``pass_d.cu`` and
-``pass_bd.cu`` of this checkout as they are (the ``tree`` build), once
+Builds ``k0.cu``, ``k1.cu``, ``k2.cu``, ``hybrid_vu.cu``, ``hybrid_update.cu``,
+``pass_a.cu`` ... ``pass_d.cu`` and ``pass_bd.cu`` of this checkout as they are (the ``tree`` build), once
 more for each ``--variant`` with extra nvcc flags (the sources' switches:
 ``-DNGPD_NO_SKIP`` scans every word of K1 and K2, ``-DNGPD_NO_KEEP`` makes
 passes B and BD scan their step bits again instead of keeping them,
@@ -44,9 +44,7 @@ Builds with a timing switch compute something else by design; their
 instruction counts of the entry function's hottest loop (the one with the
 most float32 arithmetic) from ``cuobjdump -sass``: its instructions, float
 arithmetic and shared-memory loads an iteration, the numerator of the
-card's issue ceiling. A kNN library from before the split path (no
-``ngpd_knn_slices``) runs every case in one launch, as it did. Needs a
-card.
+card's issue ceiling. Needs a card.
 """
 
 from __future__ import annotations
@@ -69,29 +67,16 @@ from .core import hybrid_stages as hs
 from .core.cuda_fused import passes_prologue, prologue
 from .kernels import build
 from .kernels import graph as kgraph
+from .kernels import hybrid as khy
 from .kernels import knn as kknn
 from .kernels import passes as kp
 from .kernels import window as kw
 from .utils.cache import cache_dir
 
 NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn",
-         "feature_knn", "edge_block")
+         "feature_knn", "edge_block", "hybrid_vu", "hybrid_update")
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
-
-
-class _PreSplit:
-    """A kNN library from before the split path: one launch a search."""
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-    @staticmethod
-    def ngpd_knn_slices(nq: int, nv: int, k: int) -> int:
-        return 1
 
 
 def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
@@ -109,11 +94,8 @@ def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
         lib = ctypes.CDLL(str(p))
         entries = {f"ngpd_{k}_launch": build.ARGTYPES[k], **build.ENTRY_ARGTYPES.get(k, {})}
         for entry, argtypes in entries.items():
-            if hasattr(lib, entry):
-                fn = getattr(lib, entry)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        if k == "knn" and not hasattr(lib, "ngpd_knn_slices"):
-            lib = _PreSplit(lib)
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         out.setdefault(b, {})[k] = (lib, p)
     return out
 
@@ -168,6 +150,28 @@ def k2_call(n: int, cloud, strategy, cfg, window: int = 128):
     scal[1:4, 0] = st.d_thr * torch.tensor([1.0, 2.0, 4.0], device=scal.device)
     nd = len(st.needs_delta)
     return lambda: (kw.k2(pack2, scal, st.win, cfg.angle, strategy, nd),)
+
+
+def _stage_operands(n: int, cloud, strategy, cfg, window: int):
+    """A prologue state, K1's output, the post-VU pack and K2's output: the
+    operands of the hybrid's two stage kernels in its first iteration."""
+    st = _hybrid_state(n, cloud, strategy, cfg, window)
+    t6 = kw.k1(st.pack, st.win, cfg.angle)
+    pack2 = hs.vu_stage(t6, st.pack, cfg)
+    k2 = kw.k2(pack2, st.scal, st.win, cfg.angle, strategy, len(st.needs_delta))
+    return st, t6, pack2, k2
+
+
+def hybrid_vu_call(n: int, cloud, strategy, cfg, window: int = 128):
+    st, t6, _, _ = _stage_operands(n, cloud, strategy, cfg, window)
+    return lambda: (khy.vu_stage(t6, st.pack, cfg),)
+
+
+def hybrid_update_call(n: int, cloud, strategy, cfg, window: int = 128):
+    """The update kernel alone, without lag_scal's reduction of its parts."""
+    st, _, pack2, k2 = _stage_operands(n, cloud, strategy, cfg, window)
+    return lambda: khy.update_kernel(k2, pack2, st.d_thr, cfg, strategy, st.needs_delta,
+                                     st.lay, st.win.nv)
 
 
 def _pass_a_state(n: int, cloud, strategy, cfg, window: int):
@@ -304,20 +308,24 @@ def _window(*extra):
 # ``ngpd_<name>_blocks_per_sm`` as a function of (tile, window columns, k).
 CALLS = {"k0": k0_call, "k1": k1_call, "k2": k2_call, "pass_a": a_call, "pass_b": b_call,
          "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call, "knn": knn_call,
-         "feature_knn": feature_knn_call, "edge_block": edge_block_call}
+         "feature_knn": feature_knn_call, "edge_block": edge_block_call,
+         "hybrid_vu": hybrid_vu_call, "hybrid_update": hybrid_update_call}
 ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
            "k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
            "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
            "pass_d": ("pass_d_kernel", ()), "pass_bd": ("pass_bd_kernel", (True,)),
            "knn": ("knn_kernel", kknn.variant(32)),
            "feature_knn": ("feature_knn_kernel", (8, True, True)),
-           "edge_block": ("edge_block_kernel", (True,))}
+           "edge_block": ("edge_block_kernel", (True,)),
+           "hybrid_vu": ("hybrid_vu_kernel", ()), "hybrid_update": ("hybrid_update_kernel", ())}
 SHAPED_ENTRIES = {"k0": _k0_entry, "knn": _knn_entry}
 GEOMETRY = {"k0": _window(), "k1": _window(), "k2": _window(1, 1, 0), "pass_a": _window(),
             "pass_b": _window(), "pass_c": _window(), "pass_d": _window(),
             "pass_bd": _window(), "knn": lambda tile, wt_c, feature_k: (feature_k,),
             "feature_knn": lambda tile, wt_c, feature_k: (GRAPH_P, GRAPH_C, GRAPH_K),
-            "edge_block": lambda tile, wt_c, feature_k: (GRAPH_C,)}
+            "edge_block": lambda tile, wt_c, feature_k: (GRAPH_C,),
+            "hybrid_vu": lambda tile, wt_c, feature_k: (),
+            "hybrid_update": lambda tile, wt_c, feature_k: ()}
 
 
 def entry_of(kernel: str, wt_c: int = 512, feature_k: int = 32) -> tuple:
@@ -465,7 +473,7 @@ def main(argv=None) -> None:
     if args.corner:
         for strategy in STRATEGIES:
             for kernel in names:
-                if kernel in ("k0", "k1", "knn", "feature_knn", "edge_block") \
+                if kernel in ("k0", "k1", "knn", "feature_knn", "edge_block", "hybrid_vu") \
                         and strategy != STRATEGIES[0]:
                     continue  # the strategy does not reach these kernels' inputs
                 call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg,

@@ -17,7 +17,9 @@
 // plain PyTorch versions (kernels/passes.py) bit for bit. The per-point
 // math (eigh, VU smoothing, classes, the 3x3 solves) mirrors
 // ngpd_tpu_torch/ops/eigh3.py, ops/solve3.py and core/hybrid_stages.py
-// branch for branch; only cosf and expf differ from torch by ulps.
+// branch for branch; only cosf and expf differ from torch by ulps. The
+// hybrid engine's stage kernels (hybrid_vu.cu, hybrid_update.cu) share it
+// with the roots in PyTorch's CUDA arithmetic (eigen_roots).
 #pragma once
 
 #include "window_common.cuh"
@@ -127,51 +129,83 @@ __device__ __forceinline__ void evec_deflated(const float b[3][3], float lam,
   for (int c = 0; c < 3; ++c) out[c] = fadd(fmul(c0, u[c]), fmul(c1, v[c]));
 }
 
-// ops/eigh3.py::eigh3x3_components with acos_fn=acos_poly: w ascending,
-// v[i] the eigenvector of w[i].
-__device__ __forceinline__ void eigh3(const float a[6], float w[3],
-                                      float v[3][3]) {
-  const float scale =
+// The scaled trigonometric roots of ops/eigh3.py::_roots: the matrix over
+// its largest |entry| (b), that scale, p and the roots in ascending order.
+// TORCH false: acos_poly and true division by the constants 3 and 6, the
+// pass kernels' arithmetic. TORCH true: acosf, and each division by a
+// constant as a product with its float32 reciprocal, which is what
+// PyTorch's CUDA kernels compute for a tensor over a Python scalar
+// (``x / 3.0``), so the hybrid engine's kernels give the eager stages'
+// bits on the card. Division by 2 is exact either way.
+struct Roots {
+  float b[3][3];
+  float scale, safe, p, lo, mid, hi;
+};
+
+template <bool TORCH>
+__device__ __forceinline__ float div_const(float x, float c) {
+  return TORCH ? fmul(x, 1.0f / c) : fdiv(x, c);
+}
+
+template <bool TORCH>
+__device__ __forceinline__ Roots eigen_roots(const float a[6]) {
+  Roots r;
+  r.scale =
       fmaxf(fmaxf(fmaxf(fabsf(a[0]), fabsf(a[3])), fmaxf(fabsf(a[5]), fabsf(a[1]))),
             fmaxf(fabsf(a[2]), fabsf(a[4])));
-  const float safe = fmaxf(scale, EPS);
-  const float b00 = fdiv(a[0], safe), b01 = fdiv(a[1], safe), b02 = fdiv(a[2], safe);
-  const float b11 = fdiv(a[3], safe), b12 = fdiv(a[4], safe), b22 = fdiv(a[5], safe);
-  const float b[3][3] = {{b00, b01, b02}, {b01, b11, b12}, {b02, b12, b22}};
-  const float q = fdiv(fadd(fadd(b00, b11), b22), 3.0f);
+  r.safe = fmaxf(r.scale, EPS);
+  const float b00 = fdiv(a[0], r.safe), b01 = fdiv(a[1], r.safe), b02 = fdiv(a[2], r.safe);
+  const float b11 = fdiv(a[3], r.safe), b12 = fdiv(a[4], r.safe), b22 = fdiv(a[5], r.safe);
+  r.b[0][0] = b00; r.b[0][1] = b01; r.b[0][2] = b02;
+  r.b[1][0] = b01; r.b[1][1] = b11; r.b[1][2] = b12;
+  r.b[2][0] = b02; r.b[2][1] = b12; r.b[2][2] = b22;
+  const float q = div_const<TORCH>(fadd(fadd(b00, b11), b22), 3.0f);
   const float d00 = fsub(b00, q), d11 = fsub(b11, q), d22 = fsub(b22, q);
   const float p1 = fadd(fadd(fmul(b01, b01), fmul(b02, b02)), fmul(b12, b12));
   const float p2 = fadd(fadd(fadd(fmul(d00, d00), fmul(d11, d11)), fmul(d22, d22)),
                         fmul(2.0f, p1));
-  const float p = __fsqrt_rn(fmaxf(fdiv(p2, 6.0f), 0.0f));
-  const float sp = fmaxf(p, EPS);
+  r.p = __fsqrt_rn(fmaxf(div_const<TORCH>(p2, 6.0f), 0.0f));
+  const float sp = fmaxf(r.p, EPS);
   const float c00 = fdiv(d00, sp), c11 = fdiv(d11, sp), c22 = fdiv(d22, sp);
   const float c01 = fdiv(b01, sp), c02 = fdiv(b02, sp), c12 = fdiv(b12, sp);
   const float det_c =
       fadd(fsub(fmul(c00, fsub(fmul(c11, c22), fmul(c12, c12))),
                 fmul(c01, fsub(fmul(c01, c22), fmul(c12, c02)))),
            fmul(c02, fsub(fmul(c01, c12), fmul(c11, c02))));
-  const float r = fminf(fmaxf(fdiv(det_c, 2.0f), -1.0f), 1.0f);
-  const float phi = fdiv(acos_poly(r), 3.0f);
-  const float lam_hi = fadd(q, fmul(fmul(2.0f, p), cosf(phi)));
-  const float lam_lo = fadd(q, fmul(fmul(2.0f, p), cosf(fadd(phi, 2.0943952f))));
-  const float lam_mid = fsub(fsub(fmul(3.0f, q), lam_hi), lam_lo);
+  const float rc = fminf(fmaxf(fdiv(det_c, 2.0f), -1.0f), 1.0f);
+  const float phi = div_const<TORCH>(TORCH ? acosf(rc) : acos_poly(rc), 3.0f);
+  r.hi = fadd(q, fmul(fmul(2.0f, r.p), cosf(phi)));
+  r.lo = fadd(q, fmul(fmul(2.0f, r.p), cosf(fadd(phi, 2.0943952f))));
+  r.mid = fsub(fsub(fmul(3.0f, q), r.hi), r.lo);
+  return r;
+}
 
-  const bool from_hi = fsub(lam_hi, lam_mid) >= fsub(lam_mid, lam_lo);
+// The roots unscaled: the eigenvalues, ascending (ops/eigh3.py::_unscale).
+__device__ __forceinline__ void unscale(const Roots& r, float w[3]) {
+  const bool nonzero = r.scale > 0.0f;
+  w[0] = nonzero ? fmul(r.lo, r.safe) : 0.0f;
+  w[1] = nonzero ? fmul(r.mid, r.safe) : 0.0f;
+  w[2] = nonzero ? fmul(r.hi, r.safe) : 0.0f;
+}
+
+// ops/eigh3.py::eigh3x3_components (acos_fn=acos_poly unless TORCH, see
+// eigen_roots): w ascending, v[i] the eigenvector of w[i].
+template <bool TORCH = false>
+__device__ __forceinline__ void eigh3(const float a[6], float w[3],
+                                      float v[3][3]) {
+  const Roots r = eigen_roots<TORCH>(a);
+  const bool from_hi = fsub(r.hi, r.mid) >= fsub(r.mid, r.lo);
   float v_first[3], v_mid[3], v_third[3];
-  evec_from_cross(b, from_hi ? lam_hi : lam_lo, v_first);
-  evec_deflated(b, lam_mid, v_first, v_mid);
+  evec_from_cross(r.b, from_hi ? r.hi : r.lo, v_first);
+  evec_deflated(r.b, r.mid, v_first, v_mid);
   cross(v_first, v_mid, v_third);
-  const bool iso = p < 1e-6f;
+  const bool iso = r.p < 1e-6f;
   for (int c = 0; c < 3; ++c) {
     v[0][c] = iso ? (c == 0 ? 1.0f : 0.0f) : (from_hi ? v_third[c] : v_first[c]);
     v[1][c] = iso ? (c == 1 ? 1.0f : 0.0f) : v_mid[c];
     v[2][c] = iso ? (c == 2 ? 1.0f : 0.0f) : (from_hi ? v_first[c] : v_third[c]);
   }
-  const bool nonzero = scale > 0.0f;
-  w[0] = nonzero ? fmul(lam_lo, safe) : 0.0f;
-  w[1] = nonzero ? fmul(lam_mid, safe) : 0.0f;
-  w[2] = nonzero ? fmul(lam_hi, safe) : 0.0f;
+  unscale(r, w);
 }
 
 // VU-smoothed normal from the eigenpairs (pallas_fused.py:61-70).

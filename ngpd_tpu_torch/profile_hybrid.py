@@ -8,8 +8,9 @@ Runs the bench workload (``bench.make_cloud``, lagged_nvt1) once to warm
 up, then once under ``torch.profiler`` with CPU and CUDA activities, and
 prints one JSON line: the run's wall time (host clock, ending in a
 synchronize), the device's busy time (union of kernel intervals) and idle
-share, device time and kernel count by group (K0, K1, K2, and every other
-kernel, i.e. the per-point torch stages, Morton sort and unsort), the
+share, device time and kernel count by group (K0, K1, K2, the two stage
+kernels HYBRID_VU and HYBRID_UPDATE, and every other kernel: the
+prologue's and the lag state's torch ops, Morton sort and unsort), the
 ten kernels with the most device time, and the port's spans over the run
 (``utils.prof.recorded()``: count, host ms, self host ms and stream ms by
 name, e.g. ``ngpd.hybrid.vu_stage``; the entries without spans, the pass
@@ -50,7 +51,8 @@ ENGINES = ("hybrid", "passes", "passes_lagged")  # the engines with kernels of t
 
 
 def _group(name: str) -> str:
-    for k in ("k0", "k1", "k2", "pass_a", "pass_bd", "pass_b", "pass_c", "pass_d"):
+    for k in ("k0", "k1", "k2", "hybrid_vu", "hybrid_update", "pass_a", "pass_bd", "pass_b",
+              "pass_c", "pass_d"):
         if f"{k}_kernel" in name:
             return k.upper()
     return "torch"

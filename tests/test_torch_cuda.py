@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from ngpd_tpu_torch.bench import make_cloud
+from ngpd_tpu_torch.bench import make_cloud, make_corner_cloud
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.core import hybrid_stages as hs
 from ngpd_tpu_torch.core.cuda_fused import denoise_hybrid, prologue
+from ngpd_tpu_torch.kernels import hybrid as khy
 from ngpd_tpu_torch.kernels import window as kw
 
 torch.set_num_threads(2)
@@ -67,13 +68,77 @@ def test_card_denoise_matches_cpu(cuda_device, lagged):
     """The mask-flip bound of the reference's ladder: >= 99% classes
     equal, >= 99.9% of points within 2e-3, all within 2e-2."""
     noisy, nrm, _ = make_cloud(16_384)
+    khy.reset_launch_counts()
     g, _, gc = denoise_hybrid(noisy, nrm, iterations=2, lagged_nvt1=lagged,
                               device=cuda_device)
+    assert khy.LAUNCHES == {"hybrid_vu": 2, "hybrid_update": 2}  # the card took the kernels
     c, _, cc = denoise_hybrid(noisy, nrm, iterations=2, lagged_nvt1=lagged,
                               device="cpu")
     diff = (g.cpu() - c).abs().amax(dim=1).numpy()
     assert np.mean(gc.cpu().numpy() == cc.numpy()) >= 0.99
     assert np.mean(diff <= 2e-3) >= 0.999 and diff.max() <= 2e-2
+
+
+# The per-point stage kernels against the eager stages on the card: a roof
+# of 131,072 points (the main cell's shape, nearly all flat) and tiled cube
+# corners, where every class has hundreds of points; the default strategy
+# and one that takes the new, corner and dummy steps.
+STAGE_CLOUDS = {"roof": (make_cloud, 131_072), "corners": (make_corner_cloud, 65_536)}
+STAGE_STRATEGIES = [("flat", "edge", "feature"), ("new", "corner", "dummy")]
+
+
+@pytest.mark.parametrize("lagged", [False, True])
+@pytest.mark.parametrize("strategy", STAGE_STRATEGIES, ids="-".join)
+@pytest.mark.parametrize("cloud", list(STAGE_CLOUDS))
+def test_card_hybrid_stage_kernels_match_the_eager_stages(cuda_device, cloud, strategy,
+                                                          lagged):
+    """``kernels/hybrid.py`` against ``core/hybrid_stages.py`` run eagerly on
+    the same card tensors, one launch each. Both round every operation on
+    its own in the same order, divide by the constants 3 and 6 as PyTorch's
+    CUDA kernels do and call the same acosf and cosf, so the post-VU pack,
+    the next pack and the classes are equal bit for bit. Only the lag
+    state's centres are summed in another order (per block of 256 points,
+    then over the blocks): within 2e-6 of the cloud's extent; d_thr and the
+    deltas (maxima) are equal. Under lagged NVT1 the VU stage reads K2's
+    t6 rows, a view with K2's row pitch, instead of K1's output."""
+    maker, n = STAGE_CLOUDS[cloud]
+    noisy, nrm, _ = maker(n)
+    cfg = DenoiseConfig(feature_k=32, step_k=8)
+    st = prologue(noisy, nrm, cfg, strategy, num_valid=n - 100, device=cuda_device)
+    nd, lay, win = len(st.needs_delta), st.lay, st.win
+    t6 = kw.k1(st.pack, win, cfg.angle)
+    if lagged:
+        first = kw.k2(hs.vu_stage(t6, st.pack, cfg), st.scal, win, cfg.angle, strategy, nd)
+        t6 = first[lay["t6"] : lay["t6"] + 6]
+    before = dict(khy.LAUNCHES)
+    ref2 = hs.vu_stage(t6, st.pack, cfg)
+    got2 = khy.vu_stage(t6, st.pack, cfg)
+    assert torch.equal(got2, ref2)
+    k2 = kw.k2(ref2, st.scal, win, cfg.angle, strategy, nd)
+    ref = hs.update_stage(k2, ref2, st.d_thr, cfg, strategy, st.needs_delta, lay, win.nv)
+    got = khy.update_stage(k2, ref2, st.d_thr, cfg, strategy, st.needs_delta, lay, win.nv)
+    torch.cuda.synchronize()
+    assert khy.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    if cloud == "corners":
+        assert all(int((ref[2][: win.nv] == c).sum()) >= 100 for c in range(3))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+    assert torch.equal(got[1][0:4, 0], ref[1][0:4, 0])
+    extent = float(ref2[0:3, : win.nv].abs().max())
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=2e-6 * extent)
+
+
+@pytest.mark.parametrize("lagged", [False, True])
+def test_card_hybrid_runs_each_stage_kernel_once_an_iteration(cuda_device, lagged):
+    """20 iterations: one launch of each stage kernel an iteration, K1 once
+    under lagged NVT1, K2 every iteration; the output is finite."""
+    noisy, nrm, _ = make_cloud(16_384)
+    kw.reset_launch_counts()
+    khy.reset_launch_counts()
+    out = denoise_hybrid(noisy, nrm, iterations=20, lagged_nvt1=lagged, device=cuda_device)
+    torch.cuda.synchronize()
+    assert khy.LAUNCHES == {"hybrid_vu": 20, "hybrid_update": 20}
+    assert kw.LAUNCHES == {"k0": 1, "k1": 1 if lagged else 20, "k2": 20}
+    assert all(bool(torch.isfinite(x.float()).all()) for x in out)
 
 
 def _flips(got, ref, tol, cols=None):

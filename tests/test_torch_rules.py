@@ -12,6 +12,7 @@ from ngpd_tpu_torch.device import resolve_device
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import graph as kgraph
+from ngpd_tpu_torch.kernels import hybrid as khy
 from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
@@ -600,10 +601,12 @@ def test_pass_bd_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
 
 def test_build_lists_every_kernel_with_its_argument_types():
     assert build.SOURCES == ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d",
-                             "pass_bd", "knn", "feature_knn", "edge_block")
+                             "pass_bd", "knn", "feature_knn", "edge_block", "hybrid_vu",
+                             "hybrid_update")
     assert set(build.ARGTYPES) == set(build.SOURCES)
     for name in build.SOURCES:
-        assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES, **kgraph.LAUNCHES}
+        assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES, **kgraph.LAUNCHES,
+                        **khy.LAUNCHES}
         # One ctypes type per parameter of the C launch function.
         src = (build.CSRC / f"{name}.cu").read_text()
         sig = src[src.index(f"ngpd_{name}_launch("):]
