@@ -7,8 +7,11 @@ closed-form eigh. Orientation is iterative wavefront sign propagation:
 starting from the max-z seed, every unvisited point adjacent to the
 visited set adopts the sign that aligns it with the confidence-weighted
 vote of its visited neighbours. Each sweep is one masked (N, k) reduction;
-the loop runs on the host and reads "grew" once a sweep. The exact
-host-side MST + DFS is kept (numpy) for small-cloud golden tests.
+the loop runs on the host and reads "grew" once a sweep, and counts
+each sweep in ``SWEEPS["orient"]``. ``estimated_normals`` records the
+spans ``ngpd.normals.estimate`` (the search and PVT) and
+``ngpd.normals.orient`` (``utils/prof.py::span``). The exact host-side
+MST + DFS is kept (numpy) for small-cloud golden tests.
 """
 
 from __future__ import annotations
@@ -19,9 +22,12 @@ import torch
 from ..ops.eigh3 import eigh3x3
 from ..ops.knn import knn
 from ..ops.neighbors import Neighborhood, outer3
+from ..utils import prof
 
 # cos(7/12 * pi): flip when alignment falls below this.
 FLIP_THRESHOLD = float(np.cos(7.0 / 12.0 * np.pi))
+
+SWEEPS = {"orient": 0}  # orient_normals' sweeps, counted as they run
 
 
 def pvt_decomposition(points: torch.Tensor, nbh: Neighborhood):
@@ -75,6 +81,7 @@ def orient_normals(points: torch.Tensor, normals: torch.Tensor, nbh: Neighborhoo
     dots = torch.sum(nbh.gather(normals) * normals[:, None, :], dim=-1)  # (N, k)
     weighted = torch.abs(dots) * dots
     for _ in range(max_sweeps):
+        SWEEPS["orient"] += 1
         vis_j = visited[nbh.idx] & nbh.mask
         vote = torch.sum(torch.where(vis_j, weighted * sign[nbh.idx], 0.0), dim=1)
         frontier = (~visited) & (torch.sum(vis_j, dim=1) > 0)
@@ -88,8 +95,11 @@ def orient_normals(points: torch.Tensor, normals: torch.Tensor, nbh: Neighborhoo
 def estimated_normals(points: torch.Tensor, k: int = 12) -> torch.Tensor:
     """PVT normals over the k nearest other points, oriented: what the
     CLI and ``predict_cloud_normals`` use when a cloud has no normals."""
-    nbh, _ = knn(points, k, exclude_self=True)
-    return orient_normals(points, pvt_normals(points, nbh), nbh)
+    with prof.span("ngpd.normals.estimate", points.device):
+        nbh, _ = knn(points, k, exclude_self=True)
+        normals = pvt_normals(points, nbh)
+    with prof.span("ngpd.normals.orient", points.device):
+        return orient_normals(points, normals, nbh)
 
 
 def orient_normals_mst(

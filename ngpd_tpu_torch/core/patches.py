@@ -30,6 +30,7 @@ import torch
 from ..config import PatchConfig
 from ..device import exact_float32, resolve_device
 from ..ops.knn import _topk_smallest, knn
+from ..utils import prof
 from . import voting
 
 # Bytes of one (chunk, P, P, 3) difference block of the intra-patch kNN;
@@ -101,7 +102,9 @@ def extract_patches(points: torch.Tensor, normals: torch.Tensor,
                     selection=None) -> PatchBatch:
     """One patch per point, all N at once (getMDPatches semantics).
     ``selection`` is ``md_selection``'s result for these points, computed
-    here when not given."""
+    here when not given. Spans: ``ngpd.normals.select`` (that selection),
+    ``.frames`` (the MD transform, ``R_inv`` and the node features) and
+    ``.pair_knn`` (the intra-patch graph)."""
     dev = resolve_device(device)
     exact_float32()
     points = torch.as_tensor(points, dtype=torch.float32).to(dev)
@@ -109,28 +112,32 @@ def extract_patches(points: torch.Tensor, normals: torch.Tensor,
     gt_n = normals if gt_normals is None else torch.as_tensor(
         gt_normals, dtype=torch.float32).to(dev)
     if selection is None:
-        selection = md_selection(points, cfg, feature_k, num_valid)
+        with prof.span("ngpd.normals.select", dev):
+            selection = md_selection(points, cfg, feature_k, num_valid)
     nbh, mass, _ = selection
 
-    dec, scale = voting.md_transformation(points, nbh, normals, mass)
-    r_inv = voting.r_inv(dec, normals)  # (N, 3, 3)
+    with prof.span("ngpd.normals.frames", dev):
+        dec, scale = voting.md_transformation(points, nbh, normals, mass)
+        r_inv = voting.r_inv(dec, normals)  # (N, 3, 3)
 
-    pj = nbh.gather(points)  # (N, P, 3)
-    nj = nbh.gather(normals)
-    aj = nbh.gather(mass)
-    node_mask = nbh.mask
-    # The membership count of each member's own patch (mask-aware degree).
-    dj = nbh.gather(torch.sum(nbh.mask, dim=1).to(torch.float32))
+        pj = nbh.gather(points)  # (N, P, 3)
+        nj = nbh.gather(normals)
+        aj = nbh.gather(mass)
+        node_mask = nbh.mask
+        # The membership count of each member's own patch (mask-aware degree).
+        dj = nbh.gather(torch.sum(nbh.mask, dim=1).to(torch.float32))
 
-    m = node_mask.to(points.dtype)[..., None]
-    centers = torch.sum(pj * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
-    c = _rotate((pj - centers[:, None, :]) * scale[:, None, None], r_inv)
-    n_rot = _rotate(nj, r_inv)
-    a = (aj * scale[:, None])[..., None]
-    x = torch.cat([c, n_rot, a, dj[..., None]], dim=-1)  # (N, P, 8)
-    x = torch.where(node_mask[..., None], x, 0.0)
-    y = _rotate(gt_n, r_inv)
+        m = node_mask.to(points.dtype)[..., None]
+        centers = torch.sum(pj * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
+        c = _rotate((pj - centers[:, None, :]) * scale[:, None, None], r_inv)
+        n_rot = _rotate(nj, r_inv)
+        a = (aj * scale[:, None])[..., None]
+        x = torch.cat([c, n_rot, a, dj[..., None]], dim=-1)  # (N, P, 8)
+        x = torch.where(node_mask[..., None], x, 0.0)
+        y = _rotate(gt_n, r_inv)
 
-    nbr_idx, nbr_mask = masked_pair_knn(c, node_mask, min(cfg.patch_k, cfg.num_nodes - 1))
+    with prof.span("ngpd.normals.pair_knn", dev):
+        nbr_idx, nbr_mask = masked_pair_knn(c, node_mask,
+                                            min(cfg.patch_k, cfg.num_nodes - 1))
     return PatchBatch(x=x, nbr_idx=nbr_idx, nbr_mask=nbr_mask, node_mask=node_mask,
                       y=y, r_inv=r_inv)

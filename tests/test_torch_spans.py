@@ -5,9 +5,10 @@ Off, a span is a flag read and a shared no-op object. On, it is a user
 annotation on the profiler's clock and a record with its parent, its
 root's call id and its host times; ``recorded()`` sums the records by
 name. The entry points' spans are counted on small CPU runs of the dense
-pipeline, the hybrid engine and the mesh cascade.
+pipeline, the hybrid engine, the mesh cascade and the learned normals.
 """
 
+import contextlib
 import time
 
 import numpy as np
@@ -15,14 +16,18 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ngpd_tpu_torch.config import DenoiseConfig
+from ngpd_tpu_torch.config import DenoiseConfig, ModelConfig, PatchConfig
+from ngpd_tpu_torch.core import normals as tnormals
 from ngpd_tpu_torch.core.cuda_fused import denoise_hybrid
 from ngpd_tpu_torch.core.noise import draw_noise
 from ngpd_tpu_torch.core.pipeline import denoise
+from ngpd_tpu_torch.learn.predict import predict_cloud_normals
 from ngpd_tpu_torch.meshproc.gcn_denoiser import gcn_denoise_mesh
 from ngpd_tpu_torch.meshproc.synthetic import icosphere
 from ngpd_tpu_torch.meshproc.trimesh import add_mesh_noise
 from ngpd_tpu_torch.models.dgcnn import DGCNN
+from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+from ngpd_tpu_torch.ops.knn import knn
 from ngpd_tpu_torch.utils import prof
 
 from fixtures import sphere_cloud
@@ -213,6 +218,71 @@ def test_mesh_cascade_records_its_stages():
     assert ("ngpd.mesh.adjacency", "ngpd.mesh.patches") in parents
     assert ("ngpd.mesh.adjacency", "ngpd.mesh.gnf") in parents
     assert len({r.call for r in _records()}) == 1
+
+
+NARROW = ModelConfig(hidden=(16, 16, 32, 32, 32, 32, 64, 32, 16), patch_size=32, patch_k=8)
+NARROW_PATCH = PatchConfig(num_nodes=32, patch_k=8)
+
+
+def _normals(points):
+    return predict_cloud_normals(init_patch2normal(NARROW, seed=1), points,
+                                 patch_cfg=NARROW_PATCH, batch_size=128, device="cpu")
+
+
+def _noisy_sphere(n, seed):
+    pts, _ = sphere_cloud(n, seed=seed)
+    noise = np.random.default_rng(seed + 1).normal(scale=0.02, size=pts.shape)
+    return torch.as_tensor((pts + noise).astype(np.float32))
+
+
+def test_learned_normals_record_their_stages():
+    pts = _noisy_sphere(300, 4)
+    _unrecorded()
+    with _recording():
+        _normals(pts)
+    children = ("estimate", "orient", "select", "frames", "pair_knn", "model", "unrotate")
+    assert _counts() == {"ngpd.normals": 1, **{f"ngpd.normals.{c}": 1 for c in children}}
+    assert {r.parent for r in _records() if r.name != "ngpd.normals"} == {"ngpd.normals"}
+
+
+def _sweeps_by_hand(idx: np.ndarray, seed: int, cap: int) -> int:
+    """The orientation's sweeps: one a wave of newly visited points (a
+    point joins once one of its neighbours is visited), and the sweep that
+    finds no new point; at most ``cap``."""
+    visited = np.zeros(len(idx), bool)
+    visited[seed] = True
+    sweeps = 0
+    while sweeps < cap:
+        sweeps += 1
+        front = ~visited & visited[idx].any(axis=1)
+        if not front.any():
+            break
+        visited |= front
+    return sweeps
+
+
+@pytest.mark.parametrize("cap", [0, 3])
+def test_the_sweep_counter_counts_the_orientation_s_sweeps(cap):
+    pts = _noisy_sphere(400, 8)
+    nbh, _ = knn(pts, 6, exclude_self=True)
+    normals = tnormals.pvt_normals(pts, nbh)
+    before = tnormals.SWEEPS["orient"]
+    tnormals.orient_normals(pts, normals, nbh, max_sweeps=cap)
+    limit = cap if cap > 0 else 4 * int(np.ceil(np.sqrt(len(pts)))) + 16
+    want = _sweeps_by_hand(nbh.idx.numpy(), int(torch.argmax(pts[:, 2])), limit)
+    assert tnormals.SWEEPS["orient"] - before == want
+    assert want == 3 if cap == 3 else want > 3
+
+
+def test_learned_normals_are_bit_equal_without_spans(monkeypatch):
+    pts = _noisy_sphere(300, 12)
+    _unrecorded()
+    plain = _normals(pts)
+    with _recording():
+        recorded = _normals(pts)
+    monkeypatch.setattr(prof, "span", lambda name, device=None: contextlib.nullcontext())
+    without = _normals(pts)
+    assert torch.equal(plain, without) and torch.equal(recorded, without)
 
 
 def test_an_unrecorded_span_costs_under_a_microsecond():
