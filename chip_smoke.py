@@ -67,7 +67,19 @@ exit code and no result line:
              state's centres within 2e-6 of the cloud's extent, at the main
              shape (timed: kernel, eager stage and bound, registers,
              spills, blocks an SM), at 65,536 roof points and on 65,536
-             points of tiled cube corners for every strategy
+             points of tiled cube corners for every strategy; the dense
+             pipeline's stage kernels (``kernels/dense.py``: vote,
+             classify, centre sums, class deltas, update) against their
+             plain versions (the eager stages) on the same card tensors,
+             the smoothed normals, classes, edge directions and the
+             positions of the classes without a delta ``torch.equal``, the
+             update kernel fed the eager deltas equal everywhere, its own
+             deltas within DENSE_DELTA_TOL and the other positions within
+             DENSE_POS_TOL of the cloud's extent, each record's measured
+             gap, at the dense cell's shape (the roof at 32,768 points,
+             feature_k 32, step_k 8; timed: kernel, eager stage and bound,
+             registers, spills, blocks an SM) and on 65,536 tiled cube
+             corners for every strategy
   main       the main path: ``ngpd_tpu_torch.bench.run``, 1M points, k 32,
              20 iterations, lagged_nvt1; CD gate and launch counts (the
              stage kernels 20 each)
@@ -105,10 +117,11 @@ exit code and no result line:
              its accelerator) on 65,536 points, groups of 16 tiles: the
              card against the CPU path after 2 iterations (mask-flip
              bound), then 20 iterations on the card, wall time and CD gate
-  dense      the dense (N, k) pipeline (plain torch over the kNN kernel):
-             ``denoise`` on 32,768 points, 2 iterations, the CD must fall,
-             the kNN kernel launched 5 times (the step threshold's 6-NN,
-             then feature_k and step_k an iteration);
+  dense      the dense (N, k) pipeline (its stage kernels over the kNN
+             kernel): ``denoise`` on 32,768 points, 2 iterations, the CD
+             must fall, the kNN kernel launched 5 times (the step
+             threshold's 6-NN, then feature_k and step_k an iteration) and
+             each stage kernel twice;
              the CLI on an OBJ of that cloud without normals (estimated
              normals, dense route) and with ``--until-min --gt``; three
              steps of ``denoise_until_minimum_error_windowed`` at 100k
@@ -196,13 +209,13 @@ exit code and no result line:
   train_cli  ``make-dataset`` on two TRAIN_CLI_POINTS-point OBJ clouds, ``train
              --epochs 1`` (scores.json, at most top_k checkpoints), then
              ``predict-normals --ckpt`` with the run's checkpoints on a third
-  sharded    the sharded dense path on ``torch.distributed`` (plain torch, no
-             kernel), each of the next three phases in a NCCL group of one
-             rank that it starts over a FileStore and destroys: the dense
-             cell's cloud, ``knn_sharded``, ``chamfer_distance_sharded`` and
-             ``denoise_sharded`` (2 iterations) against the single-device
-             functions on the card, to the CPU tests' bounds; seconds and
-             collective counts
+  sharded    the sharded dense path on ``torch.distributed``, each of the
+             next three phases in a NCCL group of one rank that it starts
+             over a FileStore and destroys: the dense cell's cloud,
+             ``knn_sharded``, ``chamfer_distance_sharded`` and
+             ``denoise_sharded`` (2 iterations; each dense stage kernel once
+             an iteration) against the single-device functions on the card,
+             to the CPU tests' bounds; seconds and collective counts
   fused_sharded  ``fused_denoise_sharded`` on the main cell's cloud (padded
              to a multiple of 256), feature_k 32, tile 256, window 128,
              2 iterations, against ``fused_denoise`` (exact thresholds, once
@@ -220,8 +233,9 @@ exit code and no result line:
              cell's 81,920 faces against the unsharded call (Ea within
              MESH_EA_TOL, the normals within their own one-ulp spread)
 
-The second-to-last line is the ``kernels`` JSON record (twelve kernels:
-K0, K1, K2, passes A-D and BD, KNN, KNN_MERGE, FEATURE_KNN, EDGE_BLOCK), the last line
+The second-to-last line is the ``kernels`` JSON record (K0, K1, K2, the
+hybrid's and the dense pipeline's stage kernels, passes A-D and BD, KNN,
+KNN_MERGE, FEATURE_KNN, EDGE_BLOCK), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ngpd_tpu.
 """
 
@@ -236,6 +250,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -251,10 +266,13 @@ from ngpd_tpu_torch.core.cuda_fused import (
 from ngpd_tpu_torch.core.fused import fused_denoise
 from ngpd_tpu_torch.core import patches as point_patches
 from ngpd_tpu_torch.core.noise import draw_noise
-from ngpd_tpu_torch.core.pipeline import denoise, denoise_until_minimum_error_windowed
+from ngpd_tpu_torch.core.pipeline import (denoise, denoise_iteration,
+                                          denoise_until_minimum_error_windowed,
+                                          step_threshold)
 from ngpd_tpu_torch.io.obj import load_obj, read_obj, save_obj
 from ngpd_tpu_torch.kernel_lab import ENTRIES, entry_of, time_launches
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import dense as kdense
 from ngpd_tpu_torch.kernels import graph as kgraph
 from ngpd_tpu_torch.kernels import hybrid as khy
 from ngpd_tpu_torch.kernels import knn as kknn
@@ -692,6 +710,161 @@ def check_stage_kernels(cfg, st, strategy, timed: bool) -> list[dict]:
     return rec
 
 
+# The dense stage kernels' own class deltas sum their centres per block,
+# then over the blocks (the eager stage: all points at once): a centre an
+# ulp or two of the coordinates off. Both of the cloud's extent.
+DENSE_DELTA_TOL = 5e-7
+DENSE_POS_TOL = 1e-5  # the flat and new classes' positions
+
+
+def dense_operands(cloud, n: int, cfg, device: str = "cuda"):
+    """A cloud on the card with its normals, both neighbourhoods and the
+    step threshold, as ``denoise`` builds them."""
+    noisy, nrm, _ = cloud(n)
+    pts = torch.as_tensor(noisy).to(device)
+    nrm = torch.as_tensor(nrm).to(device)
+    d = cfg.d_scale / 2.0 * step_threshold(pts)
+    return pts, nrm, knn(pts, cfg.feature_k)[0], knn(pts, cfg.step_k)[0], d
+
+
+def dense_bytes(ops, cls: torch.Tensor, strategy) -> tuple[int, ...]:
+    """Least bytes of the five dense kernels: each row (positions, normals,
+    indices, mask bytes, classes, edge directions, partials) read once and
+    each output written once; the neighbours' rows are rows already
+    counted."""
+    pts, _, nf, ns, _ = ops
+    n, kf, ks = pts.shape[0], nf.k, ns.k
+    classes = kdense.delta_classes(strategy)
+    n_delta = sum(int((cls == c).sum()) for c in classes)
+    n_edge = sum(int((cls == c).sum()) for c in range(3) if strategy[c] == "edge")
+    n_step = sum(int((cls == c).sum()) for c in range(3) if strategy[c] != "dummy")
+    return (n * (12 + 12 + 9 * kf + 12),
+            n * (12 + 12 + 9 * kf + 4 + 12) + n_delta * 9 * ks,
+            12 * 4 * kdense._blocks(n) + 12 * 4,
+            n * (4 + 12) + n_delta * 9 * ks,
+            n * (12 + 12 + 4 + 12) + n_step * 9 * ks + n_edge * 12)
+
+
+def eager_iteration(ops, cfg, strategy):
+    """One iteration from the plain versions of ``kernels/dense.py`` on the
+    operands' device: (positions, smoothed normals, classes, edge
+    directions, class deltas (3, 1))."""
+    pts, nrm, nf, ns, d = ops
+    f_n = kdense.vote_plain(pts, nrm, nf, cfg.angle, cfg.vu_tau, cfg.vu_damping)
+    cls, edge = kdense.classify_plain(pts, f_n, nf, cfg.angle, cfg.class_scale)
+    deltas = kdense.class_deltas_plain(pts, ns, cls, kdense.delta_classes(strategy))
+    return (kdense.update_plain(pts, f_n, ns, cls, edge, deltas, d, cfg.alphas, strategy),
+            f_n, cls, edge.contiguous(), deltas.contiguous())
+
+
+def dense_launch(name: str, *args) -> None:
+    """One launch of a dense kernel outside its wrapper, counted apart."""
+    kw.launch(name, {name: 0}, *args)
+
+
+def dense_sums(parts: torch.Tensor, classes) -> torch.Tensor:
+    sums = torch.empty(12, dtype=torch.float32, device=parts.device)
+    dense_launch("dense_sums", parts.data_ptr(), parts.shape[1], kdense._dmask(classes),
+                 sums.data_ptr())
+    return sums
+
+
+def centre_gap(ops, cls: torch.Tensor, classes, parts) -> Optional[float]:
+    """Largest gap of the delta classes' centres from ``dense_sums``'s sums
+    against the plain version's (``_class_delta``'s sums, all points at
+    once); None where nothing is summed: no delta class, or no partials
+    (the plain versions)."""
+    if parts is None or not classes:
+        return None
+    pts, _, _, ns, _ = ops
+    sums = dense_sums(parts, classes)
+    vj = ns.gather(pts)
+    gap = 0.0
+    for c in classes:
+        m = ((cls == c)[:, None] & ns.mask).to(pts.dtype)
+        want = torch.sum(vj * m[..., None], dim=(0, 1)) / torch.clamp(torch.sum(m), min=1.0)
+        got = sums[4 * c:4 * c + 3] / torch.clamp(sums[4 * c + 3], min=1.0)
+        gap = max(gap, float((got - want).abs().max()))
+    return gap
+
+
+def check_dense_stage_kernels(ops, cfg, strategy, timed: bool) -> list[dict]:
+    """The dense pipeline's stage kernels, as ``denoise_iteration`` runs
+    them, against the plain versions of ``kernels/dense.py`` on the same
+    card tensors, stage by stage (each kernel fed the plain outputs before
+    it). Each record's ``max_abs_err`` is its measured gap: the smoothed
+    normals, the edge directions, the class centres, the deltas, the
+    positions (None where the strategy has no delta class)."""
+    pts, nrm, nf, ns, d = ops
+    args = (pts, nrm, nf, ns, d, cfg.alphas, cfg.angle, cfg.class_scale, strategy,
+            cfg.vu_tau, cfg.vu_damping)
+    classes = kdense.delta_classes(strategy)
+    want_p, want_f, want_c, edge, eager_d = eager_iteration(ops, cfg, strategy)
+    got_p, got_f, got_c = denoise_iteration(*args)
+    cls, got_edge, parts = kdense.classify(pts, want_f, nf, cfg.angle, cfg.class_scale, ns,
+                                           classes)
+    fed = kdense.update(pts, want_f, ns, want_c, edge, eager_d, d, cfg.alphas, strategy)
+    own = kdense.class_deltas(pts, ns, want_c, classes, parts).amax(dim=1)
+    extent = float(pts.abs().max())
+    delta_err = (max(abs(float(own[c]) - float(eager_d[c, 0])) for c in classes)
+                 if classes else None)
+    by_delta = torch.zeros_like(want_c, dtype=torch.bool)
+    for c in classes:
+        by_delta |= want_c == c
+    pos_err = float((got_p - want_p).abs().max())
+    checks = {"f_n": torch.equal(got_f, want_f), "classes": torch.equal(got_c, want_c),
+              "edge": torch.equal(cls, want_c) and torch.equal(got_edge, edge),
+              "update_fed_eager_deltas": torch.equal(fed, want_p),
+              "positions_without_delta": torch.equal(got_p[~by_delta], want_p[~by_delta]),
+              "deltas": delta_err is None or delta_err <= DENSE_DELTA_TOL * extent,
+              "positions": pos_err <= DENSE_POS_TOL * extent}
+    if not all(checks.values()):
+        fail(f"dense stage kernels {strategy}: {checks}, delta error {delta_err}, "
+             f"position error {pos_err}")
+    rec = [{"name": "DENSE_VOTE", "max_abs_err": float((got_f - want_f).abs().max())},
+           {"name": "DENSE_CLASSIFY", "max_abs_err": float((got_edge - edge).abs().max()),
+            "class_mismatches": int((cls != want_c).sum())},
+           {"name": "DENSE_SUMS", "max_abs_err": centre_gap(ops, want_c, classes, parts)},
+           {"name": "DENSE_DELTA", "max_abs_err": delta_err},
+           {"name": "DENSE_UPDATE", "max_abs_err": pos_err,
+            "fed_eager_deltas_err": float((fed - want_p).abs().max()),
+            "classes": torch.bincount(want_c.long(), minlength=3).tolist(),
+            "points_moved_by_the_deltas": int(((got_p != want_p).any(dim=1)).sum())}]
+    if not timed:
+        return rec
+    plain = time_once(lambda: eager_iteration(ops, cfg, strategy))[1]
+    rec[0]["plain_ms"] = time_once(lambda: kdense.vote_plain(
+        pts, nrm, nf, cfg.angle, cfg.vu_tau, cfg.vu_damping))[1]
+    rec[1]["plain_ms"] = time_once(lambda: kdense.classify_plain(
+        pts, want_f, nf, cfg.angle, cfg.class_scale))[1]
+    rec[2]["plain_ms"] = None
+    rec[2]["plain_note"] = "inside DENSE_DELTA's (`_class_delta` sums and takes the maximum)"
+    rec[3]["plain_ms"] = time_once(lambda: kdense.class_deltas_plain(pts, ns, want_c,
+                                                                     classes))[1]
+    rec[4]["plain_ms"] = plain - rec[0]["plain_ms"] - rec[1]["plain_ms"] - rec[3]["plain_ms"]
+    rec[4]["plain_note"] = "the eager iteration less the stages before it"
+    sums = dense_sums(parts, classes)
+    deltas = torch.empty((3, parts.shape[1]), dtype=torch.float32, device=pts.device)
+    rec[0]["ms"] = time_launches(lambda: kdense.vote(pts, nrm, nf, cfg.angle, cfg.vu_tau,
+                                                     cfg.vu_damping))
+    rec[1]["ms"] = time_launches(lambda: kdense.classify(pts, want_f, nf, cfg.angle,
+                                                         cfg.class_scale, ns, classes))
+    rec[2]["ms"] = time_launches(lambda: dense_sums(parts, classes))
+    rec[3]["ms"] = time_launches(lambda: dense_launch(
+        "dense_delta", pts.data_ptr(), ns.idx.data_ptr(), ns.mask.data_ptr(), ns.k,
+        want_c.data_ptr(), sums.data_ptr(), pts.shape[0], kdense._dmask(classes),
+        deltas.data_ptr()))
+    rec[4]["ms"] = time_launches(lambda: kdense.update(pts, want_f, ns, want_c, edge, eager_d,
+                                                       d, cfg.alphas, strategy))
+    for r, name, b in zip(rec, ("dense_vote", "dense_classify", "dense_sums", "dense_delta",
+                                "dense_update"), dense_bytes(ops, want_c, strategy)):
+        r["bound_ms"], r["bound_by"] = bound(b, 0)
+        r.update(build_facts(name, f"{name}_kernel", (), ()))
+        r["library_ms"] = None
+        r["library_note"] = "no single PyTorch call computes the stage"
+    return rec
+
+
 def flip_check(name: str, got: torch.Tensor, ref: torch.Tensor, groups=None) -> dict:
     """Columns (points) whose largest difference exceeds PASS_TOL: at most
     FLIP_SHARE of each group's own points (``groups``: name -> column
@@ -1049,6 +1222,7 @@ def check_dense() -> dict:
     noisy, nrm, clean = bench.make_cloud(DENSE_N)
     cfg = DenoiseConfig(feature_k=16, step_k=8)
     kknn.reset_launch_counts()
+    kdense.reset_launch_counts()
     (out, out_n, cls), ms = time_once(
         lambda: denoise(noisy, nrm, cfg, iterations=2, device="cuda"))
     knn_launches = kknn.LAUNCHES["knn"]
@@ -1056,9 +1230,13 @@ def check_dense() -> dict:
     # The step threshold's 6-NN, then feature_k and step_k an iteration.
     if knn_launches != 1 + 2 * 2:
         fail(f"dense denoise launched the kNN kernel {knn_launches} times, not 5")
+    # Each stage kernel once an iteration (the default strategy has flat).
+    if kdense.LAUNCHES != {name: 2 for name in kdense.LAUNCHES}:
+        fail(f"dense denoise launched the stage kernels {kdense.LAUNCHES}, not 2 each")
     ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
     rec["denoise"] = {"seconds": ms / 1e3, "knn_launches": knn_launches,
                       "knn_merge_launches": merge_launches,
+                      "stage_launches": dict(kdense.LAUNCHES),
                       "cd_noisy": cd_noisy, "cd_denoised": cd_out,
                       "classes": torch.bincount(cls.long(), minlength=3).tolist()}
     if not (torch.isfinite(out).all() and torch.isfinite(out_n).all() and cd_out < cd_noisy):
@@ -1842,11 +2020,17 @@ def check_sharded(n: int = SHARDED_N, device: str = "cuda") -> dict:
         cd = float(torch.mean(metrics.chamfer_distance(pts, clean_t)))
         rec["chamfer"] = {"seconds": ms / 1e3, "collectives": calls, "sharded": float(cd_s),
                           "single": cd, "rel_err": abs(float(cd_s) - cd) / cd}
+        kdense.reset_launch_counts()
         (pos, _), ms, calls = counted(lambda: denoise_sharded(
             pts, nrm_t, mesh, cfg, iterations=SHARDED_ITERS, device=device))
+        stage_launches = dict(kdense.LAUNCHES)
     want, _, _ = denoise(noisy, nrm, cfg, iterations=SHARDED_ITERS, device=device)
     ratio, cd_noisy, cd_out = bench.cd_ratio(pos.cpu().numpy(), noisy, clean, device)
+    if stage_launches != {name: SHARDED_ITERS for name in kdense.LAUNCHES}:
+        fail(f"sharded: denoise_sharded launched the dense stage kernels {stage_launches}, "
+             f"not {SHARDED_ITERS} each")
     rec["denoise"] = {"seconds": ms / 1e3, "collectives": calls,
+                      "stage_launches": stage_launches,
                       "max_abs_err": float((pos - want).abs().max()),
                       "cd_noisy": cd_noisy, "cd_denoised": cd_out, "cd_ratio": ratio}
     if not (rec["knn"]["max_abs_err"] <= KNN_TOL and rec["chamfer"]["rel_err"] <= CD_RTOL
@@ -2481,9 +2665,13 @@ def main() -> int:
     rec = check_kernels(cfg, st, STRATEGIES[0], timed=True)
     rec += check_stage_kernels(cfg, st, STRATEGIES[0], timed=True)
     del st
-    say("kernels", shape=MAIN_N, tile=256, wt_c=512, records=rec)
+    dense_cfg = DenoiseConfig(feature_k=MAIN_K, step_k=8)
+    rec += check_dense_stage_kernels(dense_operands(bench.make_cloud, DENSE_N, dense_cfg),
+                                     dense_cfg, STRATEGIES[0], timed=True)
+    say("kernels", shape=MAIN_N, tile=256, wt_c=512, dense_shape=DENSE_N, records=rec)
     vn, vnrm, _ = bench.make_cloud(VARIANT_N)
     corners, corner_nrm, _ = bench.make_corner_cloud(VARIANT_N)
+    dense_corners = dense_operands(bench.make_corner_cloud, VARIANT_N, dense_cfg)
     for strat in STRATEGIES:
         st = prologue(vn, vnrm, cfg, strat, device="cuda")
         errs = check_kernels(cfg, st, strat, timed=False)
@@ -2494,6 +2682,11 @@ def main() -> int:
         errs = check_stage_kernels(cfg, st, strat, timed=False)
         say("stage_variants", shape=VARIANT_N, cloud="cube corners", strategy=strat,
             classes=errs[1]["classes"], scal_err=errs[1]["scal_err"])
+        errs = check_dense_stage_kernels(dense_corners, dense_cfg, strat, timed=False)
+        say("dense_stage_variants", shape=VARIANT_N, cloud="cube corners", strategy=strat,
+            classes=errs[4]["classes"],
+            max_abs_err={r["name"]: r["max_abs_err"] for r in errs})
+    del dense_corners
     # The CLI's >= 100k route: window 512 gives wt_c 1280, K0's 64-column-
     # a-lane instantiation, and feature_k 16.
     cli_cfg = DenoiseConfig(feature_k=16, step_k=8)
@@ -2628,16 +2821,25 @@ def main() -> int:
                "PASS_A": ("pass_a", 232), "PASS_B": ("pass_b", 281),
                "PASS_C": ("pass_c", 356), "PASS_D": ("pass_d", 402),
                "PASS_BD": ("pass_bd", 565)}
+    # The dense stages replace no pallas_call: their reference is the XLA
+    # program of ngpd_tpu/core/pipeline.py::denoise_iteration (l.110).
+    dense_sources = {"DENSE_VOTE": "dense_vote", "DENSE_CLASSIFY": "dense_classify",
+                     "DENSE_SUMS": "dense_sums", "DENSE_DELTA": "dense_delta",
+                     "DENSE_UPDATE": "dense_update"}
+    sources.update({name: (src, None) for name, src in dense_sources.items()})
     # Each kernel's launches on its own path's run: the hybrid (K0-K2),
-    # exact delta (A-D), lagged delta (BD; A runs 20 times on both).
+    # exact delta (A-D), lagged delta (BD; A runs 20 times on both), the
+    # dense route's denoise (the dense stages).
     launches = {**main_rec["launches"], **passes_rec["launches"],
-                "pass_bd": lagged_rec["launches"]["pass_bd"]}
+                "pass_bd": lagged_rec["launches"]["pass_bd"],
+                **dense_rec["denoise"]["stage_launches"]}
     for r in rec + pass_rec:
         src, line = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": f"ngpd_tpu_torch/kernels/csrc/{src}.cu",
-            "replaces": f"ngpd_tpu/core/pallas_fused.py:{line}",
+            "replaces": (f"ngpd_tpu/core/pallas_fused.py:{line}" if line is not None
+                         else "ngpd_tpu/core/pipeline.py:110"),
             "launches": launches[src],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

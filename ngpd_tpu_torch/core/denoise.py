@@ -20,6 +20,7 @@ import torch
 
 from ..ops.neighbors import Neighborhood, matvec3, outer3
 from ..ops.solve3 import solve3x3_guarded
+from ..ops.steps import STEP_NAMES
 
 
 def _clamp_step(vi, opt, alpha: float, d, strict: bool) -> torch.Tensor:
@@ -153,3 +154,31 @@ def dummy_step(points, nbh: Neighborhood, n, d, alpha: float = 0.1) -> torch.Ten
     """Identity."""
     del nbh, n, d, alpha
     return points
+
+
+def class_step(name: str, points, nbh: Neighborhood, n, edge_vectors, d, alpha: float,
+               delta: Optional[torch.Tensor] = None, src_points=None,
+               src_normals=None) -> torch.Tensor:
+    """The step ``name`` (one of ``STEP_NAMES``) for every point: flat and
+    new with ``delta``, edge along ``edge_vectors``."""
+    src = {"src_points": src_points, "src_normals": src_normals}
+    if name in ("flat", "new"):
+        step = flat_step if name == "flat" else new_step
+        return step(points, nbh, n, d, alpha, delta=delta, **src)
+    if name == "edge":
+        return edge_step(points, nbh, n, edge_vectors, d, alpha, **src)
+    if name == "corner":
+        return corner_step(points, nbh, n, d, alpha, **src)
+    if name == "feature":
+        return feature_step(points, nbh, n, d, alpha, **src)
+    if name == "dummy":
+        return dummy_step(points, nbh, n, d, alpha)
+    raise ValueError(f"unknown step {name!r}; expected one of {STEP_NAMES}")
+
+
+def pick_by_class(cls: torch.Tensor, results) -> torch.Tensor:
+    """Each point's row of ``results[cls]``: the step of its class."""
+    return torch.where(
+        (cls == 0)[:, None], results[0],
+        torch.where((cls == 1)[:, None], results[1], results[2]),
+    )

@@ -8,11 +8,12 @@ The classical pipeline per iteration:
   3. per-class vertex update with the smoothed normals;
   4. adopt the smoothed normals for the next iteration.
 
-No kernel of the port lies on this path: it is plain torch on the
-caller's device (``device=None`` means ``"cuda"``). Where the reference
-scans or loops on the device (``lax.scan``, ``lax.while_loop``), these
-functions loop on the host; ``denoise_until_minimum_error`` reads one scalar
-a step.
+On the caller's device (``device=None`` means ``"cuda"``). The
+neighbours come from the kNN kernel; ``denoise_iteration`` runs its stages
+through ``kernels/dense.py``: on the card as its kernels, sharded callers
+included, on the CPU as plain torch. Where the reference scans or loops on
+the device (``lax.scan``, ``lax.while_loop``), these functions loop on the
+host; ``denoise_until_minimum_error`` reads one scalar a step.
 
 The sharded arguments (``src_*``, ``gather_fn``, ``axis_name``) keep the
 reference's names. ``axis_name`` takes a ``torch.distributed`` process
@@ -30,12 +31,12 @@ import torch
 from ..collectives import all_reduce
 from ..config import DenoiseConfig
 from ..device import exact_float32, resolve_device
+from ..kernels import dense as kdense
 from ..ops import metrics
 from ..ops.knn import estimate_cell_size, knn, knn_grid
 from ..ops.neighbors import Neighborhood
-from ..ops.steps import STEP_NAMES
+from ..ops.steps import STEP_NAMES  # noqa: F401  the reference's module exports it too
 from ..utils import prof
-from . import denoise as steps
 from . import voting
 
 DEFAULT_STRATEGY = ("flat", "edge", "feature")
@@ -101,47 +102,31 @@ def denoise_iteration(
     gather_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     axis_name=None,
 ):
-    """One full classify-and-update iteration for ALL points: each
-    configured step runs densely and the result is selected per point.
-    Returns (new positions, smoothed normals, classes int32).
+    """One full classify-and-update iteration for ALL points: each point
+    takes the step of its class. Returns (new positions, smoothed normals,
+    classes int32).
+
+    The stages run through ``kernels/dense.py``: their plain versions on
+    the CPU, one kernel launch each on the card (vote, classify, the class
+    deltas' sums and maxima where flat or new is in the strategy, update).
 
     Sharded mode: ``points`` / ``normals`` hold only this rank's rows,
     ``src_points`` / ``src_normals`` the whole arrays, ``gather_fn``
     gathers a rank-local row array into the whole one, and ``axis_name``
     is the process group of the cross-rank reductions. Single-device
     callers leave all four unset."""
+    classes = kdense.delta_classes(strategy)
     with prof.span("ngpd.dense.voting", points.device):
-        nvt1 = voting.better_filtered_nvt(points, nbh_feat, normals, angle, src_points,
-                                          src_normals)
-        f_n = voting.vu_smoothed_normals(nvt1, normals, vu_tau, vu_damping)
+        f_n = kdense.vote(points, normals, nbh_feat, angle, vu_tau, vu_damping, src_points,
+                          src_normals)
         src_f_n = gather_fn(f_n) if gather_fn is not None else None
-        decomp = voting.better_filtered_nvt(points, nbh_feat, f_n, angle, src_points, src_f_n)
-        cls = voting.classes(decomp, class_scale)
-    edge_vectors = decomp.eigvec[..., 0]  # smallest-eigenvalue direction
-    src = {"src_points": src_points, "src_normals": src_f_n}
-
-    def run(name: str, class_id: int) -> torch.Tensor:
-        alpha = alphas[class_id]
-        if name in ("flat", "new"):
-            delta = _class_delta(points, nbh_step, cls == class_id, src_points, axis_name)
-            step = steps.flat_step if name == "flat" else steps.new_step
-            return step(points, nbh_step, f_n, d, alpha, delta=delta, **src)
-        if name == "edge":
-            return steps.edge_step(points, nbh_step, f_n, edge_vectors, d, alpha, **src)
-        if name == "corner":
-            return steps.corner_step(points, nbh_step, f_n, d, alpha, **src)
-        if name == "feature":
-            return steps.feature_step(points, nbh_step, f_n, d, alpha, **src)
-        if name == "dummy":
-            return steps.dummy_step(points, nbh_step, f_n, d, alpha)
-        raise ValueError(f"unknown step {name!r}; expected one of {STEP_NAMES}")
-
+        cls, edge_vectors, parts = kdense.classify(points, f_n, nbh_feat, angle, class_scale,
+                                                   nbh_step, classes, src_points, src_f_n)
     with prof.span("ngpd.dense.steps", points.device):
-        new_by_class = [run(strategy[c], c) for c in range(3)]
-        new_pos = torch.where(
-            (cls == 0)[:, None], new_by_class[0],
-            torch.where((cls == 1)[:, None], new_by_class[1], new_by_class[2]),
-        )
+        deltas = kdense.class_deltas(points, nbh_step, cls, classes, parts, src_points,
+                                     axis_name)
+        new_pos = kdense.update(points, f_n, nbh_step, cls, edge_vectors, deltas, d, alphas,
+                                strategy, src_points, src_f_n)
     return new_pos, f_n, cls
 
 

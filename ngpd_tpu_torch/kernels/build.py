@@ -30,9 +30,10 @@ from ..utils.cache import cache_dir
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn",
-           "feature_knn", "edge_block", "hybrid_vu", "hybrid_update")
+           "feature_knn", "edge_block", "hybrid_vu", "hybrid_update", "dense_vote",
+           "dense_classify", "dense_sums", "dense_delta", "dense_update")
 HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh",
-           "pass_walk.cuh")
+           "pass_walk.cuh", "dense_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,6 +60,13 @@ ARGTYPES = {
     "hybrid_vu": (_VP, _I, _VP, _VP, _I, _F, _F, _VP),
     "hybrid_update": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _F, _F, _F,
                       _I, _I, _I, _I, *(_I,) * 9, _VP),
+    "dense_vote": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _VP, _VP),
+    "dense_classify": (_VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _F, _F, _I, _VP, _VP,
+                       _VP, _VP),
+    "dense_sums": (_VP, _I, _I, _VP, _VP),
+    "dense_delta": (_VP, _VP, _VP, _I, _VP, _VP, _I, _I, _VP, _VP),
+    "dense_update": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _VP, _F, _I, _I,
+                     _I, _F, _F, _F, _I, _VP, _VP),
 }
 # Further C functions of a library beside its ngpd_<name>_launch: the kNN
 # kernel's split launch, its merge and the split's slice count.

@@ -11,6 +11,7 @@ from ngpd_tpu_torch.core.cuda_fused import padded_size
 from ngpd_tpu_torch.device import resolve_device
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.kernels import build
+from ngpd_tpu_torch.kernels import dense as kdense
 from ngpd_tpu_torch.kernels import graph as kgraph
 from ngpd_tpu_torch.kernels import hybrid as khy
 from ngpd_tpu_torch.kernels import knn as kknn
@@ -602,11 +603,12 @@ def test_pass_bd_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
 def test_build_lists_every_kernel_with_its_argument_types():
     assert build.SOURCES == ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d",
                              "pass_bd", "knn", "feature_knn", "edge_block", "hybrid_vu",
-                             "hybrid_update")
+                             "hybrid_update", "dense_vote", "dense_classify", "dense_sums",
+                             "dense_delta", "dense_update")
     assert set(build.ARGTYPES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES, **kgraph.LAUNCHES,
-                        **khy.LAUNCHES}
+                        **khy.LAUNCHES, **kdense.LAUNCHES}
         # One ctypes type per parameter of the C launch function.
         src = (build.CSRC / f"{name}.cu").read_text()
         sig = src[src.index(f"ngpd_{name}_launch("):]
@@ -755,11 +757,15 @@ def test_kernel_sources_target_sm90a():
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int ngpd_{name}_launch' in src
-        # The kNN and graph kernels replace jitted XLA programs, the others
-        # pallas_calls.
+        # The kNN and graph kernels replace jitted XLA programs, the dense
+        # pipeline's stage kernels none (their reference is the XLA program
+        # of the dense pipeline), the others pallas_calls.
         replaced = {"knn": "ngpd_tpu/ops/knn.py", "feature_knn": "ngpd_tpu/models/dgcnn.py",
                     "edge_block": "ngpd_tpu/models/dgcnn.py"}.get(
                         name, "ngpd_tpu/core/pallas_fused.py")
+        if name.startswith("dense_"):
+            replaced = "no TPU kernel"
+            assert "ngpd_tpu/core/pipeline.py" in src
         assert f"Replaces: {replaced}" in src
         assert "What bounds it on the H100" in src
     assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"

@@ -31,6 +31,14 @@ two-pass variance in place of Flax's fast one in the DGCNN (refused by
 rounding), and a dropout mask drawn anew between the forward and the
 backward.
 
+``check_dense_stage_kernels`` (chip_smoke's ``kernels`` and
+``dense_stage_variants``) is held the same way on the same 16,384 points:
+``denoise_iteration`` reaches the wrappers of ``kernels/dense.py``, which
+run their plain versions here, and wrong stand-ins must end the run (the
+smoothed normals moved by 1e-6, the edge directions negated, the update's
+step scaled by 1.01, the deltas scaled by 1.01, the classes rolled by one
+point in the update).
+
 The learned point track's agreement checks (``judge_point_model``,
 ``judge_point_normals``) are held here too, at a narrow width on a small
 merged scan: a right run (the path on its input nudged by one ulp once
@@ -57,6 +65,7 @@ from ngpd_tpu_torch.models import patch2normal as p2n_mod
 from ngpd_tpu_torch.bench import make_cloud, make_corner_cloud
 from ngpd_tpu_torch.config import DenoiseConfig
 from ngpd_tpu_torch.core.cuda_fused import passes_prologue, prologue
+from ngpd_tpu_torch.kernels import dense as kdense
 from ngpd_tpu_torch.kernels import passes as kp
 from ngpd_tpu_torch.kernels import window as kw
 
@@ -173,6 +182,49 @@ def test_wrong_pass_fails(no_cuda_sync, monkeypatch, mutant):
     with pytest.raises(SystemExit):
         cs.check_passes(CFG, _state(strategy), strategy, timed=False,
                         min_class=cs.MIN_CLASS_POINTS)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_ops():
+    return cs.dense_operands(make_corner_cloud, 16_384, CFG, device="cpu")
+
+
+_UPDATE = kdense.update
+
+
+def _wrong(name, change):
+    original = getattr(kdense, name)
+    return name, lambda *a: change(original(*a), *a)
+
+
+DENSE_MUTANTS = {
+    "vote-normals-moved": _wrong("vote", lambda f, *a: f + 1e-6),
+    "classify-edge-negated": _wrong("classify", lambda out, *a: (out[0], -out[1], out[2])),
+    "update-step-scaled": _wrong("update", lambda p, pts, *a: pts + 1.01 * (p - pts)),
+    "deltas-scaled": _wrong("class_deltas", lambda d, *a: d * 1.01),
+    "update-classes-rolled": _wrong("update", lambda p, pts, f, ns, cls, *a: _UPDATE(
+        pts, f, ns, torch.roll(cls, 1), *a)),
+}
+
+
+@pytest.mark.parametrize("strategy", cs.STRATEGIES + (ALL_DELTA,), ids="-".join)
+def test_right_dense_stage_kernels_pass(strategy):
+    rec = cs.check_dense_stage_kernels(_dense_ops(), CFG, strategy, timed=False)
+    assert min(rec[4]["classes"]) >= cs.MIN_CLASS_POINTS
+    # Each record carries its measured gap: nothing here (both sides run
+    # the plain versions), none where nothing is summed.
+    gaps = {r["name"]: r["max_abs_err"] for r in rec}
+    summed = 0.0 if kdense.delta_classes(strategy) else None
+    assert gaps == {"DENSE_VOTE": 0.0, "DENSE_CLASSIFY": 0.0, "DENSE_SUMS": None,
+                    "DENSE_DELTA": summed, "DENSE_UPDATE": 0.0}
+
+
+@pytest.mark.parametrize("mutant", list(DENSE_MUTANTS))
+def test_wrong_dense_stage_kernel_fails(monkeypatch, mutant):
+    name, wrong = DENSE_MUTANTS[mutant]
+    monkeypatch.setattr(kdense, name, wrong)
+    with pytest.raises(SystemExit):
+        cs.check_dense_stage_kernels(_dense_ops(), CFG, ALL_DELTA, timed=False)
 
 
 def test_missing_class_fails(no_cuda_sync):
