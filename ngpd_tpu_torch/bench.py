@@ -1,28 +1,28 @@
-"""Throughput of the hybrid denoise on the card, with the CD quality gate.
+"""The smoke and test workloads of the port and the rules that judge them.
 
-The workload of the repo's ``bench.py``: a piecewise-planar "CAD roof"
-cloud (``make_cloud``, a copy of ``bench.make_cloud``), ``feature_k=32``,
-``step_k=8``, 20 iterations, ``tile=256``, ``window=128`` and
-``lagged_nvt1`` on. ``run`` returns the fields of its JSON point line:
-point-iterations per second over the best of 3 timed runs after a
-warm-up, the kernel launches of the last timed run, and the Chamfer
-ratio of denoised to noisy on a 20k subsample, gated at ``GATE_RATIO``.
+Inputs: the piecewise-planar "CAD roof" cloud of the repo's ``bench.py``
+(``make_cloud``, a copy of ``bench.make_cloud``), a cloud of cube corners
+(``make_corner_cloud``), and the noisy icosphere of the mesh cascade
+(``mesh_workload``; ``mesh_cascade`` runs its two GCN + guided filter
+passes with the committed checkpoints, batch ``MESH_BATCH``).
 
-``run_mesh`` is the mesh cascade's bench, the workload of the repo's
-``bench.py`` ``run_mesh_bench``: an icosphere of subdivision 6 (81,920
-faces) with Gaussian noise 0.3 x the mean edge length, two GCN + guided
-filter passes with the committed checkpoints, batch 2048; faces per second
-over the best of 2 timed runs after a warm-up, gated at an Ea ratio of
-``MESH_GATE_RATIO``.
+Judging rules: the Chamfer ratio of denoised to noisy on a subsample
+(``gate_sample``, ``cd_ratio``), gated at ``GATE_RATIO``; the Ea ratio of
+the cascade, gated at ``MESH_GATE_RATIO``; and a run held to its own
+spread under one-ulp nudges of its input (``nudged``, ``within_spread``,
+``SPREAD_*`` for mesh vertices, ``NORMAL_SPREAD_*`` for normals).
 
-  python -m ngpd_tpu_torch.bench [--n 1000000] [--iters 20] [--k 32]
-  python -m ngpd_tpu_torch.bench --mesh
+``run`` (1M points, ``feature_k=32``, ``step_k=8``, 20 iterations,
+``tile=256``, ``window=128``, ``lagged_nvt1`` on: point-iterations per
+second over the best timed runs after a warm-up, the kernel launches of
+the last one, and the Chamfer gate) and ``run_mesh`` (81,920 faces,
+faces per second and the Ea gate) are the bodies of ``chip_smoke.py``'s
+``main`` and ``mesh`` phases. End-to-end numbers and the trace come from
+``benchmark/run.py``.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import time
 from pathlib import Path
 
@@ -304,27 +304,3 @@ def run_mesh(subdiv: int = 6, device=None) -> dict:
         "quality_ea_denoised_deg": ea_out,
     }
 
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.bench")
-    ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--k", type=int, default=32)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--fresh-nvt1", action="store_true",
-                    help="run K1 every iteration (lagged_nvt1 off)")
-    ap.add_argument("--mesh", action="store_true",
-                    help="time the mesh cascade (run_mesh) instead")
-    args = ap.parse_args(argv)
-    if args.mesh:
-        line = run_mesh(device=args.device)
-    else:
-        line = run(args.n, args.iters, args.k, args.device,
-                   lagged_nvt1=not args.fresh_nvt1)
-    print(json.dumps(line))
-    if line["quality_gate"] == "fail":
-        raise SystemExit(1)
-
-
-if __name__ == "__main__":
-    main()

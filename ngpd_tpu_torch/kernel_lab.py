@@ -3,26 +3,18 @@ kernels, passes A-D and BD, the kNN kernel, the feature kNN and the edge
 block) side by side on the card: outputs and times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
-        [--variant NAME=FLAG[,FLAG...]] ... [--kernel NAME] ... [--corner]
+        [--kernel NAME] ... [--corner]
         [--rounds 3] [--n 1000000] [--window 128] [--feature-k 32]
         [--smoke-cases] [--sass]
 
 Builds ``k0.cu``, ``k1.cu``, ``k2.cu``, ``hybrid_vu.cu``, ``hybrid_update.cu``,
-``pass_a.cu`` ... ``pass_d.cu`` and ``pass_bd.cu`` of this checkout as they are (the ``tree`` build), once
-more for each ``--variant`` with extra nvcc flags (the sources' switches:
-``-DNGPD_NO_SKIP`` scans every word of K1 and K2, ``-DNGPD_NO_KEEP`` makes
-passes B and BD scan their step bits again instead of keeping them,
-``-DNGPD_NO_ACCUM`` keeps the scans and drops the accumulations,
-``-DNGPD_NO_WALK`` keeps staging, the per-point math and the output rows
-only, ``-DNGPD_NO_STAGE`` drops the staging, ``-DNGPD_K1_MIN_BLOCKS=n``,
-``-DNGPD_K2_MIN_BLOCKS=n``,
-``-DNGPD_A_MIN_BLOCKS=n``, ``-DNGPD_B_MIN_BLOCKS=n``,
-``-DNGPD_C_MIN_BLOCKS=n``, ``-DNGPD_D_MIN_BLOCKS=n`` and
-``-DNGPD_BD_MIN_BLOCKS=n`` set the launch bounds), and for each ``--against`` from another directory of sources
-with the same launch interface (an older checkout's ``csrc``, unpacked
-with ``git archive``), into ``lab/`` of the build cache (``build/lab/``
-by default). ``--kernel`` limits the run to
-the kernels named (default: all of ``NAMES``).
+``pass_a.cu`` ... ``pass_d.cu`` and ``pass_bd.cu`` of this checkout as
+they are (the ``tree`` build), and once more for each ``--against`` from
+another directory of sources with the same launch interface (an older
+checkout's ``csrc``, unpacked with ``git archive``, or a copy of ``csrc``
+edited to try a variant), into ``lab/`` of the build cache (``build/lab/``
+by default). ``--kernel`` limits the run to the kernels named (default:
+all of ``NAMES``).
 
 At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
 tile 256, window 128, default strategy; ``--window`` and ``--feature-k``
@@ -39,18 +31,16 @@ launches, least and median over ``--rounds`` rounds that take the builds
 in turn. Each pass kernel is fed the plain outputs of the passes before
 it, as ``chip_smoke.check_passes`` feeds it. ``--corner`` adds the output
 comparison on the 65,536-point corner cloud for all four strategies.
-Builds with a timing switch compute something else by design; their
-``equal`` is false. ``--sass`` adds, for each build and kernel, the
-instruction counts of the entry function's hottest loop (the one with the
-most float32 arithmetic) from ``cuobjdump -sass``: its instructions, float
-arithmetic and shared-memory loads an iteration, the numerator of the
-card's issue ceiling. Needs a card.
+``--sass`` adds, for each build and kernel, the instruction counts of the
+entry function's hottest loop (the one with the most float32 arithmetic)
+from ``cuobjdump -sass``: its instructions, float arithmetic and
+shared-memory loads an iteration, the numerator of the card's issue
+ceiling. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import statistics
@@ -79,24 +69,17 @@ STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
 
-def load_builds(variants: dict, against: dict, names=NAMES) -> dict:
+def load_builds(against: dict, names=NAMES) -> dict:
     """{build name: {kernel name: (CDLL, library path)}}, all compiled in
     one round of nvcc processes."""
-    spec = {"tree": (build.CSRC, ())}
-    spec.update({v: (build.CSRC, tuple(flags)) for v, flags in variants.items()})
-    spec.update({name: (Path(csrc).resolve(), ()) for name, csrc in against.items()})
+    spec = {"tree": build.CSRC, **{name: Path(csrc).resolve() for name, csrc in against.items()}}
     lab_dir = cache_dir() / "lab"
-    paths = {(b, k): build.library_path(k, csrc, extra, lab_dir)
-             for b, (csrc, extra) in spec.items() for k in names}
-    build.compile_all({p: (spec[b][0] / f"{k}.cu", spec[b][1]) for (b, k), p in paths.items()})
+    paths = {(b, k): build.library_path(k, csrc, lab_dir)
+             for b, csrc in spec.items() for k in names}
+    build.compile_all({p: spec[b] / f"{k}.cu" for (b, k), p in paths.items()})
     out = {}
     for (b, k), p in paths.items():
-        lib = ctypes.CDLL(str(p))
-        entries = {f"ngpd_{k}_launch": build.ARGTYPES[k], **build.ENTRY_ARGTYPES.get(k, {})}
-        for entry, argtypes in entries.items():
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        out.setdefault(b, {})[k] = (lib, p)
+        out.setdefault(b, {})[k] = (build.bind_library(k, p), p)
     return out
 
 
@@ -413,7 +396,6 @@ def blocks_per_sm(kernel: str, lib, tile: int = 256, wt_c: int = 512,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="ngpd_tpu_torch.kernel_lab")
     ap.add_argument("--against", action="append", default=[], metavar="NAME=CSRC_DIR")
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=FLAGS")
     ap.add_argument("--kernel", action="append", choices=NAMES, default=[])
     ap.add_argument("--corner", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
@@ -427,12 +409,8 @@ def main(argv=None) -> None:
         raise SystemExit("kernel_lab needs an NVIDIA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    variants = {}
-    for v in args.variant:
-        name, _, flags = v.partition("=")
-        variants[name] = [f for f in flags.split(",") if f]
     names = tuple(args.kernel) or NAMES
-    builds = load_builds(variants, dict(a.split("=", 1) for a in args.against), names)
+    builds = load_builds(dict(a.split("=", 1) for a in args.against), names)
     cfg = DenoiseConfig(feature_k=args.feature_k, step_k=8)
     wt_c = 256 + 2 * args.window  # tile 256, sub 8: the hybrid's window columns
 
@@ -457,7 +435,6 @@ def main(argv=None) -> None:
                     times[b].append(time_launches(call))
         for b, libs in builds.items():
             print(json.dumps({"kernel": kernel, "case": case, "build": b,
-                              "flags": variants.get(b, []),
                               "n": args.n, "window": args.window,
                               "feature_k": k,
                               **ptxas_of(kernel, libs[kernel][1], wt_c, k),

@@ -92,8 +92,8 @@ def find_nvcc() -> str:
     )
 
 
-def _digest(source: Path, headers, extra=()) -> str:
-    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
+def _digest(source: Path, headers) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (source, *headers):
         h.update(Path(f).read_bytes())
     return h.hexdigest()[:16]
@@ -104,21 +104,19 @@ def build_dir() -> Path:
     return cache_dir() / "kernels"
 
 
-def library_path(name: str, csrc: Path = CSRC, extra=(),
-                 out_dir: Optional[Path] = None) -> Path:
-    """Where the library of ``csrc/name.cu`` built with the ``extra`` nvcc
-    flags goes (``out_dir``, default ``build_dir()``). The package's own
-    sources hash the listed ``HEADERS``, any other directory every
-    ``.cuh`` in it."""
+def library_path(name: str, csrc: Path = CSRC, out_dir: Optional[Path] = None) -> Path:
+    """Where the library of ``csrc/name.cu`` goes (``out_dir``, default
+    ``build_dir()``). The package's own sources hash the listed
+    ``HEADERS``, any other directory every ``.cuh`` in it."""
     out_dir = build_dir() if out_dir is None else out_dir
     headers = ([csrc / f for f in HEADERS] if csrc == CSRC
                else sorted(csrc.glob("*.cuh")))
-    return out_dir / f"libngpd_{name}_{_digest(csrc / f'{name}.cu', headers, extra)}.so"
+    return out_dir / f"libngpd_{name}_{_digest(csrc / f'{name}.cu', headers)}.so"
 
 
 def compile_all(jobs: dict) -> None:
-    """Compile ``{library path: (source, extra flags)}`` wherever the
-    library is missing, all nvcc processes at once, each with its source's
+    """Compile ``{library path: source}`` wherever the library is
+    missing, all nvcc processes at once, each with its source's
     directory on the include path; raises with nvcc's output on a failed
     build. The ptxas report (registers, spills) of each build is kept
     beside its library as ``<lib>.log``."""
@@ -127,11 +125,10 @@ def compile_all(jobs: dict) -> None:
         return
     nvcc = find_nvcc()
     procs = {}
-    for path, (source, extra) in todo.items():
+    for path, source in todo.items():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(path.name + f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(source.parent), "-o", str(tmp),
-               str(source)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(source.parent), "-o", str(tmp), str(source)]
         procs[path] = (tmp, source, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -151,7 +148,7 @@ def build_kernels() -> dict[str, Path]:
     """Compile every source whose library is missing. Returns {name:
     library path}."""
     paths = {name: library_path(name) for name in SOURCES}
-    compile_all({p: (CSRC / f"{name}.cu", ()) for name, p in paths.items()})
+    compile_all({p: CSRC / f"{name}.cu" for name, p in paths.items()})
     return paths
 
 
@@ -188,15 +185,21 @@ def template_entry(report: list[dict], kernel: str, *flags: bool | int) -> dict:
     return next((r for r in report if tag in r["function"]), {})
 
 
+def bind_library(name: str, path: Path) -> ctypes.CDLL:
+    """The ctypes handle of the library at ``path`` of kernel ``name``, its
+    C functions given their argument types."""
+    lib = ctypes.CDLL(str(path))
+    entries = {f"ngpd_{name}_launch": ARGTYPES[name], **ENTRY_ARGTYPES.get(name, {})}
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_kernels()[name]))
-        entries = {f"ngpd_{name}_launch": ARGTYPES[name], **ENTRY_ARGTYPES.get(name, {})}
-        for entry, argtypes in entries.items():
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = bind_library(name, build_kernels()[name])
     return lib

@@ -562,7 +562,7 @@ static int blocks_k0(int wt_c) {
 
 }  // namespace ngpd
 
-#define NGPD_K0_DISPATCH(CALL)           \
+#define K0_DISPATCH(CALL)                \
   switch (ngpd::k0_lanes(wt_c)) {        \
     case 4: CALL(4) break;               \
     case 8: CALL(8) break;               \
@@ -586,9 +586,9 @@ extern "C" int ngpd_k0_launch(const void* pack, const void* starts, void* out,
   float* o = static_cast<float*>(out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   int rc = 0;
-#define NGPD_K0_LAUNCH(C) rc = launch_k0<C>(p, st, o, n, nv, tile, wt_c, feature_k, step_k, cs);
-  NGPD_K0_DISPATCH(NGPD_K0_LAUNCH)
-#undef NGPD_K0_LAUNCH
+#define K0_LAUNCH(C) rc = launch_k0<C>(p, st, o, n, nv, tile, wt_c, feature_k, step_k, cs);
+  K0_DISPATCH(K0_LAUNCH)
+#undef K0_LAUNCH
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -600,8 +600,8 @@ extern "C" int ngpd_k0_blocks_per_sm(int tile, int wt_c) {
   using namespace ngpd;
   (void)tile;
   int blocks = 0;
-#define NGPD_K0_BLOCKS(C) blocks = blocks_k0<C>(wt_c);
-  NGPD_K0_DISPATCH(NGPD_K0_BLOCKS)
-#undef NGPD_K0_BLOCKS
+#define K0_BLOCKS(C) blocks = blocks_k0<C>(wt_c);
+  K0_DISPATCH(K0_BLOCKS)
+#undef K0_BLOCKS
   return blocks;
 }

@@ -30,24 +30,15 @@
 // every column with an early `continue` took 0.85-0.88 ms in the same
 // calls; the word skip gives 4% (0.41 without it), and 22% at the CLI's
 // 1,280 columns (0.60 against 0.78 ms). ptxas: 72 registers, no spill,
-// three blocks of 256 threads an SM (NGPD_K1_MIN_BLOCKS; two or four were
-// no faster).
+// three blocks of 256 threads an SM (K1_MIN_BLOCKS; two or four were no
+// faster).
 #include "walk_common.cuh"
-
-#ifndef NGPD_K1_MIN_BLOCKS
-#define NGPD_K1_MIN_BLOCKS 3
-#endif
 
 namespace ngpd {
 
-// -DNGPD_NO_SKIP (a timing aid) scans every word.
-#ifndef NGPD_NO_SKIP
-constexpr int K1_BOX_WORDS = BOX_FLOATS;
-#else
-constexpr int K1_BOX_WORDS = 0;
-#endif
+constexpr int K1_MIN_BLOCKS = 3;  // blocks an SM
 
-__global__ void __launch_bounds__(256, NGPD_K1_MIN_BLOCKS)
+__global__ void __launch_bounds__(256, K1_MIN_BLOCKS)
 k1_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
           float* __restrict__ out, int n, int nv, int tile, int wt_c, int wp,
           float cos_rho) {
@@ -55,15 +46,13 @@ k1_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
   // words, one a (word, thread).
   extern __shared__ __align__(16) float sm[];
   float* boxes = sm + K_ROWS * wp;
-  unsigned* fbits = reinterpret_cast<unsigned*>(boxes + K1_BOX_WORDS * (wp >> 5)) + threadIdx.x;
+  unsigned* fbits = reinterpret_cast<unsigned*>(boxes + BOX_FLOATS * (wp >> 5)) + threadIdx.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
   stage_slim(pack, n, s, wt_c, wp, sm);
   __syncthreads();
-#ifndef NGPD_NO_SKIP
   reduce_word_boxes(sm, wp, boxes);
   __syncthreads();
-#endif
 
   const int jmax = min(wt_c, nv - s);  // columns past nv are masked
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
@@ -72,18 +61,14 @@ k1_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
     const float q0 = pack[i], q1 = pack[n + i], q2 = pack[2 * n + i];
     const float p2q = sq_norm3(q0, q1, q2);
     const float thr = mask_threshold(pack[6 * n + i]);
-#ifndef NGPD_NO_SKIP
     const WarpBox wb = warp_box(q0, q1, q2, p2q, thr);
-#endif
     NvtSums nvt{};  // every sum 0
     for (int w0 = 0; w0 < nwords; w0 += CHUNK_WORDS) {
       unsigned nz = 0u;
       const int cw = min(CHUNK_WORDS, nwords - w0);
       for (int wl = 0; wl < cw; ++wl) {
         const int j0 = (w0 + wl) << 5;
-#ifndef NGPD_NO_SKIP
         if (word_skippable(wb, boxes + (w0 + wl) * BOX_FLOATS)) continue;
-#endif
         const unsigned bits =
             scan_word(sm, wp, j0, q0, q1, q2, p2q, thr) & word_valid(jmax - j0);
         if (bits) {
@@ -108,7 +93,7 @@ static int k1_threads(int tile) { return tile < 256 ? tile : 256; }
 
 static size_t k1_smem(int tile, int wt_c) {
   const int wp = round_up32(wt_c);
-  return sizeof(float) * ((size_t)K_ROWS * wp + (size_t)K1_BOX_WORDS * (wp >> 5) +
+  return sizeof(float) * ((size_t)K_ROWS * wp + (size_t)BOX_FLOATS * (wp >> 5) +
                           (size_t)CHUNK_WORDS * k1_threads(tile));
 }
 

@@ -52,14 +52,12 @@
 // four set bits a turn side by side (registers again).
 #include "walk_common.cuh"
 
-#ifndef NGPD_K2_MIN_BLOCKS
-#define NGPD_K2_MIN_BLOCKS 2
-#endif
-
 namespace ngpd {
 
+constexpr int K2_MIN_BLOCKS = 2;  // blocks an SM: three spill and are slower
+
 template <bool FLAT, bool EDGE, bool NEW>
-__global__ void __launch_bounds__(256, NGPD_K2_MIN_BLOCKS)
+__global__ void __launch_bounds__(256, K2_MIN_BLOCKS)
 k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
           const float* __restrict__ scal, float* __restrict__ out, int n,
           int nv, int tile, int wt_c, int wp, float cos_rho, int nd,
@@ -73,9 +71,7 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
   unsigned* sbits = fbits + CHUNK_WORDS * blockDim.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the output rows alone
   stage_slim(pack, n, s, wt_c, wp, sm);
-#endif
   if (threadIdx.x < 3) {
     const int ci = threadIdx.x;
     float c[3];
@@ -87,10 +83,8 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
     cen[ci][3] = sq_norm3(c[0], c[1], c[2]);
   }
   __syncthreads();
-#ifndef NGPD_NO_SKIP
   reduce_word_boxes(sm, wp, boxes);
   __syncthreads();
-#endif
 
   // Lag state (scal is (8, 128)).
   float d2_flat = 0.0f, d2_new = 0.0f;
@@ -104,11 +98,7 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
   }
 
   const int jmax = min(wt_c, nv - s);  // columns past nv are masked
-#ifdef NGPD_NO_WALK  // timing aid: staging and the output rows alone
-  const int nwords = 0;
-#else
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
-#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float q0 = pack[i], q1 = pack[n + i], q2 = pack[2 * n + i];
@@ -117,9 +107,7 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
     const float p2q = sq_norm3(q0, q1, q2);
     const float thr_f = mask_threshold(pack[6 * n + i]);
     const float thr_s = mask_threshold(pack[7 * n + i]);
-#ifndef NGPD_NO_SKIP
     const WarpBox wb = warp_box(q0, q1, q2, p2q, fmaxf(thr_f, thr_s));
-#endif
 
     NvtSums nvt{};  // every sum 0
     float s6[6] = {0.f}, bnv[3] = {0.f}, sv[3] = {0.f}, deg = 0.0f;
@@ -136,12 +124,10 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
       const int cw = min(CHUNK_WORDS, nwords - w0);
       for (int wl = 0; wl < cw; ++wl) {
         const int j0 = (w0 + wl) << 5;
-#ifndef NGPD_NO_SKIP
         if (word_skippable(wb, boxes + (w0 + wl) * BOX_FLOATS)) {
           zero_seen = true;
           continue;
         }
-#endif
         const unsigned valid = word_valid(jmax - j0);
         unsigned bf, bs;
         scan_word(sm, wp, j0, q0, q1, q2, p2q, thr_f, thr_s, bf, bs);
@@ -157,10 +143,6 @@ k2_kernel(const float* __restrict__ pack, const int* __restrict__ starts,
           nz_s |= 1u << wl;
         }
       }
-#ifdef NGPD_NO_ACCUM  // timing aid: the scan alone
-      deg = __fadd_rn(deg, (float)(__popc(nz_f) + __popc(nz_s)));
-      continue;
-#endif
 
       // The feature bits: NVT2 with the angle filter.
       walk_chunk(fbits, blockDim.x, nz_f, w0 << 5, [&](int j) {
@@ -306,7 +288,7 @@ static int blocks_k2(int tile, int wt_c) {
 
 }  // namespace ngpd
 
-#define NGPD_K2_DISPATCH(CALL)                                               \
+#define K2_DISPATCH(CALL)                                                    \
   switch ((use_flat ? 4 : 0) | (use_edge ? 2 : 0) | (use_new ? 1 : 0)) {     \
     case 0: CALL(false, false, false) break;                                 \
     case 1: CALL(false, false, true) break;                                  \
@@ -331,10 +313,10 @@ extern "C" int ngpd_k2_launch(const void* pack, const void* starts,
   const float* sc = static_cast<const float*>(scal);
   float* o = static_cast<float*>(out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define NGPD_K2_LAUNCH(F, E, W) \
+#define K2_LAUNCH(F, E, W) \
   launch_k2<F, E, W>(p, st, sc, o, n, nv, tile, wt_c, cos_rho, nd, total, cs);
-  NGPD_K2_DISPATCH(NGPD_K2_LAUNCH)
-#undef NGPD_K2_LAUNCH
+  K2_DISPATCH(K2_LAUNCH)
+#undef K2_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -344,8 +326,8 @@ extern "C" int ngpd_k2_blocks_per_sm(int tile, int wt_c, int use_flat,
                                      int use_edge, int use_new) {
   using namespace ngpd;
   int blocks = 0;
-#define NGPD_K2_BLOCKS(F, E, W) blocks = blocks_k2<F, E, W>(tile, wt_c);
-  NGPD_K2_DISPATCH(NGPD_K2_BLOCKS)
-#undef NGPD_K2_BLOCKS
+#define K2_BLOCKS(F, E, W) blocks = blocks_k2<F, E, W>(tile, wt_c);
+  K2_DISPATCH(K2_BLOCKS)
+#undef K2_BLOCKS
   return blocks;
 }

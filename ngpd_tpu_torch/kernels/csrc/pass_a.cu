@@ -36,15 +36,12 @@
 // 0.54 ms, four (64 registers, 8 bytes spilled) 0.486 ms.
 #include "pass_walk.cuh"
 
-#ifndef NGPD_A_MIN_BLOCKS
-#define NGPD_A_MIN_BLOCKS 3
-#endif
-
 namespace ngpd {
 
+constexpr int A_MIN_BLOCKS = 3;  // blocks an SM
 constexpr int A_ROWS = R_SYM + 6;  // GR rows 0-14 are read
 
-__global__ void __launch_bounds__(256, NGPD_A_MIN_BLOCKS)
+__global__ void __launch_bounds__(256, A_MIN_BLOCKS)
 pass_a_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
               const int* __restrict__ starts, float* __restrict__ gq2,
               float* __restrict__ gr2, int n, int nv, int tile, int wt, int wp,
@@ -54,17 +51,11 @@ pass_a_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   unsigned* cbits = reinterpret_cast<unsigned*>(sm + A_ROWS * wp) + threadIdx.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the per-point math alone
   stage_rows_pitched<A_ROWS>(gr, n, s, wt, wp, sm);
-#endif
   __syncthreads();
 
   const int jmax = min(wt, nv - s);  // columns past nv are masked
-#ifdef NGPD_NO_WALK  // timing aid: staging, the per-point math and the rows alone
-  const int nwords = 0;
-#else
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
-#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const size_t i = (size_t)blk * tile + r;
     const float q[3] = {gq[i], gq[n + i], gq[2 * n + i]};

@@ -44,14 +44,12 @@
 // registers).
 #include "pass_walk.cuh"
 
-#ifndef NGPD_B_MIN_BLOCKS
-#define NGPD_B_MIN_BLOCKS 3
-#endif
-
 namespace ngpd {
 
+constexpr int B_MIN_BLOCKS = 3;  // blocks an SM
+
 template <bool KEEP>
-__global__ void __launch_bounds__(256, NGPD_B_MIN_BLOCKS)
+__global__ void __launch_bounds__(256, B_MIN_BLOCKS)
 pass_b_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
               const int* __restrict__ starts, float* __restrict__ cls_out,
               float* __restrict__ parts, int n, int nv, int tile, int wt, int wp,
@@ -64,19 +62,13 @@ pass_b_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   unsigned* sbits = cbits + CHUNK_WORDS * blockDim.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the per-point math alone
   stage_rows_pitched<D_ROWS>(gr, n, s, wt, wp, sm);
-#endif
   __syncthreads();
 
   const int dcls[3] = {dc0, dc1, dc2};
   float acc[3][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   const int jmax = min(wt, nv - s);  // columns past nv are masked
-#ifdef NGPD_NO_WALK  // timing aid: staging, the per-point math and the cls rows alone
-  const int nwords = 0;
-#else
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
-#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float q[3] = {gq[i], gq[n + i], gq[2 * n + i]};
@@ -143,7 +135,7 @@ extern "C" int ngpd_pass_b_launch(const void* gq, const void* gr,
   const bool keep = walk_keeps(tile, wt);
   const size_t smem = walk_smem(tile, wt, keep);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define NGPD_B_LAUNCH(KEEP)                                                    \
+#define B_LAUNCH(KEEP)                                                         \
   b_allow<KEEP>(smem);                                                         \
   pass_b_kernel<KEEP><<<n / tile, pass_threads(tile), smem, cs>>>(             \
       static_cast<const float*>(gq), static_cast<const float*>(gr),            \
@@ -151,11 +143,11 @@ extern "C" int ngpd_pass_b_launch(const void* gq, const void* gr,
       static_cast<float*>(parts), n, nv, tile, wt, round_up32(wt), cos_rho,    \
       class_scale, nd, dc0, dc1, dc2);
   if (keep) {
-    NGPD_B_LAUNCH(true)
+    B_LAUNCH(true)
   } else {
-    NGPD_B_LAUNCH(false)
+    B_LAUNCH(false)
   }
-#undef NGPD_B_LAUNCH
+#undef B_LAUNCH
   return (int)cudaGetLastError();
 }
 

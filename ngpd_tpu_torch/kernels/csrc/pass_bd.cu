@@ -62,14 +62,12 @@
 // slower (0.74 ms).
 #include "pass_walk.cuh"
 
-#ifndef NGPD_BD_MIN_BLOCKS
-#define NGPD_BD_MIN_BLOCKS 3
-#endif
-
 namespace ngpd {
 
+constexpr int BD_MIN_BLOCKS = 3;  // blocks an SM
+
 template <bool KEEP>
-__global__ void __launch_bounds__(256, NGPD_BD_MIN_BLOCKS)
+__global__ void __launch_bounds__(256, BD_MIN_BLOCKS)
 pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
                const float* __restrict__ scal, const int* __restrict__ starts,
                float* __restrict__ gq_out, float* __restrict__ gr_out,
@@ -85,9 +83,7 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   unsigned* sbits = cbits + CHUNK_WORDS * blockDim.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the per-point math alone
   stage_rows_pitched<D_ROWS>(gr, n, s, wt, wp, sm);
-#endif
   __syncthreads();
   const float d_thr = scal[0];
   const int dcls[3] = {dc0, dc1, dc2};
@@ -96,11 +92,7 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   float acc[3][5] = {{0.f, 0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f, 0.f},
                      {0.f, 0.f, 0.f, 0.f, 0.f}};
   const int jmax = min(wt, nv - s);  // columns past nv are masked
-#ifdef NGPD_NO_WALK  // timing aid: staging, the per-point math and the packs alone
-  const int nwords = 0;
-#else
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
-#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float p[3] = {gq[i], gq[n + i], gq[2 * n + i]};
@@ -140,10 +132,8 @@ pass_bd_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
         cc = fadd(fadd(fmul(cen[0], cen[0]), fmul(cen[1], cen[1])), fmul(cen[2], cen[2]));
       }
       const float d2 = step_d2(scal, args, cid, kind);
-#ifndef NGPD_NO_ACCUM
       step_pass_of<KEEP>(kind, sm, wp, nwords, jmax, sbits, cbits, p, qq, thr_s, nrm, y,
                          d2, ci >= 0, cen, cc, sums, mx);
-#endif
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         if (k == ci) {
@@ -221,7 +211,7 @@ extern "C" int ngpd_pass_bd_launch(const void* gq, const void* gr,
   const bool keep = walk_keeps(tile, wt);
   const size_t smem = walk_smem(tile, wt, keep);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define NGPD_BD_LAUNCH(KEEP)                                                   \
+#define BD_LAUNCH(KEEP)                                                        \
   bd_allow<KEEP>(smem);                                                        \
   pass_bd_kernel<KEEP><<<n / tile, pass_threads(tile), smem, cs>>>(            \
       static_cast<const float*>(gq), static_cast<const float*>(gr),            \
@@ -230,11 +220,11 @@ extern "C" int ngpd_pass_bd_launch(const void* gq, const void* gr,
       static_cast<float*>(cls_out), static_cast<float*>(parts), n, nv, tile,   \
       wt, round_up32(wt), cos_rho, class_scale, args, nd, dc0, dc1, dc2);
   if (keep) {
-    NGPD_BD_LAUNCH(true)
+    BD_LAUNCH(true)
   } else {
-    NGPD_BD_LAUNCH(false)
+    BD_LAUNCH(false)
   }
-#undef NGPD_BD_LAUNCH
+#undef BD_LAUNCH
   return (int)cudaGetLastError();
 }
 

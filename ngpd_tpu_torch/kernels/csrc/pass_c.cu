@@ -38,15 +38,12 @@
 // faster.
 #include "pass_walk.cuh"
 
-#ifndef NGPD_C_MIN_BLOCKS
-#define NGPD_C_MIN_BLOCKS 4
-#endif
-
 namespace ngpd {
 
+constexpr int C_MIN_BLOCKS = 4;  // blocks an SM
 constexpr int C_ROWS = R_PP + 1;
 
-__global__ void __launch_bounds__(256, NGPD_C_MIN_BLOCKS)
+__global__ void __launch_bounds__(256, C_MIN_BLOCKS)
 pass_c_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
               const float* __restrict__ cls, const float* __restrict__ scal,
               const int* __restrict__ starts, float* __restrict__ maxp, int n,
@@ -58,18 +55,12 @@ pass_c_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   unsigned* cbits = reinterpret_cast<unsigned*>(sm + C_ROWS * wp) + threadIdx.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the rest alone
   stage_rows_pitched<C_ROWS>(gr, n, s, wt, wp, sm);
-#endif
   __syncthreads();
 
   const int dcls[3] = {dc0, dc1, dc2};
   const int jmax = min(wt, nv - s);  // columns past nv are masked
-#ifdef NGPD_NO_WALK  // timing aid: staging and the reduction alone
-  const int nwords = 0;
-#else
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
-#endif
   float best[3] = {-INFINITY, -INFINITY, -INFINITY};
   // zero[k]: the tile has a pair masked for class k, which adds 0 to the
   // reference's max. Columns past nv are masked in every row.

@@ -42,13 +42,11 @@
 // registers) take 0.46 ms, four (64 registers, 40 bytes spilled) 0.45 ms.
 #include "pass_walk.cuh"
 
-#ifndef NGPD_D_MIN_BLOCKS
-#define NGPD_D_MIN_BLOCKS 3
-#endif
-
 namespace ngpd {
 
-__global__ void __launch_bounds__(256, NGPD_D_MIN_BLOCKS)
+constexpr int D_MIN_BLOCKS = 3;  // blocks an SM
+
+__global__ void __launch_bounds__(256, D_MIN_BLOCKS)
 pass_d_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
               const float* __restrict__ cls, const float* __restrict__ scal,
               const int* __restrict__ starts, float* __restrict__ out, int n,
@@ -58,18 +56,12 @@ pass_d_kernel(const float* __restrict__ gq, const float* __restrict__ gr,
   unsigned* cbits = reinterpret_cast<unsigned*>(sm + D_ROWS * wp) + threadIdx.x;
   const int blk = blockIdx.x;
   const int s = starts[blk];
-#ifndef NGPD_NO_STAGE  // timing aid, with NGPD_NO_WALK: the per-point math alone
   stage_rows_pitched<D_ROWS>(gr, n, s, wt, wp, sm);
-#endif
   __syncthreads();
   const float d_thr = scal[0];
 
   const int jmax = min(wt, nv - s);  // columns past nv are masked
-#ifdef NGPD_NO_WALK  // timing aid: staging and the per-point math alone
-  const int nwords = 0;
-#else
   const int nwords = jmax > 0 ? (jmax + 31) >> 5 : 0;
-#endif
   for (int r = threadIdx.x; r < tile; r += blockDim.x) {
     const int i = blk * tile + r;
     const float p[3] = {gq[i], gq[n + i], gq[2 * n + i]};

@@ -76,12 +76,8 @@ __device__ __forceinline__ NvtSums nvt_pass(const float* sm, int wp, int nwords,
         nz |= 1u << wl;
       }
     }
-#ifdef NGPD_NO_ACCUM  // timing aid: the scan alone
-    nvt.n_all = fadd(nvt.n_all, (float)__popc(nz));
-#else
     walk_chunk(cbits, blockDim.x, nz, w0 << 5,
                [&](int j) { nvt_column(sm, wp, j, q, qq, cos_rho, nvt); });
-#endif
   }
   return nvt;
 }
@@ -109,11 +105,7 @@ __device__ __forceinline__ void walk_step_bits(const float* sm, int wp, int nwor
       }
       if (bs) nz |= 1u << wl;
     }
-#ifdef NGPD_NO_ACCUM  // timing aid: the scan, and one column a chunk to keep it live
-    if (nz) body(w0 << 5);
-#else
     walk_chunk(words, blockDim.x, nz, w0 << 5, body);
-#endif
   }
 }
 
@@ -199,14 +191,14 @@ __device__ __forceinline__ void step_pass_of(int kind, const float* sm, int wp,
                                              float d2, bool centre,
                                              const float cen[3], float cc,
                                              StepSums& s, float& mx) {
-#define NGPD_STEP_PASS(KIND)                                                   \
+#define STEP_PASS(KIND)                                                        \
   step_pass<KIND, KEEP>(sm, wp, nwords, jmax, sbits, cbits, p, qq, thr_s, nrm, \
                         y, d2, centre, cen, cc, s, mx)
-  if (kind == FLAT) NGPD_STEP_PASS(FLAT);
-  else if (kind == EDGE) NGPD_STEP_PASS(EDGE);
-  else if (kind == NEW) NGPD_STEP_PASS(NEW);
-  else NGPD_STEP_PASS(CORNER);
-#undef NGPD_STEP_PASS
+  if (kind == FLAT) STEP_PASS(FLAT);
+  else if (kind == EDGE) STEP_PASS(EDGE);
+  else if (kind == NEW) STEP_PASS(NEW);
+  else STEP_PASS(CORNER);
+#undef STEP_PASS
 }
 
 // Stage GR rows [0, ROWS) of the window columns [s, s + wt) at pitch wp,
@@ -267,13 +259,8 @@ constexpr size_t SM_SMEM = 232448;  // bytes a block can use on sm_90
 
 // Whether the step bits fit beside the window: above ~2,200 columns at 256
 // threads they do not, and the step bits are scanned again.
-// -DNGPD_NO_KEEP scans them again at every width (a timing aid).
 __host__ inline bool walk_keeps(int tile, int wt) {
-#ifdef NGPD_NO_KEEP
-  return false;
-#else
   return walk_smem(tile, wt, true) <= SM_SMEM;
-#endif
 }
 
 }  // namespace ngpd

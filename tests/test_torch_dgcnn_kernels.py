@@ -291,14 +291,3 @@ def test_the_smoke_check_refuses_a_wrong_kernel(wrong):
     with pytest.raises(SystemExit):
         _small_check(**wrong)
 
-
-def test_profiles_group_the_graph_kernels_apart_from_the_knn_kernel():
-    """``feature_knn_kernel`` holds ``knn_kernel`` in its name; the profile
-    groups it with neither the kNN kernel nor torch's kernels."""
-    from ngpd_tpu_torch import profile_hybrid as ph
-
-    assert ph._mesh_group("void ngpd::feature_knn_kernel<8>(float const*, long long*, int, "
-                          "int, int)") == "feature_knn"
-    assert ph._mesh_group("void ngpd::edge_block_kernel<true>(float const*)") == "edge_block"
-    assert ph._mesh_group("void ngpd::knn_kernel<16>(float const*)") == "knn"
-    assert ph._mesh_group("void at::native::index_elementwise_kernel") == "gather_scatter"

@@ -651,6 +651,20 @@ def test_an_edited_header_renames_the_libraries(header, tmp_path, monkeypatch):
     assert build.library_path("k1", csrc).name == after["k1"]
 
 
+@pytest.mark.parametrize("source", sorted(p.name for p in build.CSRC.glob("*.cu*")))
+def test_kernel_sources_have_no_compile_time_switches(source):
+    """One build of each source: no preprocessor conditional names an
+    ``NGPD_`` macro and no ``#define`` makes one, so nothing a build could
+    set with ``-D`` changes what a kernel computes or how it is bounded. A
+    variant is tried on an edited copy of ``csrc/`` (``kernel_lab
+    --against``)."""
+    import re
+
+    text = (build.CSRC / source).read_text()
+    assert not re.findall(r"^\s*#\s*(?:if|ifdef|ifndef|elif)\b.*\bNGPD_", text, re.M)
+    assert not re.findall(r"^\s*#\s*define\s+NGPD_", text, re.M)
+
+
 _VP, _I, _F = build._VP, build._I, build._F
 # The launch arguments each kernel had before its redesign, and the header
 # it was rebuilt on: the walk for all but K0, which selects its order
