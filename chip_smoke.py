@@ -27,9 +27,14 @@ exit code and no result line:
              slices); the dense cell's ``make_cloud(32_768)`` at the dense
              route's k 6, 8 and 16 and at k 6 and 24 with exclude_self; a
              40^3 integer lattice (exact ties); separate queries; k past the
-             valid count; k 65 and 128 (lists in device memory). Each case's
-             kernel time (median of 10 launches), plain time (one call),
-             bound and slices; the first case's library composition
+             valid count; k 65 and 128 (lists in device memory); the dense
+             cloud at k 8 with its rows shuffled, shifted far from the
+             origin and with non-finite rows, where the skip of far tiles
+             engages little or never. Each case's kernel time (median of 10
+             launches), plain time (one call), bound, slices, and the share
+             of the tiles and chunks a full scan takes that its warps took
+             and scanned (at most 20% of the tiles on the dense roof at k 6,
+             8 and 16); the first case's library composition
              (``torch.cdist`` then ``torch.topk``, one 4,096-query tile timed
              and scaled by n / 4,096); the merge kernel alone on the partial
              rows of the dense route's k 8 (the shape of its launches on the
@@ -401,6 +406,9 @@ NATIVE_GRID_CAPACITY = 256
 # The library composition is timed on one query tile (KNN_LIBRARY_REPS
 # runs) and scaled by the tile count: every tile does the same work.
 KNN_REPS, KNN_LIBRARY_TILE, KNN_LIBRARY_REPS = 10, 4_096, 3
+# The dense roof's cases at the dense cell's size, stored row by row: their
+# warps take at most this share of the tiles a full scan takes.
+KNN_SKIP_CASES, KNN_SKIP_SHARE = ("dense_k6", "dense_k8", "dense_k16"), 0.2
 # The learned models' graph kernels (csrc/feature_knn.cu, csrc/edge_block.cu)
 # against their plain versions: the feature kNN at the mesh cell's batch and
 # k on small-integer features whose last rows a patch are
@@ -1236,6 +1244,9 @@ def check_dense() -> dict:
     ratio, cd_noisy, cd_out = bench.cd_ratio(out.cpu().numpy(), noisy, clean, "cuda")
     rec["denoise"] = {"seconds": ms / 1e3, "knn_launches": knn_launches,
                       "knn_merge_launches": merge_launches,
+                      "knn_caps_launches": kknn.LAUNCHES["knn_caps"],
+                      "knn_boxes_launches": kknn.LAUNCHES["knn_boxes"],
+                      "knn_scan": scanned_shares(kknn.scan_counts()),
                       "stage_launches": dict(kdense.LAUNCHES),
                       "cd_noisy": cd_noisy, "cd_denoised": cd_out,
                       "classes": torch.bincount(cls.long(), minlength=3).tolist()}
@@ -2284,6 +2295,14 @@ def _knn_plain_of(case: dict, device: str):
     return nbh.idx, nbh.mask, d
 
 
+def scanned_shares(counts: dict) -> dict:
+    """``kknn.scan_counts`` and the shares they give: the tiles the warps
+    took and the chunks they scanned, of those a full scan takes."""
+    return {**counts,
+            "tile_share": counts["tiles_taken"] / max(1, counts["tiles_offered"]),
+            "chunk_share": counts["chunks_scanned"] / max(1, counts["chunks_offered"])}
+
+
 def knn_library_ms(pts: torch.Tensor, k: int) -> float:
     """The nearest library composition, two calls a query tile:
     ``torch.cdist`` without the matrix-product form, then ``torch.topk``;
@@ -2315,9 +2334,7 @@ def knn_merge_facts(case: dict) -> dict:
     s = kknn.slices(nq, nv, k)
     if s < 2:
         fail(f"knn_kernel: {case['case']} does not split ({s} slice)")
-    part = torch.empty((s, nq, k), dtype=torch.int64, device="cuda")
-    kknn._launch("knn_split", "knn", pts.data_ptr(), q.data_ptr(), part.data_ptr(), n, nq,
-                 nv, k, int(case["exclude_self"]), s)
+    part = kknn.split(pts, q, k, nv, case["exclude_self"], s)
     d = torch.empty((nq, k), dtype=torch.float32, device="cuda")
     idx = torch.empty((nq, k), dtype=torch.int64, device="cuda")
 
@@ -2386,17 +2403,28 @@ def check_knn_kernel(device: str = "cuda", knn_fn=knn, nn_fn=nn_distances,
         if not rec["equal"]:
             fail(f"knn_kernel: {case['case']} differs from the plain version: {rec}")
         if on_card and knn_fn is knn:
-            rec["slices"] = kknn.slices(nq, max(0, min(nv, rec["n"])), case["k"])
-            want = {"knn": 1, "knn_merge": int(rec["slices"] > 1)}
+            live = max(0, min(nv, rec["n"]))
+            rec["slices"] = kknn.slices(nq, live, case["k"])
+            split = int(rec["slices"] > 1)
+            want = {"knn": 1, "knn_merge": split, "knn_boxes": int(live > 0 and not split),
+                    "knn_caps": split}
             if launches != want:
                 fail(f"knn_kernel: {case['case']} launched {launches}, not {want} (the "
-                     f"search kernel once, the merge once where it splits)")
+                     f"search kernel once after the boxes, or after the caps pass and "
+                     f"before the merge where it splits)")
+            rec.update(scanned_shares(kknn.scan_counts()))
             rec["ms"] = time_launches(lambda: run_knn_case(case, knn_fn, nn_fn, device),
                                       reps=KNN_REPS)
             rec["bound_ms"], rec["bound_by"] = knn_bound(nq, nv, case["k"])
     out = {"cases": records}
     if not on_card:
         return out
+    # The dense cell's roof: its warps take its near tiles alone.
+    for r in records:
+        if (r["case"] in KNN_SKIP_CASES and r["n"] == DENSE_N
+                and not r["tile_share"] <= KNN_SKIP_SHARE):
+            fail(f"knn_kernel: {r['case']} took {r['tile_share']:.3f} of its tiles, over "
+                 f"{KNN_SKIP_SHARE}: the skip of far tiles stopped engaging on the roof")
     first = cases[0]
     pts, k = first["points"].to(device), first["k"]
     out["timed"] = {"case": first["case"], "ms": records[0]["ms"],

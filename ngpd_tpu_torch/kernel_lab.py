@@ -28,8 +28,10 @@ JSON line a build and kernel (and case): ptxas registers and spills, blocks an S
 equals the tree build's bit for bit (rows that differ and the largest
 difference otherwise), and the launch time, median of 25 CUDA-event-timed
 launches, least and median over ``--rounds`` rounds that take the builds
-in turn. Each pass kernel is fed the plain outputs of the passes before
-it, as ``chip_smoke.check_passes`` feeds it. ``--corner`` adds the output
+in turn; a kNN case adds, for the tree build, what its search scanned
+(``kernels/knn.py::scan_counts``: tiles taken and chunks scanned, and
+those of a full scan). Each pass kernel is fed the plain outputs of the
+passes before it, as ``chip_smoke.check_passes`` feeds it. ``--corner`` adds the output
 comparison on the 65,536-point corner cloud for all four strategies.
 ``--sass`` adds, for each build and kernel, the instruction counts of the
 entry function's hottest loop (the one with the most float32 arithmetic)
@@ -422,8 +424,10 @@ def main(argv=None) -> None:
         call = (make() if case else
                 CALLS[kernel](args.n, bench.make_cloud, STRATEGIES[0], cfg, args.window))
         k = k or args.feature_k
+        kknn.reset_launch_counts()
         with using(builds["tree"]):
             want = call()
+        scan = {"scan": kknn.scan_counts()} if kernel == "knn" and case else {}
         outs = {}
         for b, libs in builds.items():
             with using(libs):
@@ -440,7 +444,8 @@ def main(argv=None) -> None:
                               **ptxas_of(kernel, libs[kernel][1], wt_c, k),
                               "blocks_per_sm": blocks_per_sm(kernel, libs[kernel][0], 256, wt_c,
                                                              k),
-                              **outs[b], "ms_min": min(times[b]),
+                              **outs[b], **(scan if b == "tree" else {}),
+                              "ms_min": min(times[b]),
                               "ms_median": statistics.median(times[b]),
                               **({"hot_loop": sass_hot_loop(libs[kernel][1], build.template_tag(
                                   *[entry_of(kernel, wt_c, k)[0]], *entry_of(kernel, wt_c, k)[1]))}

@@ -54,7 +54,7 @@ ARGTYPES = {
                _F, _F, _F, _I, _I, _I, _VP),
     "pass_bd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F,
                 _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _VP),
-    "knn": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    "knn": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
     "feature_knn": (_VP, _VP, _I, _I, _I, _I, _VP),
     "edge_block": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
     "hybrid_vu": (_VP, _I, _VP, _VP, _I, _F, _F, _VP),
@@ -69,9 +69,13 @@ ARGTYPES = {
                      _I, _F, _F, _F, _I, _VP, _VP),
 }
 # Further C functions of a library beside its ngpd_<name>_launch: the kNN
-# kernel's split launch, its merge and the split's slice count.
+# kernel's tile boxes, the split's caps pass, its split launch, its merge
+# and the split's slice count.
 ENTRY_ARGTYPES = {
-    "knn": {"ngpd_knn_split_launch": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
+    "knn": {"ngpd_knn_boxes_launch": (_VP, _VP, _I, _VP),
+            "ngpd_knn_caps_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+            "ngpd_knn_split_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                      _VP),
             "ngpd_knn_merge_launch": (_VP, _VP, _VP, _I, _I, _I, _VP),
             "ngpd_knn_slices": (_I, _I, _I)},
 }

@@ -1,25 +1,34 @@
 """The exact brute-force kNN kernel (``csrc/knn.cu``): its wrapper.
 
 ``search`` runs the kernel on CUDA tensors, on the current stream: one
-launch of ``knn_kernel`` over all the points, counted in
-``LAUNCHES["knn"]``, or, where the queries are too few to fill the card,
-one launch over ``slices`` slices of the points (counted the same) and one
-of ``knn_merge_kernel``, which merges the slices' partial lists by key
-(counted in ``LAUNCHES["knn_merge"]``). Its plain version is the tile loop
-of ``ops/knn.py::knn_plain``, which ``ops/knn.py::knn`` runs on CPU
-tensors; ``_check`` tells the two apart and raises on any other device.
-There is no fallback from the kernel to the loop.
+launch of ``knn_kernel_boxes``, which boxes each tile of the points
+(counted in ``LAUNCHES["knn_boxes"]``), then one launch of ``knn_kernel``
+over all the points, counted in ``LAUNCHES["knn"]``; or, where the queries
+are too few to fill the card, one launch of ``knn_kernel`` that takes each
+query's cap from its home tile and boxes the tiles
+(``LAUNCHES["knn_caps"]``), one over ``slices`` slices of the points under
+those caps (counted in ``LAUNCHES["knn"]``) and one of
+``knn_merge_kernel``, which merges the slices' partial lists by key
+(counted in ``LAUNCHES["knn_merge"]``). Each warp of the search skips a
+tile, and in a tile it takes a chunk, whose box none of its queries can
+reach; what the warps took and scanned and what a full scan takes are
+summed on the card, and ``scan_counts`` reads them. Its plain version is
+the tile loop of ``ops/knn.py::knn_plain``, which ``ops/knn.py::knn`` runs
+on CPU tensors; ``_check`` tells the two apart and raises on any other
+device. There is no fallback from the kernel to the loop.
 
 ``split_plain`` and ``merge_plain`` are the split path's plain versions:
 each slice's sorted keys (distance bits << 32) + index, empty slots -1
-(~0 as the kernel writes them), and their merge.
+(~0 as the kernel writes them), and their merge. ``tile_boxes_plain``,
+``needs_plain`` and ``scanned_plain`` are the skip's: the boxes, the
+margin and each query's test, and what a warp scans.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"knn": 0, "knn_merge": 0}
+LAUNCHES = {"knn": 0, "knn_merge": 0, "knn_boxes": 0, "knn_caps": 0}
 # csrc/knn.cu: (threads a block, queries a thread) for k 1, k <= SMALL_K
 # and above; a register list of 1, 8 or 16 keys up to SMALL_K, above a row
 # in device memory fed through a buffer of BUF keys a query; points a
@@ -27,12 +36,36 @@ LAUNCHES = {"knn": 0, "knn_merge": 0}
 SMALL_K, BUF, TILE = 16, 32, 512
 BLOCKS = {"one": (64, 4), "small": (128, 1), "large": (64, 1)}
 MAX_SLICES, MIN_SLICE = 64, 8 * TILE
+CHUNK = 64  # points a chunk of a tile, boxed on its own
+MARKED = 1024  # tiles of a slice whose chunks a warp marks done
 NONE = -1  # an empty slot's key, ~0 read as int64
+# The skip's margin (knn_needs): ULPS (|q|^2 + |p|^2) + TINY bounds
+# |computed - true| of a distance; past TOP nothing is skipped.
+ULPS, TINY, TOP = 16 * 2.0**-24, 1e-36, 2.0**126
+SCAN_COUNTS = ("tiles_taken", "tiles_offered", "chunks_scanned", "chunks_offered")
+_COUNTS: dict = {}  # device -> (4,) int64, SCAN_COUNTS in order
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for c in _COUNTS.values():
+        c.zero_()
+
+
+def scan_counts() -> dict:
+    """What the searches since the last ``reset_launch_counts`` scanned,
+    summed over warps: the tiles taken and those a full scan takes (the
+    home tile and every tile of the slice), and the chunks scanned and
+    those of the offered tiles; one host sync."""
+    got = [c.tolist() for c in _COUNTS.values()]
+    return {name: sum(g[i] for g in got) for i, name in enumerate(SCAN_COUNTS)}
+
+
+def _counts(device: torch.device) -> torch.Tensor:
+    if device not in _COUNTS:
+        _COUNTS[device] = torch.zeros(len(SCAN_COUNTS), dtype=torch.int64, device=device)
+    return _COUNTS[device]
 
 
 def variant(k: int) -> tuple[int, int, int]:
@@ -45,11 +78,11 @@ def variant(k: int) -> tuple[int, int, int]:
 
 
 def smem_bytes(k: int) -> int:
-    """Shared memory a block of the launch at ``k`` holds: the static tile
-    and, for a row list, each query's buffer (``knn_buf_bytes``, the
-    launch's dynamic part)."""
+    """Shared memory a block of the launch at ``k`` holds: each warp's
+    staged chunk and its bytes of done chunks (static) and, for a row list,
+    each query's buffer (``knn_buf_bytes``, the launch's dynamic part)."""
     threads, queries, reg = variant(k)
-    return TILE * 16 + (0 if reg else threads * queries * BUF * 8)
+    return threads // 32 * (CHUNK * 16 + MARKED) + (0 if reg else threads * queries * BUF * 8)
 
 
 def _check(points: torch.Tensor, queries: torch.Tensor) -> bool:
@@ -94,6 +127,32 @@ def slices(nq: int, nv: int, k: int) -> int:
     return int(load_library("knn").ngpd_knn_slices(nq, nv, k))
 
 
+def _boxes(points: torch.Tensor, nv: int) -> torch.Tensor:
+    """Room for the boxes of the tiles of ``points[:nv]`` and of their
+    chunks, (tiles + tiles TILE / CHUNK, 8) float32."""
+    tiles = max(1, -(-nv // TILE))
+    return torch.empty((tiles * (1 + TILE // CHUNK), 8), dtype=torch.float32,
+                       device=points.device)
+
+
+def split(points: torch.Tensor, queries: torch.Tensor, k: int, nv: int, exclude_self: bool,
+          s: int) -> torch.Tensor:
+    """The split search alone at ``s`` slices: one launch takes each
+    query's cap from its home tile and boxes the tiles (counted in
+    ``LAUNCHES["knn_caps"]``), one each slice's sorted keys under the caps,
+    (s, nq, k) int64, empty slots NONE."""
+    nq, n = queries.shape[0], points.shape[0]
+    boxes = _boxes(points, nv)
+    counts = _counts(points.device).data_ptr()
+    part = torch.empty((s, nq, k), dtype=torch.int64, device=points.device)
+    caps = torch.empty(nq, dtype=torch.float32, device=points.device)
+    ptrs = (points.data_ptr(), queries.data_ptr(), part.data_ptr(), boxes.data_ptr(),
+            caps.data_ptr(), counts)
+    _launch("knn_caps", "knn_caps", *ptrs, n, nq, nv, int(k), int(exclude_self))
+    _launch("knn_split", "knn", *ptrs, n, nq, nv, int(k), int(exclude_self), s)
+    return part
+
+
 def search(points: torch.Tensor, queries: torch.Tensor, k: int, num_valid: int,
            exclude_self: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The k nearest of ``points[:num_valid]`` for each query, on the card:
@@ -106,22 +165,24 @@ def search(points: torch.Tensor, queries: torch.Tensor, k: int, num_valid: int,
     if nq and k:
         nv = max(0, min(int(num_valid), n))
         s = slices(nq, nv, k)
-        ptrs = (points.data_ptr(), queries.data_ptr())
         if s == 1:
-            _launch("knn", "knn", *ptrs, d.data_ptr(), idx.data_ptr(), n, nq, nv, int(k),
-                    int(exclude_self))
+            boxes = _boxes(points, nv)
+            if nv:
+                _launch("knn_boxes", "knn_boxes", points.data_ptr(), boxes.data_ptr(), nv)
+            _launch("knn", "knn", points.data_ptr(), queries.data_ptr(), d.data_ptr(),
+                    idx.data_ptr(), boxes.data_ptr(), _counts(points.device).data_ptr(), n,
+                    nq, nv, int(k), int(exclude_self))
         else:
-            part = torch.empty((s, nq, k), dtype=torch.int64, device=points.device)
-            _launch("knn_split", "knn", *ptrs, part.data_ptr(), n, nq, nv, int(k),
-                    int(exclude_self), s)
+            part = split(points, queries, k, nv, exclude_self, s)
             _launch("knn_merge", "knn_merge", part.data_ptr(), d.data_ptr(), idx.data_ptr(),
                     nq, int(k), s)
     return d, idx
 
 
 def slice_bounds(nv: int, s: int) -> list[tuple[int, int]]:
-    """The kernel's slices of the points [0, nv): ceil(nv / s) each."""
-    step = -(-nv // s)
+    """The kernel's slices of the points [0, nv): ceil(tiles / s) whole
+    tiles each."""
+    step = -(-(-(-nv // TILE)) // s) * TILE
     return [(min(i * step, nv), min(i * step + step, nv)) for i in range(s)]
 
 
@@ -168,3 +229,63 @@ def merge_plain(part: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     d = (key >> 32).to(torch.int32).view(torch.float32)
     return (torch.where(empty, float("inf"), d),
             torch.where(empty, 0, key & 0xFFFFFFFF))
+
+
+def tile_boxes_plain(points: torch.Tensor, nv: int | None = None, size: int = TILE):
+    """``knn_kernel_boxes``: for each run of ``size`` points below ``nv`` (a
+    tile, or a chunk at ``size=CHUNK``), the box ``(lo (m, 3), hi (m, 3))``
+    of its points with a finite |p|^2 and their largest |p|^2 ``pp`` (m,),
+    -1 where there is none (the box then +inf to -inf)."""
+    nv = points.shape[0] if nv is None else int(nv)
+    p = points[:nv].to(torch.float32)
+    pp = (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2] * p[:, 2]
+    ok = pp <= torch.finfo(torch.float32).max
+    m = -(-nv // size)
+    pad = m * size - nv
+    ok = torch.nn.functional.pad(ok, (0, pad)).view(m, size)
+    p = torch.nn.functional.pad(p, (0, 0, 0, pad)).view(m, size, 3)
+    pp = torch.nn.functional.pad(pp, (0, pad)).view(m, size)
+    inf = float("inf")
+    lo = torch.where(ok[..., None], p, inf).amin(dim=1)
+    hi = torch.where(ok[..., None], p, -inf).amax(dim=1)
+    return lo, hi, torch.where(ok, pp, -1.0).amax(dim=1)
+
+
+def needs_plain(queries: torch.Tensor, lim: torch.Tensor, lo, hi, pp) -> torch.Tensor:
+    """``knn_needs`` for every (query, box), (nq, m) bool: whether the query,
+    at its limit ``lim``, may take a point of the box. A query with no
+    finite |q|^2 needs none, a box with no finite point is needed by none;
+    past TOP for |q|^2 + |p|^2 every box is needed; else a box is not
+    needed where the squared gap from the query to it, lowered by 0.99999
+    and by the margin ULPS (|q|^2 + |p|^2) + TINY, exceeds ``lim``."""
+    f32 = torch.float32
+    q = queries.to(f32)
+    qq = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+    s = qq[:, None] + pp[None, :]
+    gap = torch.clamp(torch.maximum(lo[None] - q[:, None], q[:, None] - hi[None]), min=0.0)
+    lb = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+    margin = torch.tensor(ULPS, dtype=f32) * s + torch.tensor(TINY, dtype=f32)
+    far = (lb * torch.tensor(0.99999, dtype=f32) - margin > lim.to(f32)[:, None]) & (s <= TOP)
+    finite = qq <= torch.finfo(f32).max
+    return finite[:, None] & (pp[None, :] >= 0) & ~far
+
+
+def scanned_plain(points: torch.Tensor, queries: torch.Tensor, lim: torch.Tensor,
+                  nv: int | None = None) -> torch.Tensor:
+    """Which points each query's warp scans outside its home tile at the
+    limits ``lim``, (nq, nv) bool: a warp of 32 consecutive queries (the
+    kernel's warps below k 2, four such runs a warp at k 1) takes a tile
+    where one of its queries needs the tile's box, and scans a chunk of it
+    where one of its queries needs the chunk's box."""
+    nv = points.shape[0] if nv is None else int(nv)
+    nq = queries.shape[0]
+    tile = needs_plain(queries, lim, *tile_boxes_plain(points, nv))
+    chunk = needs_plain(queries, lim, *tile_boxes_plain(points, nv, CHUNK))
+
+    def warp_any(need):
+        pad = -(-nq // 32) * 32 - nq
+        grouped = torch.nn.functional.pad(need, (0, 0, 0, pad)).view(-1, 32, need.shape[1])
+        return grouped.any(dim=1).repeat_interleave(32, dim=0)[:nq]
+
+    taken = warp_any(tile).repeat_interleave(TILE, dim=1)[:, :nv]
+    return taken & warp_any(chunk).repeat_interleave(CHUNK, dim=1)[:, :nv]

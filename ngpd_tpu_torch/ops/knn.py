@@ -1,10 +1,12 @@
 """k-nearest-neighbour search (torch), as ``ngpd_tpu/ops/knn.py``.
 
 ``knn`` is the exact brute-force search. On CUDA tensors it is one
-launch of the hand-written kernel ``kernels/csrc/knn.cu``
-(``kernels/knn.py``), and one of its merge where the queries are too few
-to fill the card; on CPU tensors it runs its plain version,
-``knn_plain``: query chunks against point tiles with a running top-k, so
+search launch of the hand-written kernel ``kernels/csrc/knn.cu``
+(``kernels/knn.py``), which skips the point tiles no query can reach,
+beside the launches that box the tiles or cap the queries and the merge
+where the queries are too few to fill the card; on CPU tensors it runs its
+plain version, ``knn_plain``: query chunks against point tiles with a
+running top-k, so
 one ``(query_tile, point_tile)`` distance block is live at a time. The
 two return the same bits. ``knn_grid`` is the voxel-hash search for large
 clouds: each query scans the 27 cells around it. ``nn_distances`` (the
@@ -155,7 +157,8 @@ def knn(
     distances keep the lower index.
 
     On CUDA tensors ``kernels/csrc/knn.cu`` computes it, for every k, in
-    one launch (two where it splits the points); ``point_tile`` and
+    one search launch after one that boxes the tiles (after one that caps
+    the queries and before a merge where it splits the points); ``point_tile`` and
     ``query_tile`` are the plain
     version's tiles (``knn_plain``, which CPU tensors run) and the kernel
     ignores them. Any other device raises.

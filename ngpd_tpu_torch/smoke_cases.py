@@ -28,9 +28,13 @@ MESH_SUBDIV = 6  # the mesh cascade: the reference bench's workload (bench.py:14
 # k 16 against the whole main cloud (the split at its most slices), the
 # dense cell's cloud at the dense route's k (6, 8, 16) and at k 24, an
 # integer lattice (exact ties), separate queries, k past the valid count,
-# and k 65 and 128 (lists in device memory).
+# and k 65 and 128 (lists in device memory); then the dense cloud at k 8
+# where the skip of far tiles engages little or not at all: its rows
+# shuffled, shifted DENSE_SHIFT from the origin (the margin outgrows every
+# gap), and with non-finite rows (NaN, and |p|^2 past the float range).
 KNN_N, KNN_K, KNN_NN_QUERIES, KNN_LATTICE_SIDE = 100_000, 16, 20_000, 40
 KNN_SPLIT_QUERIES = 2_000
+DENSE_SHIFT = 1000.0
 # The feature kNN: the mesh cell's k on small-integer features whose last
 # FKNN_EQUAL_ROWS rows a patch are equal, at each width, then on the mesh
 # cell's activations.
@@ -50,6 +54,11 @@ def knn_kernel_cases(n: int = KNN_N, mesh_subdiv: int = MESH_SUBDIV,
     gate = bench.gate_sample(nn_points, nn_queries)
     stride = max(1, nn_points // nn_queries)
     dense = torch.as_tensor(bench.make_cloud(dense_n)[0])
+    shuffle = torch.Generator().manual_seed(0)
+    nonfinite = dense.clone()
+    nonfinite[::97] = float("nan")
+    nonfinite[5::193, 1] = float("nan")
+    nonfinite[11::389] = 1e30  # |p|^2 overflows: every distance is inf
     g = torch.arange(lattice_side, dtype=torch.float32)
     lattice = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1).reshape(-1, 3)
 
@@ -81,6 +90,9 @@ def knn_kernel_cases(n: int = KNN_N, mesh_subdiv: int = MESH_SUBDIV,
         case("k_past_valid", noisy, KNN_K, noisy[:4096], num_valid=10),
         case("k65", noisy, 65, exclude_self=True),
         case("k128", noisy, 128),
+        case("dense_shuffled", dense[torch.randperm(dense_n, generator=shuffle)], 8),
+        case("dense_far", dense + DENSE_SHIFT, 8),
+        case("dense_nonfinite", nonfinite, 8, exclude_self=True),
     ]
 
 

@@ -781,13 +781,11 @@ def test_card_knn_split_path(cuda_device):
         assert kknn.slices(len(q), len(pts), k) > 1
         kknn.reset_launch_counts()
         got, gd = knn(pts, k, q, num_valid=199_000)
-        assert kknn.LAUNCHES == {"knn": 1, "knn_merge": 1}
+        assert kknn.LAUNCHES == {"knn": 1, "knn_merge": 1, "knn_boxes": 0, "knn_caps": 1}
         want, wd = knn_plain(pts, k, q, num_valid=199_000)
         assert torch.equal(gd, wd) and torch.equal(got.idx, want.idx)
     s = kknn.slices(len(q), len(pts), 16)
-    part = torch.empty((s, len(q), 16), dtype=torch.int64, device=cuda_device)
-    kknn._launch("knn_split", "knn", pts.data_ptr(), q.data_ptr(), part.data_ptr(), len(pts),
-                 len(q), len(pts), 16, 0, s)
+    part = kknn.split(pts, q, 16, len(pts), False, s)
     d = torch.empty((len(q), 16), device=cuda_device)
     idx = torch.empty((len(q), 16), dtype=torch.int64, device=cuda_device)
     kknn._launch("knn_merge", "knn_merge", part.data_ptr(), d.data_ptr(), idx.data_ptr(),

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from ngpd_tpu_torch import bench
 from ngpd_tpu_torch.kernels import build
 from ngpd_tpu_torch.kernels import knn as kknn
 from ngpd_tpu_torch.ops import knn as tknn
@@ -186,13 +187,14 @@ def _params(src, fn):
 
 def test_the_launch_arguments_match_the_kernel_source():
     """One ctypes type per parameter of ``ngpd_knn_launch`` and of the
-    split path's C functions; the wrapper's variants, block shapes and
-    shared-memory sizes are the source's (``knn_dispatch``, the static tile
-    and ``knn_buf_bytes``): a register list of 1, 8 or 16 keys up to k 16, a
+    boxes' and the split path's C functions; the wrapper's variants, block
+    shapes and shared-memory sizes are the source's (``knn_dispatch``, each
+    warp's static chunk and done bytes, and ``knn_buf_bytes``): a register list of 1, 8 or 16 keys up to k 16, a
     row in device memory above, and no row kernel."""
     src = (build.CSRC / "knn.cu").read_text()
     entries = {"ngpd_knn_launch": build.ARGTYPES["knn"], **build.ENTRY_ARGTYPES["knn"]}
-    assert set(entries) == {"ngpd_knn_launch", "ngpd_knn_split_launch",
+    assert set(entries) == {"ngpd_knn_launch", "ngpd_knn_boxes_launch",
+                            "ngpd_knn_caps_launch", "ngpd_knn_split_launch",
                             "ngpd_knn_merge_launch", "ngpd_knn_slices"}
     for fn, argtypes in entries.items():
         params = _params(src, fn)
@@ -206,7 +208,7 @@ def test_the_launch_arguments_match_the_kernel_source():
                         ("KNN_TS", "KNN_QS", "16"), ("KNN_TL", "KNN_QL", "0")}
     assert "NGPD_KNN" not in src  # constants, no compile switches
     # Each shared buffer is declared with the type it holds.
-    assert "__shared__ float4 tile[KNN_TILE];" in src
+    assert "__shared__ float4 chunk[T / 32][KNN_CHUNK];" in src
     assert "extern __shared__ Key knn_buf[];" in src
     for name, value in (("T1", kknn.BLOCKS["one"][0]), ("Q1", kknn.BLOCKS["one"][1]),
                         ("TS", kknn.BLOCKS["small"][0]), ("QS", kknn.BLOCKS["small"][1]),
@@ -216,10 +218,19 @@ def test_the_launch_arguments_match_the_kernel_source():
     assert f"KNN_SMALL_K = {kknn.SMALL_K};" in src
     assert f"KNN_MAX_SLICES = {kknn.MAX_SLICES};" in src
     assert "KNN_MIN_SLICE = 8 * KNN_TILE;" in src and kknn.MIN_SLICE == 8 * kknn.TILE
+    # The skip: the box kernel's name falls in the benchmark's kNN group, and
+    # the margin and the overflow guard are the plain version's.
+    assert "knn_kernel_boxes(" in src and "KNN_HOME_MIN" not in src
+    assert f"KNN_ULPS = {kknn.ULPS!r}f;" in src and kknn.ULPS == 16 * 2.0**-24
+    assert f"KNN_TINY = {kknn.TINY!r}f;" in src
+    assert "__int_as_float(0x7e800000)" in src and kknn.TOP == 2.0**126
+    assert "knn_sq_norm(gx, gy, gz), 0.99999f" in src
+    assert f"KNN_CHUNK = {kknn.CHUNK};" in src
     assert [kknn.variant(k) for k in (1, 2, 8, 9, 16, 17, 64, 65, 128, 1000)] == \
         [(64, 4, 1), (128, 1, 8), (128, 1, 8), (128, 1, 16), (128, 1, 16)] + [(64, 1, 0)] * 5
     assert [kknn.smem_bytes(k) for k in (1, 8, 16, 17, 300)] == \
-        [8192, 8192, 8192, 8192 + 64 * 32 * 8, 8192 + 64 * 32 * 8]
+        [4096, 8192, 8192, 4096 + 64 * 32 * 8, 4096 + 64 * 32 * 8]
+    assert f"KNN_MARKED = {kknn.MARKED};" in src
     for word in ("mma", "wgmma", "TF32"):  # the header says why they are not used
         assert word in src
     assert "__fmul_rn" in src and "-fmad=false" in " ".join(build.NVCC_FLAGS)
@@ -238,7 +249,8 @@ def test_the_smoke_check_passes_the_plain_version():
         "mesh_centroids": 0, "chamfer_gate": 1, "nn_whole_cloud": 1, "split": 16,
         "dense_k6": 8, "dense_k8": 8, "dense_k16": 16, "dense_k6_exclude_self": 8,
         "dense_k24_exclude_self": 0, "lattice_ties": 16, "separate_queries": 16,
-        "k_past_valid": 16, "k65": 0, "k128": 0}
+        "k_past_valid": 16, "k65": 0, "k128": 0, "dense_shuffled": 8, "dense_far": 8,
+        "dense_nonfinite": 8}
     assert set(variants.values()) == {0, 1, 8, 16}  # every variant
     assert all(r["equal"] and r["max_abs_err"] == 0.0 for r in rec["cases"])
     gate = rec["cases"][5]
@@ -346,9 +358,139 @@ def test_a_cap_from_any_k_points_changes_no_merge(name):
 @pytest.mark.parametrize("nv,s", [(1, 1), (7, 3), (100_000, 2), (100_000, 64), (32_768, 4),
                                   (1_000_000, 64)])
 def test_the_kernel_slices_partition_the_points(nv, s):
-    """ceil(nv / s) points a slice, as knn_kernel cuts them: every point in
-    exactly one slice, in index order; trailing slices may be empty."""
+    """ceil(tiles / s) whole tiles a slice, as knn_kernel cuts them, so that
+    each slice's tiles are the boxed tiles: every point in exactly one
+    slice, in index order; trailing slices may be empty."""
     bounds = kknn.slice_bounds(nv, s)
     assert len(bounds) == s and bounds[0][0] == 0 and bounds[-1][1] == nv
     assert all(a <= b and b == c for (a, b), (c, _) in zip(bounds, bounds[1:]))
-    assert max(b - a for a, b in bounds) == -(-nv // s)
+    tiles = -(-nv // kknn.TILE)
+    assert max(b - a for a, b in bounds) == min(nv, -(-tiles // s) * kknn.TILE)
+    assert all(a % kknn.TILE == 0 for a, b in bounds if a < b)
+
+
+
+# The skip (kernels/knn.py::tile_boxes_plain, ::needs_plain, ::scanned_plain;
+# csrc/knn.cu::knn_needs). A warp takes a tile where one of its queries may
+# take a point of the tile's box at its limit, and scans a chunk of it
+# where one of its queries may take a point of the chunk's box. Every
+# limit the kernel holds is at or above the query's final k-th distance
+# (the largest finite float while its list has an empty slot), so the
+# decision at the final k-th distances skips every tile and chunk the
+# kernel can skip: if the full scan's k best lie in what is left, the
+# kernel's result is the full scan's.
+def _roof(n):
+    return torch.as_tensor(bench.make_cloud(n)[0])
+
+
+def _skip_cases():
+    roof = _roof(2048)
+    shuffled = roof[torch.randperm(len(roof), generator=torch.Generator().manual_seed(3))]
+    nonfinite = roof.clone()
+    nonfinite[::97] = float("nan")
+    nonfinite[5::193] = 1e30  # |p|^2 overflows: every distance is inf
+    nonfinite[1024:1536] = float("nan")  # a tile with no finite point
+    outlier = roof.clone()
+    outlier[700] = torch.tensor([40.0, -25.0, 9.0])
+    return {
+        "dense_roof": roof,
+        "rows_shuffled": shuffled,
+        "far_from_origin": roof + 1000.0,
+        "lattice_ties": torch.as_tensor(_lattice(13)),
+        "nan_and_overflow_rows": nonfinite,
+        "far_outlier_in_a_tile": outlier,
+    }
+
+
+SKIP_NAMES = list(_skip_cases())
+
+
+def _final_limits(points, k, exclude_self):
+    nbh, d = tknn.knn_plain(points, k, exclude_self=exclude_self)
+    lim = torch.where(nbh.mask[:, -1], d[:, -1], torch.finfo(torch.float32).max)
+    return lim, (nbh, d)
+
+
+def _scanned(points, k, lim):
+    return kknn.scanned_plain(points, points, lim)
+
+
+@pytest.mark.parametrize("k,exclude_self", [(8, False), (32, True)])
+@pytest.mark.parametrize("name", SKIP_NAMES)
+def test_no_skipped_tile_holds_a_kept_neighbour(name, k, exclude_self):
+    """No tile or chunk a warp skips holds a neighbour the full scan keeps, and the k smallest keys of what is left are
+    ``knn_plain``'s result bit for bit. The margin bounds every pair's
+    rounding; the roof's index order lets most blocks skip, its shuffle
+    none, and far from the origin the margin stops every skip."""
+    points = _skip_cases()[name]
+    n = len(points)
+    lim, want = _final_limits(points, k, exclude_self)
+    nbh, _ = want
+    scanned = _scanned(points, k, lim)
+    rows = torch.arange(n)[:, None].expand(-1, k)
+    assert scanned[rows[nbh.mask], nbh.idx[nbh.mask]].all()
+
+    # The keyed merge of what is left.
+    d = tknn.pairwise_sqdist(points, points)
+    ok = torch.isfinite(d) & scanned
+    if exclude_self:
+        ok &= ~torch.eye(n, dtype=torch.bool)
+    key = ((d + 0.0).view(torch.int32).to(torch.int64) << 32) | torch.arange(n)[None, :]
+    key = torch.where(ok, key, torch.iinfo(torch.int64).max)
+    part = torch.sort(key, dim=1).values[:, :k]
+    got = tknn._finish(*kknn.merge_plain(torch.where(
+        part == torch.iinfo(torch.int64).max, kknn.NONE, part)[None]))
+    assert _equal(got, want)
+
+    # The margin holds every pair: |computed - exact| <= ULPS (|q|^2 + |p|^2) + TINY.
+    p64 = points.double()
+    exact = ((p64[:, None, :] - p64[None, :, :]) ** 2).sum(-1)
+    nn = (p64 * p64).sum(-1)
+    finite = torch.isfinite(d) & torch.isfinite(exact)
+    err = (d.double() - exact).abs()  # the clamp at 0 only moves toward exact
+    assert (err <= kknn.ULPS * (nn[:, None] + nn[None, :]) + kknn.TINY)[finite].all()
+
+    share = scanned.float().mean().item()
+    roof = _scanned(_skip_cases()["dense_roof"], k, _final_limits(
+        _skip_cases()["dense_roof"], k, exclude_self)[0]).float().mean().item()
+    if name in ("dense_roof", "lattice_ties"):
+        assert share < 0.6, share
+    if name in ("rows_shuffled", "far_from_origin"):
+        assert share == 1.0, share
+    if name == "far_outlier_in_a_tile":  # its boxes, and its own block, skip little
+        assert roof < share < 0.8, (roof, share)
+    if name == "nan_and_overflow_rows":
+        assert not scanned[:, 1024:1536].any() and share < 0.6
+
+
+def test_a_limit_below_the_kth_distance_loses_neighbours():
+    """The decision is tight enough to matter: at a quarter of each query's
+    k-th distance some skipped chunk holds a kept neighbour, so the limits
+    the kernel tests against must stay at or above the final k-th."""
+    points = _skip_cases()["dense_roof"]
+    k = 8
+    lim, (nbh, _) = _final_limits(points, k, False)
+    scanned = _scanned(points, k, lim * 0.25)
+    rows = torch.arange(len(points))[:, None].expand(-1, k)
+    assert not scanned[rows, nbh.idx].all()
+
+
+def test_the_plain_boxes_cover_only_finite_points():
+    """A box and its largest |p|^2 come from the points with a finite
+    |p|^2, a tile's and each of its chunks'; a box with none holds -1 and
+    no query needs it; a query with no finite |q|^2 needs no box."""
+    points = _skip_cases()["nan_and_overflow_rows"]
+    finite = torch.isfinite(points).all(1) & (points.abs().amax(1) < 1e19)
+    for size in (kknn.TILE, kknn.CHUNK):
+        lo, hi, pp = kknn.tile_boxes_plain(points, size=size)
+        assert len(pp) == -(-len(points) // size)
+        for t in range(len(pp)):
+            rows = points[t * size:(t + 1) * size]
+            ok = finite[t * size:(t + 1) * size]
+            if not ok.any():
+                assert pp[t] == -1 and torch.isinf(lo[t]).all() and torch.isinf(hi[t]).all()
+                continue
+            assert torch.equal(lo[t], rows[ok].amin(0)) and torch.equal(hi[t], rows[ok].amax(0))
+        need = kknn.needs_plain(points, torch.full((len(points),), 1e30), lo, hi, pp)
+        assert torch.equal(need, finite[:, None] & (pp >= 0)[None, :])
+    assert int((pp == -1).sum()) == kknn.TILE // kknn.CHUNK  # the tile of NaN rows
