@@ -1,0 +1,6 @@
+"""launches.train: device kernels a training job, from the trace."""
+
+
+def read(rec):
+    t = rec["trace"]
+    return None if t is None else t["kernels"] / t["jobs"]

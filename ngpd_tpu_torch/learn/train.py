@@ -14,6 +14,15 @@ in another order (the tests hold the parameters after one and five steps).
 With a ``schedule`` the learning rate of an update is
 ``schedule(count of earlier updates)``, as optax evaluates it.
 
+Both trainers' steps (``train_step`` here, ``dgcnn_train_step`` in
+``learn/train_dgcnn.py``) record the spans ``ngpd.train`` around a step,
+``ngpd.train.forward`` around the keep masks, the forward and the losses,
+and ``ngpd.train.optimizer`` around ``optimise``: zero_grad, the backward
+(its own span, ``ngpd.train.backward``, the gradients' mean over a
+data-parallel group included) and Adam's step, so the optimizer's self
+time is zero_grad and the step. ``STEPS["train"]`` counts the optimizer
+steps.
+
 Metrics accumulate on the device; ``fit`` reads them on the host once an
 epoch.
 
@@ -45,7 +54,10 @@ from ..collectives import all_reduce, broadcast_
 from ..config import ModelConfig, TrainConfig
 from ..device import exact_float32, resolve_device
 from ..models.patch2normal import Patch2NormalModel, init_patch2normal
+from ..utils import prof
 from . import losses
+
+STEPS = {"train": 0}  # optimizer steps taken by ``optimise``
 
 
 def adam(params, learning_rate: float) -> torch.optim.Adam:
@@ -142,15 +154,19 @@ def average_gradients(model: nn.Module, group) -> None:
 def optimise(state: TrainState, loss: torch.Tensor, group=None) -> None:
     """One Adam update of ``state.model`` on ``loss``'s gradient; with a
     data-parallel ``group``, on the group's mean of the ranks' gradients."""
-    if state.schedule is not None:
-        for pg in state.optimizer.param_groups:
-            pg["lr"] = state.schedule(state.step)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if group is not None:
-        average_gradients(state.model, group)
-    state.optimizer.step()
+    dev = loss.device
+    with prof.span("ngpd.train.optimizer", dev):
+        if state.schedule is not None:
+            for pg in state.optimizer.param_groups:
+                pg["lr"] = state.schedule(state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        with prof.span("ngpd.train.backward", dev):
+            loss.backward()
+            if group is not None:
+                average_gradients(state.model, group)
+        state.optimizer.step()
     state.step += 1
+    STEPS["train"] += 1
 
 
 def _inputs(batch: dict) -> tuple:
@@ -166,10 +182,14 @@ def train_step(state: TrainState, batch: dict, keep=None,
     Returns the state (updated in place) and the four metrics (this
     rank's)."""
     model = state.model.train()
-    if keep is None:
-        keep = draw_local_keep(model, batch["x"].shape[0], state.generator, group)
-    metrics = losses.all_losses(model(*_inputs(batch), keep=keep, group=group), batch["y"])
-    optimise(state, metrics[loss_key], group)
+    dev = batch["x"].device
+    with prof.span("ngpd.train", dev):
+        with prof.span("ngpd.train.forward", dev):
+            if keep is None:
+                keep = draw_local_keep(model, batch["x"].shape[0], state.generator, group)
+            metrics = losses.all_losses(model(*_inputs(batch), keep=keep, group=group),
+                                        batch["y"])
+        optimise(state, metrics[loss_key], group)
     return state, {k: v.detach() for k, v in metrics.items()}
 
 
