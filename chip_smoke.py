@@ -146,15 +146,23 @@ exit code and no result line:
              ``torch.equal``; each kernel's time (median of 25
              CUDA-event-timed launches), bound, plain time, registers,
              spills and blocks an SM, and for the feature kNN the library
-             composition's time (``torch.cdist`` then ``torch.topk``)
+             composition's time (``torch.cdist`` then ``torch.topk``);
+             the DGCNN's epilogue (``csrc/dgcnn_epilogue.cu``, behind
+             ``models/dgcnn.py::dgcnn_epilogue``: BatchNorm, LeakyReLU and
+             the max over neighbours) at the mesh cell's seven shapes (the
+             six edge convs' products and conv7's, batch 2,048) with the
+             committed weights' statistics, ``torch.equal`` on finite
+             products, NaN at the same places and the rest equal with NaN
+             and infinities planted, its time, bound, plain time and build
   mesh       the mesh cascade (over the kNN, feature-kNN and edge-block
              kernels): ``bench.run_mesh``,
              icosphere subdivision 6 (81,920 faces), noise 0.3, two passes
              of the full-width DGCNN with the committed checkpoints, batch
              2048; faces/s, the Ea gate (ratio <= 0.35), no window or pass
-             kernel launched, the kNN kernel's launches, the feature kNN 3
-             and the edge block 6 launches a DGCNN batch (240 and 480 a
-             run) and their plain versions never called; then one pass's
+             kernel launched, the kNN kernel's launches, the feature kNN 3,
+             the edge block 6 and the epilogue 7 launches a DGCNN batch
+             (240, 480 and 560 a run) and their plain versions never
+             called; then one pass's
              stages, each synchronized (the
              host's adjacency build, centroid kNN, patch extraction, DGCNN
              forward, guided filter), and the peak of allocated device memory
@@ -1326,10 +1334,12 @@ def check_mesh() -> dict:
 
     _, noisy = bench.mesh_workload(MESH_SUBDIV)
     # Two passes of the DGCNN over every face, MESH_BATCH patches a forward:
-    # three feature kNN and six edge blocks a forward.
+    # three feature kNN, six edge blocks and seven epilogues (the six convs'
+    # and conv7's) a forward.
     batches = 2 * -(-noisy.num_faces // bench.MESH_BATCH)
     want = {"feature_knn": (len(EDGE_CHANNELS) - dgcnn_mod.NUM_FIXED) * batches,
-            "edge_block": len(EDGE_CHANNELS) * batches}
+            "edge_block": len(EDGE_CHANNELS) * batches,
+            "dgcnn_epilogue": (len(EDGE_CHANNELS) + 1) * batches}
     rec["graph_launches_one_run"] = {k: v // MESH_RUNS for k, v in kgraph.LAUNCHES.items()}
     rec["graph_plain_calls"] = dict(plain)
     if kgraph.LAUNCHES != {k: MESH_RUNS * v for k, v in want.items()} or any(plain.values()):
@@ -1498,7 +1508,7 @@ def check_point_normals() -> dict:
     out, best = runs[-1][0], min(ms for _, ms in runs)
     cfg = ModelConfig()
     want = {"feature_knn": 0, "edge_block": (cfg.num_edgeconv + cfg.num_dynamic_edgeconv)
-            * -(-POINT_N // POINT_BATCH)}
+            * -(-POINT_N // POINT_BATCH), "dgcnn_epilogue": 0}
     rec = {"n": POINT_N, "seconds": best / 1e3, "points_per_s": POINT_N / (best / 1e3),
            "kernel_launches": {**kw.LAUNCHES, **kp.LAUNCHES},
            "knn_launches_one_run": kknn.LAUNCHES["knn"],
@@ -2550,17 +2560,20 @@ def check_feature_knn(x: torch.Tensor, knn_fn, integer: bool) -> dict:
     return rec
 
 
-def check_dgcnn_kernels(device: str = "cuda", knn_fn=None, edge_fn=None,
+def check_dgcnn_kernels(device: str = "cuda", knn_fn=None, edge_fn=None, epilogue_fn=None,
                         mesh_subdiv: int = MESH_SUBDIV, mesh_batch: int = bench.MESH_BATCH,
                         point_batch: int = POINT_BATCH) -> dict:
-    """``feature_knn`` and ``edge_block`` (or stand-ins ``knn_fn`` and
-    ``edge_fn``) against their plain versions on ``device``: the feature
-    kNN on integer features at FKNN_WIDTHS and on the mesh cell's
-    activations, the edge block at every shape of ``edge_block_shapes``.
-    On the card also each kernel's time, bound, plain and library time and
-    its build's registers, spills and blocks an SM."""
+    """``feature_knn``, ``edge_block`` and ``dgcnn_epilogue`` (or stand-ins
+    ``knn_fn``, ``edge_fn`` and ``epilogue_fn``) against their plain
+    versions on ``device``: the feature kNN on integer features at
+    FKNN_WIDTHS and on the mesh cell's activations, the edge block at every
+    shape of ``edge_block_shapes``, the epilogue at every shape of
+    ``epilogue_shapes`` (``check_epilogue``). On the card also each
+    kernel's time, bound, plain and library time and its build's
+    registers, spills and blocks an SM."""
     knn_fn = knn_fn or dgcnn_mod.feature_knn
     edge_fn = edge_fn or edge_mod.edge_block
+    epilogue_fn = epilogue_fn or dgcnn_mod.dgcnn_epilogue
     on_card = device == "cuda"
     g = torch.Generator().manual_seed(0)
     p = PatchConfig().num_nodes
@@ -2589,7 +2602,82 @@ def check_dgcnn_kernels(device: str = "cuda", knn_fn=None, edge_fn=None,
     if on_card:
         for rec, x in zip(fknn[len(FKNN_WIDTHS):], acts):
             rec.update(time_feature_knn(x))
-    return {"feature_knn": fknn, "edge_block": edges}
+    del acts
+    model = dgcnn_from_state_dict(load_dgcnn_state_dict(bench.ASSETS / "dgcnn_mesh.npz"))
+    model = model.to(device)
+    epilogues = [check_epilogue(shape, getattr(model, f"bn{i}"), epilogue_fn, device, on_card)
+                 for i, shape in enumerate(epilogue_shapes(mesh_batch, model.bn7.num_features),
+                                           start=1)]
+    return {"feature_knn": fknn, "edge_block": edges, "dgcnn_epilogue": epilogues}
+
+
+def epilogue_shapes(mesh_batch: int = bench.MESH_BATCH, emb_dims: int = 1024) -> list[dict]:
+    """The DGCNN's seven epilogues at the mesh cell's batch: the six edge
+    convs' products (K 3 on the fixed graph, then the feature kNN's k) and
+    conv7's (K 1, emb_dims)."""
+    p = PatchConfig().num_nodes
+    return ([{"layer": f"conv{i}", "batch": mesh_batch, "p": p,
+              "k": 3 if i <= dgcnn_mod.NUM_FIXED else FKNN_K, "c": c}
+             for i, c in enumerate(EDGE_CHANNELS, start=1)]
+            + [{"layer": "conv7", "batch": mesh_batch, "p": p, "k": 1, "c": emb_dims}])
+
+
+# Entries of a NaN-bearing epilogue input set to NaN, +inf and -inf each.
+EPILOGUE_SPECIALS = 997
+
+
+def check_epilogue(shape: dict, bn, epilogue_fn, device: str, on_card: bool) -> dict:
+    """``epilogue_fn`` against ``dgcnn_epilogue_plain`` at ``shape`` with
+    ``bn``'s eval terms (the committed weights' statistics), on products
+    drawn around the running mean with the running variance:
+    ``torch.equal`` on finite products, and on products with NaN and
+    infinities planted NaN at the same places and the rest equal. Also
+    whether the finite outputs agree in every bit (the sign of a zero
+    included), and on the card the times, bound and build."""
+    b, p, k, c = shape["batch"], shape["p"], shape["k"], shape["c"]
+    g = torch.Generator(device=device).manual_seed(c * 16 + k)
+    h = torch.randn((b, p, k, c) if k > 1 else (b, p, c), generator=g, device=device)
+    h = h.mul_(torch.sqrt(bn.running_var)).add_(bn.running_mean)
+    mean, mul = dgcnn_mod._bn_terms(h, bn)
+    bias = bn.bias
+    got, want = epilogue_fn(h, mean, mul, bias, k), dgcnn_mod.dgcnn_epilogue_plain(
+        h, mean, mul, bias, k)
+    rec = {**shape, "equal": torch.equal(got, want),
+           "bits_equal": torch.equal(got.view(torch.int32), want.view(torch.int32)),
+           "max_abs_err": float((got - want).abs().nan_to_num(float("inf")).max())}
+    flat = h.view(-1)
+    at = torch.randint(0, flat.numel(), (3, EPILOGUE_SPECIALS), generator=g, device=device)
+    for row, value in zip(at, (float("nan"), float("inf"), float("-inf"))):
+        flat[row] = value
+    got2, want2 = epilogue_fn(h, mean, mul, bias, k), dgcnn_mod.dgcnn_epilogue_plain(
+        h, mean, mul, bias, k)
+    nan = torch.isnan(want2)
+    rec.update(nan_outputs=int(nan.sum()),
+               specials_equal=torch.equal(torch.isnan(got2), nan)
+               and torch.equal(got2[~nan], want2[~nan]))
+    if not (rec["equal"] and rec["specials_equal"]):
+        fail(f"dgcnn_kernels: the epilogue differs from its plain version: {rec}")
+    if on_card:
+        rec.update(time_epilogue(h, mean, mul, bias, k))
+    return rec
+
+
+def time_epilogue(h: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
+                  k: int) -> dict:
+    """The epilogue kernel's and plain times, its bound (h read once, the
+    output written once; four operations an element and the max) and its
+    build's figures; no single PyTorch call computes it."""
+    c = h.shape[-1]
+    b_ms, by = bound(h.numel() * 4 + h.numel() // k * 4, 5 * h.numel())
+    return {
+        "ms": time_launches(lambda: kgraph.dgcnn_epilogue(h, mean, mul, bias, k),
+                            reps=GRAPH_REPS),
+        "plain_ms": time_launches(lambda: dgcnn_mod.dgcnn_epilogue_plain(h, mean, mul, bias, k),
+                                  reps=GRAPH_PLAIN_REPS),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+        "build": build_facts("dgcnn_epilogue", "dgcnn_epilogue_kernel",
+                             (kgraph.dgcnn_epilogue_variant(k), 4 if c % 4 == 0 else 1), (k, c)),
+    }
 
 
 def time_feature_knn(x: torch.Tensor) -> dict:
@@ -2634,8 +2722,9 @@ def time_edge_block(x: torch.Tensor, idx: torch.Tensor, order: str) -> dict:
 def plain_graph_calls():
     """Counts of the calls of the graph kernels' plain versions made inside
     the block."""
-    calls = {"feature_knn_plain": 0, "edge_block_plain": 0}
-    saved = dgcnn_mod.feature_knn_plain, edge_mod.edge_block_plain
+    calls = {"feature_knn_plain": 0, "edge_block_plain": 0, "dgcnn_epilogue_plain": 0}
+    saved = (dgcnn_mod.feature_knn_plain, edge_mod.edge_block_plain,
+             dgcnn_mod.dgcnn_epilogue_plain)
 
     def counting(name, fn):
         def call(*args, **kwargs):
@@ -2645,10 +2734,12 @@ def plain_graph_calls():
 
     dgcnn_mod.feature_knn_plain = counting("feature_knn_plain", saved[0])
     edge_mod.edge_block_plain = counting("edge_block_plain", saved[1])
+    dgcnn_mod.dgcnn_epilogue_plain = counting("dgcnn_epilogue_plain", saved[2])
     try:
         yield calls
     finally:
-        dgcnn_mod.feature_knn_plain, edge_mod.edge_block_plain = saved
+        (dgcnn_mod.feature_knn_plain, edge_mod.edge_block_plain,
+         dgcnn_mod.dgcnn_epilogue_plain) = saved
 
 
 def main() -> int:
@@ -2919,6 +3010,19 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    # The epilogue replaces what XLA fuses in the reference's jitted DGCNN;
+    # timed at the widest edge conv's product (K 8, C 256), counted on the
+    # mesh cascade's run.
+    ep = next(r for r in graph_rec["dgcnn_epilogue"] if r["k"] == FKNN_K and r["c"] == 256)
+    kernels.append({
+        "name": "DGCNN_EPILOGUE", "route": "cuda",
+        "source": "ngpd_tpu_torch/kernels/csrc/dgcnn_epilogue.cu",
+        "replaces": "ngpd_tpu/models/dgcnn.py:54",
+        "launches": mesh_rec["graph_launches_one_run"]["dgcnn_epilogue"],
+        "max_abs_err": max(x["max_abs_err"] for x in graph_rec["dgcnn_epilogue"]),
+        "ms": ep["ms"], "plain_ms": ep["plain_ms"], "bound_ms": ep["bound_ms"],
+        "bound_by": ep["bound_by"], "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,6 +1,7 @@
 """Builds of the kernels (K0, K1, K2, the hybrid's VU and update stage
-kernels, passes A-D and BD, the kNN kernel, the feature kNN and the edge
-block) side by side on the card: outputs and times.
+kernels, passes A-D and BD, the kNN kernel, the feature kNN, the edge
+block and the DGCNN's epilogue) side by side on the card: outputs and
+times.
 
     python -m ngpd_tpu_torch.kernel_lab [--against NAME=CSRC_DIR] ...
         [--kernel NAME] ... [--corner]
@@ -20,8 +21,9 @@ At the main shapes (``--n`` points of ``bench.make_cloud``, feature_k 32,
 tile 256, window 128, default strategy; ``--window`` and ``--feature-k``
 change the window and feature_k, e.g. the CLI's 512 and 16, or K0's
 shared-memory kernel at 1024 and 2048; the kNN kernel searches the
-cloud's feature_k nearest of every point; the feature kNN and the edge
-block run on seeded features at the mesh cell's widest shapes; ``--smoke-cases`` runs the kNN
+cloud's feature_k nearest of every point; the feature kNN, the edge
+block and the epilogue run on seeded features at the mesh cell's widest
+shapes; ``--smoke-cases`` runs the kNN
 kernel at every case of ``smoke_cases.knn_kernel_cases`` and the feature kNN at every input
 of chip_smoke's ``dgcnn_kernels`` phase instead) it prints one
 JSON line a build and kernel (and case): ptxas registers and spills, blocks an SM, whether every output
@@ -66,7 +68,7 @@ from .kernels import window as kw
 from .utils.cache import cache_dir
 
 NAMES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn",
-         "feature_knn", "edge_block", "hybrid_vu", "hybrid_update")
+         "feature_knn", "edge_block", "dgcnn_epilogue", "hybrid_vu", "hybrid_update")
 STRATEGIES = (("flat", "edge", "feature"), ("new", "corner", "feature"),
               ("dummy", "edge", "corner"), ("flat", "new", "flat"))
 
@@ -223,7 +225,8 @@ def knn_call(n: int, cloud, strategy, cfg, window: int = 128):
 
 
 # The graph kernels at the mesh cell's widest shapes: a DGCNN batch of
-# patches (64 nodes, C 256), the feature kNN's k 8, the edge block's K 8.
+# patches (64 nodes, C 256), the feature kNN's k 8, the edge block's and the
+# epilogue's K 8.
 GRAPH_P, GRAPH_C, GRAPH_K = 64, 256, 8
 
 
@@ -242,6 +245,15 @@ def edge_block_call(n: int, cloud, strategy, cfg, window: int = 128):
     g = torch.Generator().manual_seed(1)
     idx = torch.randint(0, GRAPH_P, (bench.MESH_BATCH, GRAPH_P, GRAPH_K), generator=g).to("cuda")
     return lambda: (kgraph.edge_block(x, idx, "dgcnn"),)
+
+
+def dgcnn_epilogue_call(n: int, cloud, strategy, cfg, window: int = 128):
+    """The epilogue of a feature-kNN conv's (B, 64, 8, 256) product with
+    seeded BatchNorm terms, multipliers of both signs."""
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn((bench.MESH_BATCH, GRAPH_P, GRAPH_K, GRAPH_C), generator=g).to("cuda")
+    mean, mul, bias = (torch.randn((GRAPH_C,), generator=g).to("cuda") for _ in range(3))
+    return lambda: (kgraph.dgcnn_epilogue(h, mean, mul, bias, GRAPH_K),)
 
 
 def smoke_runs() -> list:
@@ -294,7 +306,8 @@ def _window(*extra):
 CALLS = {"k0": k0_call, "k1": k1_call, "k2": k2_call, "pass_a": a_call, "pass_b": b_call,
          "pass_c": c_call, "pass_d": d_call, "pass_bd": bd_call, "knn": knn_call,
          "feature_knn": feature_knn_call, "edge_block": edge_block_call,
-         "hybrid_vu": hybrid_vu_call, "hybrid_update": hybrid_update_call}
+         "dgcnn_epilogue": dgcnn_epilogue_call, "hybrid_vu": hybrid_vu_call,
+         "hybrid_update": hybrid_update_call}
 ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
            "k2": ("k2_kernel", (True, True, False)), "pass_a": ("pass_a_kernel", ()),
            "pass_b": ("pass_b_kernel", (True,)), "pass_c": ("pass_c_kernel", ()),
@@ -302,6 +315,7 @@ ENTRIES = {"k0": ("k0_kernel", (16,)), "k1": ("k1_kernel", ()),
            "knn": ("knn_kernel", kknn.variant(32)),
            "feature_knn": ("feature_knn_kernel", (8, True, True)),
            "edge_block": ("edge_block_kernel", (True,)),
+           "dgcnn_epilogue": ("dgcnn_epilogue_kernel", (GRAPH_K, 4)),
            "hybrid_vu": ("hybrid_vu_kernel", ()), "hybrid_update": ("hybrid_update_kernel", ())}
 SHAPED_ENTRIES = {"k0": _k0_entry, "knn": _knn_entry}
 GEOMETRY = {"k0": _window(), "k1": _window(), "k2": _window(1, 1, 0), "pass_a": _window(),
@@ -309,6 +323,7 @@ GEOMETRY = {"k0": _window(), "k1": _window(), "k2": _window(1, 1, 0), "pass_a": 
             "pass_bd": _window(), "knn": lambda tile, wt_c, feature_k: (feature_k,),
             "feature_knn": lambda tile, wt_c, feature_k: (GRAPH_P, GRAPH_C, GRAPH_K),
             "edge_block": lambda tile, wt_c, feature_k: (GRAPH_C,),
+            "dgcnn_epilogue": lambda tile, wt_c, feature_k: (GRAPH_K, GRAPH_C),
             "hybrid_vu": lambda tile, wt_c, feature_k: (),
             "hybrid_update": lambda tile, wt_c, feature_k: ()}
 
@@ -455,7 +470,8 @@ def main(argv=None) -> None:
     if args.corner:
         for strategy in STRATEGIES:
             for kernel in names:
-                if kernel in ("k0", "k1", "knn", "feature_knn", "edge_block", "hybrid_vu") \
+                if kernel in ("k0", "k1", "knn", "feature_knn", "edge_block", "dgcnn_epilogue",
+                              "hybrid_vu") \
                         and strategy != STRATEGIES[0]:
                     continue  # the strategy does not reach these kernels' inputs
                 call = CALLS[kernel](65_536, bench.make_corner_cloud, strategy, cfg,

@@ -30,8 +30,8 @@ from ..utils.cache import cache_dir
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d", "pass_bd", "knn",
-           "feature_knn", "edge_block", "hybrid_vu", "hybrid_update", "dense_vote",
-           "dense_classify", "dense_sums", "dense_delta", "dense_update")
+           "feature_knn", "edge_block", "dgcnn_epilogue", "hybrid_vu", "hybrid_update",
+           "dense_vote", "dense_classify", "dense_sums", "dense_delta", "dense_update")
 HEADERS = ("window_common.cuh", "passes_common.cuh", "walk_common.cuh",
            "pass_walk.cuh", "dense_common.cuh")
 NVCC_FLAGS = (
@@ -57,6 +57,7 @@ ARGTYPES = {
     "knn": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
     "feature_knn": (_VP, _VP, _I, _I, _I, _I, _VP),
     "edge_block": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
+    "dgcnn_epilogue": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP),
     "hybrid_vu": (_VP, _I, _VP, _VP, _I, _F, _F, _VP),
     "hybrid_update": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _I, _F, _F, _F,
                       _I, _I, _I, _I, *(_I,) * 9, _VP),

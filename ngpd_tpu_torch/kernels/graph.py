@@ -3,9 +3,12 @@
 ``csrc/feature_knn.cu`` is the DGCNN's feature-space kNN (its plain
 version is ``models/dgcnn.py::feature_knn_plain``), ``csrc/edge_block.cu``
 the edge-feature block of the DGCNN and of EdgeConv (its plain version is
-``models/edge.py::edge_block_plain``). ``feature_knn`` and ``edge_block``
-launch their kernel once on CUDA tensors, on the current stream, and add
-one to ``LAUNCHES``. The ``check_*`` functions tell the card from the CPU,
+``models/edge.py::edge_block_plain``), ``csrc/dgcnn_epilogue.cu`` the
+DGCNN's eval-mode BatchNorm, LeakyReLU and max over neighbours after a
+product (its plain version is ``models/dgcnn.py::dgcnn_epilogue_plain``).
+``feature_knn``, ``edge_block`` and ``dgcnn_epilogue`` launch their
+kernel once on CUDA tensors, on the current stream, and add one to
+``LAUNCHES``. The ``check_*`` functions tell the card from the CPU,
 where the callers run the plain versions, and raise on any other device
 or on operands the kernels do not take. There is no fallback from a
 kernel to its plain version.
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"feature_knn": 0, "edge_block": 0}
+LAUNCHES = {"feature_knn": 0, "edge_block": 0, "dgcnn_epilogue": 0}
 # csrc/feature_knn.cu: one block a patch of at most 256 nodes; the patch
 # streams through shared memory in slabs of 32 channels (rows pitched 36
 # floats, a ring of 3); a warp owns 64 rows and 8 columns at a time; k at
@@ -25,6 +28,10 @@ FEATURE_KNN_SLAB, FEATURE_KNN_PITCH, FEATURE_KNN_STAGES = 32, 36, 3
 FEATURE_KNN_COLS, FEATURE_KNN_ROWS, FEATURE_KNN_WARPS = 8, 64, 8
 # The launch's order argument: [x_j - x_i, x_i] and [x_i, x_j - x_i].
 EDGE_ORDERS = {"dgcnn": 0, "edgeconv": 1}
+# csrc/dgcnn_epilogue.cu: the neighbour counts built as template variants
+# (the DGCNN's fixed graph, its feature kNN's k and conv7's 1); any other
+# takes the variant that reads K at run time (0).
+DGCNN_EPILOGUE_KS = (1, 3, 8)
 
 
 def reset_launch_counts() -> None:
@@ -56,6 +63,11 @@ def feature_knn_smem_bytes(p: int) -> int:
     s = feature_knn_shape(p)
     ring = FEATURE_KNN_STAGES * s["rows"] * FEATURE_KNN_PITCH * 4
     return max(ring, s["rows"] * s["groups"] * FEATURE_KNN_COLS * 8)
+
+
+def dgcnn_epilogue_variant(k: int) -> int:
+    """The template K the epilogue runs with at ``k`` neighbours."""
+    return k if k in DGCNN_EPILOGUE_KS else 0
 
 
 def _device(t: torch.Tensor, name: str) -> bool:
@@ -134,4 +146,48 @@ def edge_block(x: torch.Tensor, idx: torch.Tensor, order: str) -> torch.Tensor:
     if out.numel():
         launch("edge_block", LAUNCHES, x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, p, kk,
                c, EDGE_ORDERS[order])
+    return out
+
+
+def check_dgcnn_epilogue(h: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+                         bias: torch.Tensor, k: int) -> bool:
+    """True when ``h`` and the per-channel terms lie on a CUDA device and
+    the kernel takes them: ``h`` (..., k, C) (at k 1 (..., C)), the terms
+    (C,), all float32 and contiguous; False on the CPU; raises on any other
+    device or on operands the kernel does not take."""
+    if not _device(h, "dgcnn_epilogue"):
+        return False
+    if h.dtype != torch.float32 or h.dim() < (2 if k == 1 else 3):
+        raise TypeError(f"dgcnn_epilogue takes h as a (..., K, C) float32 tensor, got "
+                        f"{h.dtype} {tuple(h.shape)}")
+    c = h.shape[-1]
+    if k < 1 or (k > 1 and h.shape[-2] != k):
+        raise ValueError(f"dgcnn_epilogue: k {k} beside h {tuple(h.shape)}")
+    for name, t in (("mean", mean), ("mul", mul), ("bias", bias)):
+        if t.device != h.device:
+            raise ValueError(f"{name} on {t.device}, h on {h.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise TypeError(f"dgcnn_epilogue takes {name} as a ({c},) float32 tensor, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in (h, mean, mul, bias)):
+        raise ValueError("dgcnn_epilogue: h, mean, mul and bias must be contiguous")
+    if h.numel() // (k * c) >= 2**31 or k >= 2**31 or c >= 2**31:
+        raise ValueError("dgcnn_epilogue: rows, k and C must be below 2^31")
+    return True
+
+
+def dgcnn_epilogue(h: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """The kernel's max over the k neighbours (axis -2) of
+    ``lrelu(((h - mean) * mul) + bias)``, (..., C); at k 1 that activation,
+    shaped as ``h``; on the card, operands as ``check_dgcnn_epilogue``
+    takes them."""
+    from .window import launch
+
+    c = h.shape[-1]
+    out = torch.empty(h.shape if k == 1 else h.shape[:-2] + (c,), dtype=torch.float32,
+                      device=h.device)
+    if out.numel():
+        launch("dgcnn_epilogue", LAUNCHES, h.data_ptr(), mean.data_ptr(), mul.data_ptr(),
+               bias.data_ptr(), out.data_ptr(), h.numel() // (k * c), int(k), c)
     return out

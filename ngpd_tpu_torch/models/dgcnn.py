@@ -26,7 +26,10 @@ explicit keep masks (``models/dropout.py``). ``feature_knn`` runs without
 autograd: its distances feed only the selection. With a data-parallel
 ``group`` a train-mode forward takes the batch statistics over the global
 batch: the sums of h and h^2 and the count are summed over the group, then
-the fast variance as above.
+the fast variance as above. Each edge conv's BatchNorm, LeakyReLU and max
+over neighbours, and conv7's BatchNorm and LeakyReLU, are one
+``dgcnn_epilogue``: on the card a kernel, in an eval-mode forward that takes
+no gradient; otherwise ``dgcnn_epilogue_plain``, bit for bit the same.
 
 ``BetterDGCNN`` is the parameterised generalisation of
 ``ngpd_tpu/models/dgcnn.py``; its modules carry the Flax names
@@ -115,9 +118,11 @@ def batch_stats(h: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
-def _bn(h: torch.Tensor, bn: nn.Module, training: bool = False, group=None) -> torch.Tensor:
-    """BatchNorm over the last axis, Flax's order of operations; in train
-    mode with the batch statistics, updating ``bn``'s running ones."""
+def _bn_terms(h: torch.Tensor, bn: nn.Module, training: bool = False,
+              group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """BatchNorm's mean and multiplier over the last axis, Flax's order of
+    operations; in train mode from the batch statistics, updating ``bn``'s
+    running ones."""
     if training:
         mean, var = batch_stats(h, group)
         with torch.no_grad():
@@ -125,12 +130,47 @@ def _bn(h: torch.Tensor, bn: nn.Module, training: bool = False, group=None) -> t
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
     else:
         mean, var = bn.running_mean, bn.running_var
-    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return mean, torch.rsqrt(var + BN_EPS) * bn.weight
+
+
+def _bn(h: torch.Tensor, bn: nn.Module, training: bool = False, group=None) -> torch.Tensor:
+    """BatchNorm over the last axis (``_bn_terms``): (h - mean) * mul + bias."""
+    mean, mul = _bn_terms(h, bn, training, group)
     return (h - mean) * mul + bn.bias
 
 
 def _act(h: torch.Tensor) -> torch.Tensor:
     return nn.functional.leaky_relu(h, LEAKY_SLOPE)
+
+
+def dgcnn_epilogue(h: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """LeakyReLU of ``((h - mean) * mul) + bias``, then for k > 1 the max
+    over the k neighbours of axis -2: (..., k, C) -> (..., C). On CUDA
+    tensors one launch of ``kernels/csrc/dgcnn_epilogue.cu``, which takes
+    no gradient; on CPU tensors ``dgcnn_epilogue_plain``. The two are equal
+    bit for bit."""
+    if not graph.check_dgcnn_epilogue(h, mean, mul, bias, k):
+        return dgcnn_epilogue_plain(h, mean, mul, bias, k)
+    return graph.dgcnn_epilogue(h, mean, mul, bias, k)
+
+
+def dgcnn_epilogue_plain(h: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+                         bias: torch.Tensor, k: int) -> torch.Tensor:
+    """``dgcnn_epilogue``'s plain version on any device, which autograd
+    differentiates: ``_bn``'s expression, ``_act``, ``torch.amax``."""
+    y = _act((h - mean) * mul + bias)
+    return torch.amax(y, dim=-2) if k > 1 else y
+
+
+def _bn_act(h: torch.Tensor, bn: nn.Module, training: bool, group, k: int) -> torch.Tensor:
+    """``dgcnn_epilogue`` of ``h`` with ``bn``'s terms: the kernel's route
+    in eval mode where no gradient is taken, else the plain version."""
+    mean, mul = _bn_terms(h, bn, training, group)
+    if training or (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in (h, mul, bn.bias))):
+        return dgcnn_epilogue_plain(h, mean, mul, bn.bias, k)
+    return dgcnn_epilogue(h, mean, mul, bn.bias, k)
 
 
 class DGCNN(nn.Module):
@@ -178,10 +218,11 @@ class DGCNN(nn.Module):
             conv, bn = getattr(self, f"conv{i}")[0], getattr(self, f"bn{i}")
             nbr = idx if i <= NUM_FIXED else feature_knn(x, self.k)
             h = _edge_features(x, nbr) @ conv.weight[:, :, 0, 0].T
-            x = torch.amax(_act(_bn(h, bn, train, group)), dim=2)  # max over neighbours
+            kk = h.shape[2]  # max over the neighbours; one leaves no axis to reduce
+            x = _bn_act(h if kk > 1 else h.squeeze(2), bn, train, group, kk)
             outs.append(x)
         h = torch.cat(outs, dim=-1) @ self.conv7[0].weight[:, :, 0].T  # (B, P, E)
-        h = _act(_bn(h, self.bn7, train, group))
+        h = _bn_act(h, self.bn7, train, group, 1)
         h = torch.cat([torch.amax(h, dim=1), torch.mean(h, dim=1)], dim=-1)
         h = _act(_bn(h @ self.linear1.weight.T, self.bn8, train, group))
         if masks[0] is not None:

@@ -919,22 +919,23 @@ def test_card_edge_block_gradient_matches_plain(cuda_device):
 
 
 def test_card_graph_kernels_carry_both_models(cuda_device, monkeypatch):
-    """A DGCNN forward launches the feature kNN three times and the edge
-    block six times, a Patch2Normal forward the edge block six times; the
-    plain versions are never called."""
+    """A DGCNN forward launches the feature kNN three times, the edge block
+    six times and the epilogue seven times, a Patch2Normal forward the edge
+    block six times; the plain versions are never called."""
     from ngpd_tpu_torch.kernels import graph
     from ngpd_tpu_torch.models import dgcnn, edge
     from ngpd_tpu_torch.models.patch2normal import init_patch2normal
 
     monkeypatch.setattr(dgcnn, "feature_knn_plain", lambda *a: pytest.fail("plain kNN"))
     monkeypatch.setattr(edge, "edge_block_plain", lambda *a: pytest.fail("plain block"))
+    monkeypatch.setattr(dgcnn, "dgcnn_epilogue_plain", lambda *a: pytest.fail("plain epilogue"))
     g = torch.Generator().manual_seed(0)
     inputs = torch.cat([torch.randn((16, 17, 64), generator=g),
                         torch.randint(0, 64, (16, 3, 64), generator=g).float()], dim=1)
     graph.reset_launch_counts()
     with torch.no_grad():
         out = dgcnn.DGCNN().eval().to(cuda_device)(inputs.to(cuda_device))
-    assert graph.LAUNCHES == {"feature_knn": 3, "edge_block": 6}
+    assert graph.LAUNCHES == {"feature_knn": 3, "edge_block": 6, "dgcnn_epilogue": 7}
     assert torch.isfinite(out).all()
     model = init_patch2normal(seed=0).to(cuda_device)
     x = torch.randn((8, 64, 8), generator=g).to(cuda_device)
@@ -943,7 +944,7 @@ def test_card_graph_kernels_carry_both_models(cuda_device, monkeypatch):
     with torch.no_grad():
         model(x, nbr, torch.ones((8, 64, 12), dtype=torch.bool, device=cuda_device),
               torch.ones((8, 64), dtype=torch.bool, device=cuda_device))
-    assert graph.LAUNCHES == {"feature_knn": 0, "edge_block": 6}
+    assert graph.LAUNCHES == {"feature_knn": 0, "edge_block": 6, "dgcnn_epilogue": 0}
 
 
 def test_card_dgcnn_kernels_smoke_check(cuda_device):
@@ -957,3 +958,90 @@ def test_card_dgcnn_kernels_smoke_check(cuda_device):
                for r in rec["feature_knn"])
     assert all(r["equal"] and r["ms"] > 0 for r in rec["edge_block"])
     assert rec["feature_knn"][-1]["build"]["registers"] > 0
+    assert [(r["k"], r["c"]) for r in rec["dgcnn_epilogue"]] == [
+        (3, 64), (3, 64), (3, 128), (8, 256), (8, 256), (8, 256), (1, 1024)]
+    assert all(r["equal"] and r["specials_equal"] and r["ms"] > 0
+               for r in rec["dgcnn_epilogue"])
+
+
+# (K, C, misaligned): the model's shapes (float4 kernels at K 1, 3 and 8),
+# a K read at run time, a width that is no multiple of 4 and an h that
+# does not lie on 16 bytes (the one-channel kernels).
+EPILOGUE_CASES = [(3, 64, False), (8, 256, False), (1, 1024, False), (5, 128, False),
+                  (16, 64, False), (3, 18, False), (8, 64, True)]
+
+
+@pytest.mark.parametrize("k,c,misaligned", EPILOGUE_CASES,
+                         ids=[f"k{k}_c{c}{'_misaligned' if m else ''}"
+                              for k, c, m in EPILOGUE_CASES])
+def test_card_dgcnn_epilogue_equals_its_plain_version(cuda_device, k, c, misaligned):
+    """Every bit of the kernel's output is the plain version's, the sign of
+    a zero included: on products around the BatchNorm terms with NaN and
+    infinities planted (NaN at the same places), and on products whose
+    maxima tie +0 against -0 (the order of torch.amax's accumulators)."""
+    from ngpd_tpu_torch.kernels import graph
+    from ngpd_tpu_torch.models import dgcnn
+
+    g = torch.Generator().manual_seed(k * 1000 + c)
+    shape = (37, 64, k, c) if k > 1 else (37, 64, c)
+    n = int(np.prod(shape))
+    buf = torch.empty(n + 1, device=cuda_device)
+    h = buf[1:] if misaligned else buf[:n]
+    h = h.view(shape)
+    h.copy_(torch.randn(shape, generator=g) * 3.0)
+    mean, mul, bias = (torch.randn((c,), generator=g).to(cuda_device) for _ in range(3))
+    flat = h.view(-1)
+    flat[torch.randint(0, n, (50,), generator=g)] = float("nan")
+    flat[torch.randint(0, n, (50,), generator=g)] = float("inf")
+    flat[torch.randint(0, n, (50,), generator=g)] = float("-inf")
+    graph.reset_launch_counts()
+    got = dgcnn.dgcnn_epilogue(h, mean, mul, bias, k)
+    want = dgcnn.dgcnn_epilogue_plain(h, mean, mul, bias, k)
+    assert graph.LAUNCHES["dgcnn_epilogue"] == 1
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and nan.any()
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+    # Zeros of both signs and -1 (slope -0.2): the maximum is a zero, and
+    # which one torch.amax keeps shows in the sign.
+    z = torch.tensor([0.0, -0.0, -1.0])[torch.randint(0, 3, (n,), generator=g)]
+    h.copy_(z.view(shape))
+    # x - 0, * 1 and + (-0) keep a zero's sign.
+    zero, one = torch.zeros((c,), device=cuda_device), torch.ones((c,), device=cuda_device)
+    got = dgcnn.dgcnn_epilogue(h, zero, one, -zero, k)
+    want = dgcnn.dgcnn_epilogue_plain(h, zero, one, -zero, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_card_dgcnn_forward_takes_the_epilogue_only_without_a_gradient(cuda_device):
+    """An eval forward under no_grad equals the plain route bit for bit; a
+    train-mode forward and an eval forward that takes a gradient launch no
+    epilogue."""
+    from ngpd_tpu_torch.kernels import graph
+    from ngpd_tpu_torch.models import dgcnn
+
+    g = torch.Generator().manual_seed(1)
+    inputs = torch.cat([torch.randn((64, 17, 64), generator=g),
+                        torch.randint(0, 64, (64, 3, 64), generator=g).float()],
+                       dim=1).to(cuda_device)
+    model = dgcnn.DGCNN(dropout=0.0).to(cuda_device).eval()
+    gc = torch.Generator(cuda_device).manual_seed(2)
+    for i in range(1, 8):
+        bn = getattr(model, f"bn{i}")
+        bn.running_mean.normal_(generator=gc)
+        bn.running_var.uniform_(0.5, 2.0, generator=gc)
+    graph.reset_launch_counts()
+    with torch.no_grad():
+        got = model(inputs)
+    assert graph.LAUNCHES["dgcnn_epilogue"] == 7
+    kernel = dgcnn.dgcnn_epilogue
+    try:
+        dgcnn.dgcnn_epilogue = dgcnn.dgcnn_epilogue_plain
+        with torch.no_grad():
+            want = model(inputs)
+    finally:
+        dgcnn.dgcnn_epilogue = kernel
+    assert torch.equal(got, want)
+    graph.reset_launch_counts()
+    model(inputs).sum().backward()
+    model.train()(inputs)
+    assert graph.LAUNCHES["dgcnn_epilogue"] == 0

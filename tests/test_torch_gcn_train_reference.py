@@ -349,7 +349,8 @@ def test_the_graphed_steps_on_the_card_give_the_eager_steps_bits(monkeypatch, ca
     monkeypatch.setattr(ttd, "graphed_forward", lambda state, x, keep: state.model)
     eager_launches, eager = steps()
     assert len(calls) == captures
-    assert eager_launches == {"feature_knn": 9, "edge_block": 18}  # three steps' forwards
+    # three steps' forwards, in train mode: no epilogue
+    assert eager_launches == {"feature_knn": 9, "edge_block": 18, "dgcnn_epilogue": 0}
     warm = 3 if case == "moved" else 0  # the second capture's warm-up forwards ran too
     assert graphed_launches == {k: n + warm * n // 3 for k, n in eager_launches.items()}
     assert all(torch.equal(a, b) for a, b in zip(graphed, eager))

@@ -452,7 +452,7 @@ def test_cpu_graph_wrappers_use_plain_versions():
     assert torch.equal(dgcnn.feature_knn(x, 8), dgcnn.feature_knn_plain(x, 8))
     assert torch.equal(dgcnn._edge_features(x, idx), edge.edge_block_plain(x, idx, "dgcnn"))
     assert torch.equal(edgeconv._edge_block(x, idx), edge.edge_block_plain(x, idx, "edgeconv"))
-    assert kgraph.LAUNCHES == before == {"feature_knn": 0, "edge_block": 0}
+    assert kgraph.LAUNCHES == before == {"feature_knn": 0, "edge_block": 0, "dgcnn_epilogue": 0}
 
 
 def test_k0_launches_windows_past_2048_columns(monkeypatch):
@@ -602,9 +602,9 @@ def test_pass_bd_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
 
 def test_build_lists_every_kernel_with_its_argument_types():
     assert build.SOURCES == ("k0", "k1", "k2", "pass_a", "pass_b", "pass_c", "pass_d",
-                             "pass_bd", "knn", "feature_knn", "edge_block", "hybrid_vu",
-                             "hybrid_update", "dense_vote", "dense_classify", "dense_sums",
-                             "dense_delta", "dense_update")
+                             "pass_bd", "knn", "feature_knn", "edge_block", "dgcnn_epilogue",
+                             "hybrid_vu", "hybrid_update", "dense_vote", "dense_classify",
+                             "dense_sums", "dense_delta", "dense_update")
     assert set(build.ARGTYPES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert name in {**kw.LAUNCHES, **kp.LAUNCHES, **kknn.LAUNCHES, **kgraph.LAUNCHES,
@@ -775,7 +775,8 @@ def test_kernel_sources_target_sm90a():
         # pipeline's stage kernels none (their reference is the XLA program
         # of the dense pipeline), the others pallas_calls.
         replaced = {"knn": "ngpd_tpu/ops/knn.py", "feature_knn": "ngpd_tpu/models/dgcnn.py",
-                    "edge_block": "ngpd_tpu/models/dgcnn.py"}.get(
+                    "edge_block": "ngpd_tpu/models/dgcnn.py",
+                    "dgcnn_epilogue": "ngpd_tpu/models/dgcnn.py"}.get(
                         name, "ngpd_tpu/core/pallas_fused.py")
         if name.startswith("dense_"):
             replaced = "no TPU kernel"
