@@ -16,7 +16,9 @@ The noise is drawn from a ``torch.Generator`` seeded with
 the reference's ``jax.random``); ``process_cloud`` takes the draws, so the
 tests feed it the reference's own. ``PatchDataset`` yields batches in the
 reference's order for the same seed (a numpy permutation), gathered on the
-device from the split staged there once when it fits ``NGPD_STAGE_BYTES``.
+device from the split staged there once when it fits ``NGPD_STAGE_BYTES``
+(each gather the span ``ngpd.train.batch``); it reads a split's shards, or
+takes their arrays in memory (``from_arrays``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..io.obj import load_obj, read_obj
 from ..io.sampling import sample_mesh
 from ..ops import metrics
 from ..ops.knn import knn
+from ..utils import prof
 
 KEYS = ("x", "nbr_idx", "nbr_mask", "node_mask", "y", "r_inv")
 
@@ -187,13 +190,27 @@ class PatchDataset:
 
     def __init__(self, root: str | Path, split: str = "train", device=None):
         self.root = Path(root)
-        self.device = resolve_device(device)
         manifest = json.loads((self.root / "manifest.json").read_text())
         self.files = [self.root / manifest["shards"][i]["file"] for i in manifest[split]]
         arrays = []
         for f in self.files:
             with np.load(f) as a:
                 arrays.append({k: a[k] for k in KEYS})
+        self._hold(arrays, device)
+
+    @classmethod
+    def from_arrays(cls, arrays: Sequence[dict], device=None) -> "PatchDataset":
+        """The data set of patches in memory, each of ``arrays`` one shard's
+        arrays as ``process_cloud`` returns them, in the split's order: the
+        batches and the staging of the same arrays saved as the split's
+        shards."""
+        ds = cls.__new__(cls)
+        ds.root, ds.files = None, []
+        ds._hold([{k: a[k] for k in KEYS} for a in arrays], device)
+        return ds
+
+    def _hold(self, arrays: list, device) -> None:
+        self.device = resolve_device(device)
         if arrays:
             self.data = {k: np.concatenate([a[k] for a in arrays]) for k in KEYS}
         else:
@@ -222,8 +239,11 @@ class PatchDataset:
         dev = self._staged()
         for s in range(0, stop, batch_size):
             sel = order[s : s + batch_size]
-            if dev:
-                idx = torch.as_tensor(sel, device=self.device)
-                yield {k: v[idx] for k, v in dev.items()}
-            else:
-                yield {k: self._to_device(v[sel]) for k, v in self.data.items() if k != "r_inv"}
+            with prof.span("ngpd.train.batch", self.device):
+                if dev:
+                    idx = torch.as_tensor(sel, device=self.device)
+                    batch = {k: v[idx] for k, v in dev.items()}
+                else:
+                    batch = {k: self._to_device(v[sel]) for k, v in self.data.items()
+                             if k != "r_inv"}
+            yield batch

@@ -21,7 +21,12 @@ and ``ngpd.train.optimizer`` around ``optimise``: zero_grad, the backward
 (its own span, ``ngpd.train.backward``, the gradients' mean over a
 data-parallel group included) and Adam's step, so the optimizer's self
 time is zero_grad and the step. ``STEPS["train"]`` counts the optimizer
-steps.
+steps. Taking a batch from a split staged on the device is the span
+``ngpd.train.batch`` (``learn/dataset.py``, ``learn/train_dgcnn.py``).
+
+On a card without a data-parallel group both steps replay CUDA graphs of
+the model's train-mode forward and backward (``graphed_forward``), with
+the eager step's bits; ``GRAPHS`` counts the captures and the replays.
 
 Metrics accumulate on the device; ``fit`` reads them on the host once an
 epoch.
@@ -43,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Iterator, Optional
 
@@ -53,11 +59,13 @@ from torch import nn
 from ..collectives import all_reduce, broadcast_
 from ..config import ModelConfig, TrainConfig
 from ..device import exact_float32, resolve_device
+from ..kernels import graph
 from ..models.patch2normal import Patch2NormalModel, init_patch2normal
 from ..utils import prof
 from . import losses
 
 STEPS = {"train": 0}  # optimizer steps taken by ``optimise``
+GRAPHS = {"capture": 0, "replay": 0}  # CUDA graphs of train steps captured, replayed
 
 
 def adam(params, learning_rate: float) -> torch.optim.Adam:
@@ -173,22 +181,113 @@ def _inputs(batch: dict) -> tuple:
     return batch["x"], batch["nbr_idx"], batch["nbr_mask"], batch["node_mask"]
 
 
+_GRAPHS: "weakref.WeakKeyDictionary[nn.Module, dict]" = weakref.WeakKeyDictionary()
+
+
+def _addresses(model: nn.Module) -> tuple:
+    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
+
+
+def _capture(model: nn.Module, inputs: tuple, keep) -> Callable:
+    """The replay of ``model``'s train-mode forward and backward on inputs
+    shaped as ``inputs`` (the tensors before ``keep=`` in the model's call)
+    with the keep masks ``keep``, and the graph-kernel launches one replay
+    makes, added to ``kernels/graph.py::LAUNCHES`` at each call, as the
+    eager forward adds them."""
+    params = list(model.parameters())
+    at = {id(p): i for i, p in enumerate(params)}
+    # Every module's slot of a parameter (a module reached by two names,
+    # as the DGCNN's ``bn{i}`` and ``conv{i}.1`` are, once).
+    slots = [(m, n, at[id(p)]) for m in model.modules() for n, p in m._parameters.items()
+             if p is not None]
+    # Detached aliases of the parameters (the same storage, new leaves): the
+    # capture differentiates them, so no autograd node of an earlier step
+    # that a caller still holds on the parameters takes part in it.
+    leaves = [p.detach().requires_grad_(p.requires_grad) for p in params]
+    owner, n_in, n_keep, per_call = weakref.ref(model), len(inputs), len(keep), {}
+
+    def forward(*args):
+        before = dict(graph.LAUNCHES)
+        for m, n, i in slots:
+            m._parameters[n] = args[n_in + n_keep + i]
+        try:
+            out = owner()(*args[:n_in], keep=list(args[n_in:n_in + n_keep]))
+        finally:
+            for m, n, i in slots:
+                m._parameters[n] = params[i]
+        per_call.update({k: graph.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    saved = [b.clone() for b in model.buffers()]
+    graphed = torch.cuda.make_graphed_callables(forward, (*inputs, *keep, *leaves),
+                                                allow_unused_input=True)
+    with torch.no_grad():  # the warm-up's BatchNorm statistics put back
+        for b, v in zip(model.buffers(), saved):
+            b.copy_(v)
+    for k, n in per_call.items():  # the capture recorded its launches, ran none
+        graph.LAUNCHES[k] -= n
+    GRAPHS["capture"] += 1
+
+    def replay(*inputs, keep, group=None):
+        for k, n in per_call.items():
+            graph.LAUNCHES[k] += n
+        GRAPHS["replay"] += 1
+        return graphed(*inputs, *keep, *params)
+
+    return replay
+
+
+def graphed_forward(state: TrainState, inputs: tuple, keep) -> Callable:
+    """A callable with the model's own call, ``f(*inputs, keep=,
+    group=None)``, for a train-mode step of ``state.model`` (the DGCNN's
+    ``(x,)``, Patch2Normal's ``(x, nbr_idx, nbr_mask, node_mask)``) on
+    inputs shaped as ``inputs`` with the keep masks ``keep``.
+
+    On a card, the model's forward and its backward as CUDA graphs
+    (``torch.cuda.make_graphed_callables``), captured at the first step of
+    each input shape and replayed after: a step then costs the host a few
+    launches instead of one for each of the model's hundreds of
+    operations, and the card no longer waits on the host. The replays run
+    the same kernels on the same operands as the eager step, so they give
+    its bits. The capture runs the forward and backward a few times to warm
+    up; the BatchNorm statistics those runs move are put back, and the
+    parameters are not touched. The keep masks are inputs, drawn outside
+    the graphs.
+
+    The graphs read and write the model's parameters and buffers where they
+    lie: a loaded state dict or an optimizer step, both in place, keep them
+    valid; where any of them moves (a ``.to()`` round trip,
+    ``load_state_dict(assign=True)``), the next step captures again. The
+    graphs are kept with the model, one an input shape. On the CPU the
+    model itself."""
+    if not inputs[0].is_cuda:
+        return state.model
+    graphs = _GRAPHS.setdefault(state.model, {})
+    key = (tuple((tuple(t.shape), t.dtype) for t in inputs), inputs[0].device)
+    at = _addresses(state.model)
+    if graphs.get(key, (None,))[0] != at:
+        graphs[key] = (at, _capture(state.model, inputs, keep))
+    return graphs[key][1]
+
+
 def train_step(state: TrainState, batch: dict, keep=None,
                loss_key: str = "custom_val_loss", group=None) -> tuple[TrainState, dict]:
     """One optimization step minimising ``custom_val_loss``; the forward's
     BatchNorm layers update their running statistics. ``keep``: the
     dropout keep masks, drawn from ``state.generator`` when not given.
     ``group``: the data-parallel group; ``batch`` is then this rank's rows.
-    Returns the state (updated in place) and the four metrics (this
-    rank's)."""
+    On a card without a group the model's forward and backward replay CUDA
+    graphs (``graphed_forward``). Returns the state (updated in place) and
+    the four metrics (this rank's)."""
     model = state.model.train()
     dev = batch["x"].device
     with prof.span("ngpd.train", dev):
         with prof.span("ngpd.train.forward", dev):
             if keep is None:
                 keep = draw_local_keep(model, batch["x"].shape[0], state.generator, group)
-            metrics = losses.all_losses(model(*_inputs(batch), keep=keep, group=group),
-                                        batch["y"])
+            inputs = _inputs(batch)
+            forward = model if group is not None else graphed_forward(state, inputs, keep)
+            metrics = losses.all_losses(forward(*inputs, keep=keep, group=group), batch["y"])
         optimise(state, metrics[loss_key], group)
     return state, {k: v.detach() for k, v in metrics.items()}
 

@@ -17,7 +17,8 @@ MSE. ``scan_steps > 0`` walks the same batches in blocks of that many steps
 block's rows, from the split staged on the device).
 ``fit_dgcnn(mesh=)`` is data-parallel as ``learn/train.py::fit`` is. On a
 card without a data-parallel group, a step's forward and backward replay
-CUDA graphs of the model (``graphed_forward``), with the eager step's bits.
+CUDA graphs of the model (``learn/train.py::graphed_forward``, which
+Patch2Normal's ``train_step`` shares), with the eager step's bits.
 """
 
 from __future__ import annotations
@@ -26,22 +27,19 @@ import copy
 import math
 import os
 import time
-import weakref
 from pathlib import Path
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..device import exact_float32, resolve_device
-from ..kernels import graph
 from ..models.dgcnn import DGCNN
 from ..models.patch2normal import flax_init_
 from ..utils import prof
 from .train import (EarlyStopping, MetricLogger, TrainState, acc_metrics, broadcast_model,
-                    dp_group, draw_local_keep, host_means, is_lead, local_rows, new_state,
-                    optimise)
+                    dp_group, draw_local_keep, graphed_forward, host_means, is_lead,
+                    local_rows, new_state, optimise)
 
 COSINE_ALPHA = 0.05
 
@@ -87,89 +85,6 @@ def dgcnn_losses(pred: torch.Tensor, target: torch.Tensor) -> dict:
             "angular_deg": torch.rad2deg(torch.mean(torch.arccos(torch.clamp(dot, -1, 1))))}
 
 
-_GRAPHS: "weakref.WeakKeyDictionary[nn.Module, dict]" = weakref.WeakKeyDictionary()
-
-
-def _addresses(model: nn.Module) -> tuple:
-    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
-
-
-def _capture(model: nn.Module, x: torch.Tensor, keep) -> Callable:
-    """The replay of ``model``'s train-mode forward and backward on a batch
-    shaped as ``x`` with the keep masks ``keep``, and the graph-kernel
-    launches one replay makes, added to ``kernels/graph.py::LAUNCHES`` at
-    each call, as the eager forward adds them."""
-    params = list(model.parameters())
-    at = {id(p): i for i, p in enumerate(params)}
-    # Every module's slot of a parameter (a module reached by two names,
-    # as ``bn{i}`` and ``conv{i}.1`` are, once).
-    slots = [(m, n, at[id(p)]) for m in model.modules() for n, p in m._parameters.items()
-             if p is not None]
-    # Detached aliases of the parameters (the same storage, new leaves): the
-    # capture differentiates them, so no autograd node of an earlier step
-    # that a caller still holds on the parameters takes part in it.
-    leaves = [p.detach().requires_grad_(p.requires_grad) for p in params]
-    owner, n_keep, per_call = weakref.ref(model), len(keep), {}
-
-    def forward(x, *args):
-        before = dict(graph.LAUNCHES)
-        for m, n, i in slots:
-            m._parameters[n] = args[n_keep + i]
-        try:
-            out = owner()(x, keep=list(args[:n_keep]))
-        finally:
-            for m, n, i in slots:
-                m._parameters[n] = params[i]
-        per_call.update({k: graph.LAUNCHES[k] - before[k] for k in before})
-        return out
-
-    saved = [b.clone() for b in model.buffers()]
-    graphed = torch.cuda.make_graphed_callables(forward, (x, *keep, *leaves),
-                                                allow_unused_input=True)
-    with torch.no_grad():  # the warm-up's BatchNorm statistics put back
-        for b, v in zip(model.buffers(), saved):
-            b.copy_(v)
-    for k, n in per_call.items():  # the capture recorded its launches, ran none
-        graph.LAUNCHES[k] -= n
-
-    def replay(x, keep, group=None):
-        for k, n in per_call.items():
-            graph.LAUNCHES[k] += n
-        return graphed(x, *keep, *params)
-
-    return replay
-
-
-def graphed_forward(state: TrainState, x: torch.Tensor, keep) -> Callable:
-    """A callable ``f(x, keep=, group=None)`` for a train-mode step of the
-    DGCNN ``state.model`` on a batch shaped as ``x`` with the keep masks
-    ``keep``.
-
-    On a card, the model's forward and its backward as CUDA graphs
-    (``torch.cuda.make_graphed_callables``), captured at the first step of
-    each batch shape and replayed after: a step then costs the host a few
-    launches instead of one for each of the model's ~900 operations, and the
-    card no longer waits on the host. The replays run the same kernels on
-    the same operands as the eager step, so they give its bits. The capture
-    runs the forward and backward a few times to warm up; the BatchNorm
-    statistics those runs move are put back, and the parameters are not
-    touched.
-
-    The graphs read and write the model's parameters and buffers where they
-    lie: a loaded state dict or an optimizer step, both in place, keep them
-    valid; where any of them moves (a ``.to()`` round trip,
-    ``load_state_dict(assign=True)``), the next step captures again. The
-    graphs are kept with the model, one a batch shape. On the CPU the model
-    itself."""
-    if not x.is_cuda:
-        return state.model
-    graphs = _GRAPHS.setdefault(state.model, {})
-    key, at = (tuple(x.shape), x.device), _addresses(state.model)
-    if graphs.get(key, (None,))[0] != at:
-        graphs[key] = (at, _capture(state.model, x, keep))
-    return graphs[key][1]
-
-
 def dgcnn_train_step(state: TrainState, batch: dict, keep=None, alpha: float = 0.0,
                      beta: float = 1.0, group=None) -> tuple[TrainState, dict]:
     """One step on alpha * cos + beta * mse; ``keep``, ``group`` and the
@@ -183,7 +98,7 @@ def dgcnn_train_step(state: TrainState, batch: dict, keep=None, alpha: float = 0
         with prof.span("ngpd.train.forward", dev):
             if keep is None:
                 keep = draw_local_keep(model, batch["x"].shape[0], state.generator, group)
-            forward = model if group is not None else graphed_forward(state, batch["x"], keep)
+            forward = model if group is not None else graphed_forward(state, (batch["x"],), keep)
             metrics = dgcnn_losses(forward(batch["x"], keep=keep, group=group), batch["y"])
             loss = alpha * metrics["cos_loss"] + beta * metrics["mse_loss"]
         optimise(state, loss, group)
@@ -255,12 +170,14 @@ class ShardStore:
 
     def _take(self, split: str, sel) -> dict:
         """The rows ``sel`` of a split: an index tensor on the device where
-        the split is staged there, else a numpy index into the host split."""
+        the split is staged there, else a numpy index into the host split
+        (the span ``ngpd.train.batch``)."""
         dev = self._staged(split)
-        if dev:
-            return {k: v[sel] for k, v in dev.items()}
-        return {k: torch.as_tensor(v[sel]).to(self.device)
-                for k, v in getattr(self, split).items()}
+        with prof.span("ngpd.train.batch", self.device):
+            if dev:
+                return {k: v[sel] for k, v in dev.items()}
+            return {k: torch.as_tensor(v[sel]).to(self.device)
+                    for k, v in getattr(self, split).items()}
 
     def batches(self, split: str, batch_size: int, shuffle: bool = True) -> Iterator[dict]:
         """The split's full batches in this epoch's order. Where the split is

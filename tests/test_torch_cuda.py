@@ -564,6 +564,50 @@ def test_card_training_step_matches_cpu(cuda_device, monkeypatch, kind):
         assert cs.fast_variance_probe("cuda")["ok"]
 
 
+def test_card_graphed_patch2normal_steps_give_the_eager_steps_bits(cuda_device, monkeypatch):
+    """Three Patch2Normal train steps at the full widths, batch 64, with
+    masked nodes and edges: the steps whose forward and backward replay
+    CUDA graphs against the eager steps, bit for bit (the losses, every
+    parameter and running statistic), with the eager steps' edge-block
+    launch counts; ``GRAPHS`` counts one capture, then a replay a step."""
+    from ngpd_tpu_torch.kernels import graph
+    from ngpd_tpu_torch.learn import train as tr
+    from ngpd_tpu_torch.models.patch2normal import init_patch2normal
+
+    g = torch.Generator().manual_seed(3)
+    batches = []
+    for _ in range(3):
+        node = torch.rand((64, 64), generator=g) < 0.8
+        node[:, 0] = True
+        batches.append({"x": torch.randn((64, 64, 8), generator=g) * node[..., None],
+                        "nbr_idx": torch.randint(0, 64, (64, 64, 12), generator=g),
+                        "nbr_mask": torch.rand((64, 64, 12), generator=g) < 0.9,
+                        "node_mask": node,
+                        "y": torch.nn.functional.normalize(torch.randn((64, 3), generator=g),
+                                                           dim=1)})
+
+    def steps():
+        model = init_patch2normal(seed=4).to(cuda_device)
+        state = tr.new_state(model, 1e-3, 0, cuda_device)
+        before, losses = dict(graph.LAUNCHES), []
+        for b in batches:
+            batch = {k: v.to(cuda_device) for k, v in b.items()}
+            losses.append(tr.train_step(state, batch)[1]["custom_val_loss"])
+        torch.cuda.synchronize()
+        return graph.LAUNCHES["edge_block"] - before["edge_block"], [torch.stack(losses)] + [
+            t.detach().clone() for t in model.state_dict().values()]
+
+    counted = dict(tr.GRAPHS)
+    graphed_launches, graphed = steps()
+    assert tr.GRAPHS == {"capture": counted["capture"] + 1, "replay": counted["replay"] + 3}
+    monkeypatch.setattr(tr, "graphed_forward", lambda state, inputs, keep: state.model)
+    eager_launches, eager = steps()
+    assert tr.GRAPHS == {"capture": counted["capture"] + 1, "replay": counted["replay"] + 3}
+    # the capture's three warm-up forwards ran their six blocks each too
+    assert eager_launches == 18 and graphed_launches == 18 + 3 * 6
+    assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
+
+
 # torch.distributed on the card: chip_smoke's sharded phases at small
 # sizes, each on a NCCL group of one rank that the check starts and
 # destroys (the machine has one card; the multi-rank exchanges are held

@@ -317,8 +317,8 @@ def test_the_graphed_steps_on_the_card_give_the_eager_steps_bits(monkeypatch, ca
     patches = _patches(_mesh(5))
     variables = ref.draw_variables(cfg, cfg["weights_seed"])
     calls = []
-    capture = ttd._capture
-    monkeypatch.setattr(ttd, "_capture", lambda *a: calls.append(1) or capture(*a))
+    capture = ttrain._capture
+    monkeypatch.setattr(ttrain, "_capture", lambda *a: calls.append(1) or capture(*a))
 
     def steps():
         store = ttd.ShardStore.from_patches([patches], cfg["val_fraction"], cfg["data_seed"],
@@ -346,7 +346,7 @@ def test_the_graphed_steps_on_the_card_give_the_eager_steps_bits(monkeypatch, ca
 
     graphed_launches, graphed = steps()
     assert len(calls) == captures
-    monkeypatch.setattr(ttd, "graphed_forward", lambda state, x, keep: state.model)
+    monkeypatch.setattr(ttd, "graphed_forward", lambda state, inputs, keep: state.model)
     eager_launches, eager = steps()
     assert len(calls) == captures
     # three steps' forwards, in train mode: no epilogue

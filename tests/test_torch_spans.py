@@ -286,12 +286,14 @@ def test_learned_normals_are_bit_equal_without_spans(monkeypatch):
 
 
 def test_an_unrecorded_span_costs_under_a_microsecond():
+    # This thread's CPU time, so that a worker descheduled by its
+    # neighbours in a parallel run is not charged for their time.
     n = 20_000
     best = float("inf")
     for _ in range(7):
-        t0 = time.perf_counter()
+        t0 = time.thread_time()
         for _ in range(n):
             with prof.span("ngpd.test.off"):
                 pass
-        best = min(best, (time.perf_counter() - t0) / n)
+        best = min(best, (time.thread_time() - t0) / n)
     assert best < 1e-6, f"{best * 1e9:.0f} ns a span"
